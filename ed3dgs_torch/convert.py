@@ -4,9 +4,12 @@ tensors.
 The JAX package keeps the Gaussian cloud as `GaussianParams`/`GaussianAux`
 NamedTuples and the deformation network as a nested dict pytree, saved as
 `point_cloud.ply` + `deformation.npz` (ed3dgs_tpu/data/scene.py:56-65) with
-keys in the `flatten_pytree` scheme ("coarse/feature/0/w", "weight", ...).
-Everything here takes numpy arrays or files, so it needs neither JAX nor the
-JAX package.
+keys in the `flatten_pytree` scheme ("coarse/feature/0/w", "weight", ...),
+and its whole training state as `chkpnt<N>.npz` (`save_checkpoint`,
+ed3dgs_tpu/tools/train.py:616-623): "params/...", the optax state
+"opt_state/inner_states/<group>/inner_state/0/{count,mu/...,nu/...}" and
+"aux/...". Everything here takes numpy arrays or files, so it needs neither
+JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -70,3 +73,29 @@ def load_model(model_dir: str, iteration: int, *, capacity=None, sh_degree: int 
     with np.load(os.path.join(it_dir, "deformation.npz")) as data:
         flat = {k: data[k] for k in data.files}
     return params, aux, deform_from_flat(flat, device=dev)
+
+
+def load_checkpoint(path: str, device="cuda"):
+    """A JAX `chkpnt<N>.npz` -> (TrainState, GaussianAux): parameters, both
+    Adam moments and each group's update count, the aux statistics, and the
+    iteration it was saved at (the next step runs at iteration + 1, as the
+    JAX package's `load_checkpoint` resumes)."""
+    from .train.optim import GROUPS, AdamState, TrainState, unflatten_params
+
+    dev = resolve_device(device)
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    iteration = int(flat.pop("iteration"))
+
+    def tensors(prefix):
+        return {k[len(prefix):]: torch.as_tensor(np.array(v), device=dev)
+                for k, v in flat.items() if k.startswith(prefix)}
+
+    params = unflatten_params(tensors("params/"))
+    opt_state = {}
+    for g in GROUPS:
+        adam = f"opt_state/inner_states/{g}/inner_state/0/"
+        opt_state[g] = AdamState(int(flat[adam + "count"]), tensors(adam + "mu/"),
+                                 tensors(adam + "nu/"))
+    aux = gm.GaussianAux(**tensors("aux/"))
+    return TrainState(params, opt_state, iteration), aux

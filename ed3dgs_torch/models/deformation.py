@@ -218,3 +218,18 @@ def deform_forward(
                               coef, coef_c, coef_o, coef_s)
 
     return final, (sub, orig)
+
+
+def mlp_param_labels(params):
+    """Label tree for per-group learning rates, the structure of `params`:
+    'offsets' for the per-camera time offsets, 'deformation' for everything
+    else (the reference's get_mlp_parameters excludes offsets,
+    scene/deformation.py:143-148)."""
+    def label(node, group):
+        if isinstance(node, dict):
+            return {k: label(v, group) for k, v in node.items()}
+        if isinstance(node, list):
+            return [label(v, group) for v in node]
+        return group
+    return {k: label(v, "offsets" if k == "offsets" else "deformation")
+            for k, v in params.items()}

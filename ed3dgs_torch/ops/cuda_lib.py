@@ -45,9 +45,22 @@ SIGNATURES = {
         "ed3dgs_forward_blend": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _F, _F, _F, _F, _P],
     },
+    "rasterize_backward": {
+        # payload, tile_start, tile_count, packed, cot, dpay, live_chunks,
+        # tchk, num_tiles, grid_x, gxp, chunk, cap, focal_x, focal_y,
+        # half_w, half_h, stream
+        "ed3dgs_backward_blend": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _F, _F, _F, _F, _P],
+    },
+    "segment_sum": {
+        # rows, starts, ends, out, S, F, stream
+        "ed3dgs_segment_sum": [_P, _P, _P, _P, _I, _I, _P],
+    },
     "relayout": {
         # packed, out, gy, gxp, C, stream
         "ed3dgs_unpack_image": [_P, _P, _I, _I, _I, _P],
+        # img, packed, gy, gxp, C, stream
+        "ed3dgs_pack_image": [_P, _P, _I, _I, _I, _P],
     },
 }
 

@@ -1,12 +1,25 @@
-"""Rasterizer API, forward only (port of ed3dgs_tpu/ops/rasterize.py with its
+"""Differentiable rasterizer API (port of ed3dgs_tpu/ops/rasterize.py with its
 "pallas" backend).
 
-`rasterize(proj, tongue, bg, cfg)` -> RasterOutputs: depth sort and tile
-binning (kernel K4), the per-pair payload gather, the tile blend (K1), the
-relayout to [C, H, W] (K5a), then `color + t_final * bg`. The port has one
-backend: the CUDA kernels for CUDA tensors, their plain PyTorch versions for
-CPU tensors. The torch.autograd.Function wiring (backward blend, segment
-sum) comes with the gradient slice.
+`rasterize(proj, tongue, bg, cfg)` -> RasterOutputs, differentiable with
+respect to every float field of `proj` and `tongue`: depth sort and tile
+binning (kernel K4), the per-pair payload gather and the tile blend (K1), the
+relayout to [C, H, W] (K5a), then `color + t_final * bg`.
+
+The gradient follows the JAX package's custom_vjp wiring, with no float
+scatter-add anywhere (the reference's atomics, and autograd's index backward,
+would make it run-dependent):
+  * `unpack` (ops/relayout.py): the image cotangent is packed back into
+    tiles by K5b;
+  * `_ExpandRaster`: the pair gather and K1 as one unit. Its backward runs
+    K2 (which writes a row for every pair of every tile, zero outside the
+    tile's live chunks), un-permutes the rows to pre-sort order (where each
+    Gaussian's pairs are contiguous) with the inverse of the bijection
+    `pair_perm`, and sums each Gaussian's rows with K3;
+  * `_PermuteRows`: the depth-order permute, whose backward is the
+    inverse-permutation gather.
+The port has one backend: the CUDA kernels for CUDA tensors, their plain
+PyTorch versions for CPU tensors.
 
 Each stage runs under a `torch.profiler.record_function` span
 (ed3dgs.bin / .gather / .blend / .relayout; render() adds ed3dgs.deform and
@@ -24,8 +37,9 @@ from torch.profiler import record_function
 from ..core.projection import ProjectedGaussians
 from .binning import bin_rows, build_gaussian_payload, tile_grid
 from .common import RasterOutputs
-from .rasterize_cuda import MAX_CHUNKS, OUT_CHANNELS, rasterize_forward
-from .relayout import unpack_image
+from .rasterize_cuda import MAX_CHUNKS, OUT_CHANNELS, rasterize_backward, rasterize_forward
+from .relayout import unpack
+from .segment_sum import segment_sum_rows
 
 
 @dataclass(frozen=True)
@@ -38,26 +52,77 @@ class RasterConfig:
     chunk: int = 128
 
 
+def _inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """inv with inv[perm[i]] = i, for a bijection perm (an integer store of
+    distinct targets: exact and deterministic)."""
+    inv = torch.empty_like(perm)
+    inv[perm.long()] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+    return inv
+
+
+class _PermuteRows(torch.autograd.Function):
+    """x[order] for a permutation `order` (the depth sort's); the backward is
+    the inverse-permutation gather, not autograd's scatter-add."""
+
+    @staticmethod
+    def forward(ctx, x, order):
+        ctx.save_for_backward(order)
+        return x[order.long()]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (order,) = ctx.saved_tensors
+        return ct[_inverse_permutation(order).long()], None
+
+
+class _ExpandRaster(torch.autograd.Function):
+    """Pair gather + K1, differentiable in the depth-sorted payload rows."""
+
+    @staticmethod
+    def forward(ctx, payload_sorted, bins, kw):
+        with record_function("ed3dgs.gather"):
+            # one row per (tile, gaussian) pair, in tile order
+            pair_payload = payload_sorted[bins.pair_gauss.long()]
+        with record_function("ed3dgs.blend"):
+            packed = rasterize_forward(pair_payload, bins.tile_start, bins.tile_count, **kw)
+        ctx.save_for_backward(pair_payload, packed)
+        ctx.bins, ctx.kw = bins, kw
+        return packed
+
+    @staticmethod
+    def backward(ctx, cot):
+        pair_payload, packed = ctx.saved_tensors
+        return sorted_payload_grad(pair_payload, packed, cot, ctx.bins, ctx.kw), None, None
+
+
+def sorted_payload_grad(pair_payload, packed, cot, bins, kw) -> torch.Tensor:
+    """The gradient of the blend with respect to the depth-sorted payload
+    rows [N, 26]: K2, the un-permute and K3. K2 writes every row of every
+    tile, and the segments K3 sums cover exactly those rows."""
+    with record_function("ed3dgs.blend_backward"):
+        dpay, _ = rasterize_backward(pair_payload, bins.tile_start, bins.tile_count,
+                                     packed, cot.contiguous(), **kw)
+    with record_function("ed3dgs.segment_sum"):
+        # pre-sort order: slot pair_perm[r] takes sorted row r
+        g_pre = dpay[_inverse_permutation(bins.pair_perm).long()]
+        return segment_sum_rows(g_pre, bins.seg_starts, bins.seg_ends)
+
+
 def rasterize_rows(payload, depth, valid, rect_min, rect_max, tiles_touched, bg,
                    cfg: RasterConfig, *, grid_x: int, grid_y: int) -> RasterOutputs:
     """Rasterize bare splat rows ([N, 26] payload, see build_gaussian_payload)
     over an explicit tile grid."""
     with record_function("ed3dgs.bin"):
-        bins = bin_rows(depth, valid, tiles_touched, rect_min, rect_max,
+        bins = bin_rows(depth.detach(), valid, tiles_touched, rect_min, rect_max,
                         grid_x=grid_x, grid_y=grid_y, pair_capacity=cfg.pair_capacity)
     with record_function("ed3dgs.gather"):
-        # depth-rank order, then one row per (tile, gaussian) pair; the
-        # gradient slice gives this permute an inverse-gather backward
-        # (_permute_rows)
-        pair_payload = payload[bins.order][bins.pair_gauss]
-    with record_function("ed3dgs.blend"):
-        packed = rasterize_forward(
-            pair_payload, bins.tile_start, bins.tile_count, grid_x=grid_x,
-            grid_y=grid_y, width=cfg.width, height=cfg.height, focal_x=cfg.focal_x,
-            focal_y=cfg.focal_y, chunk=cfg.chunk)
+        payload_sorted = _PermuteRows.apply(payload, bins.order)
+    kw = dict(grid_x=grid_x, grid_y=grid_y, width=cfg.width, height=cfg.height,
+              focal_x=cfg.focal_x, focal_y=cfg.focal_y, chunk=cfg.chunk)
+    packed = _ExpandRaster.apply(payload_sorted, bins, kw)
     with record_function("ed3dgs.relayout"):
         # padded tile columns hold garbage: slice before any arithmetic
-        img = unpack_image(packed)[:, :cfg.height, :cfg.width]
+        img = unpack(packed)[:, :cfg.height, :cfg.width]
     ch = {k: img[s] for k, s in OUT_CHANNELS.items()}
     return RasterOutputs(
         color=ch["color"] + ch["t_final"] * bg[:, None, None],

@@ -1,16 +1,24 @@
-"""Forward tile blend: kernel K1 (counterpart of
-ed3dgs_tpu/ops/rasterize_pallas.py, `rasterize_pallas_forward`).
+"""Tile blend kernels K1 (forward) and K2 (backward), the counterparts of
+ed3dgs_tpu/ops/rasterize_pallas.py `rasterize_pallas_forward` and
+`rasterize_pallas_backward`.
 
-One 16x16 tile per CUDA block, one thread per pixel, front to back over the
-tile's depth-sorted pair rows (rows [tile_start, tile_start + min(count,
+K1: one 16x16 tile per CUDA block, one thread per pixel, front to back over
+the tile's depth-sorted pair rows (rows [tile_start, tile_start + min(count,
 chunk*512)) of the gathered [K, 26] pair payload). The output keeps the TPU
 kernel's packed layout [gy, GXP, 24, 256] and channel order (OUT_CHANNELS),
-which the backward kernel of the gradient slice reads.
+which K2 reads back.
 
-On a CUDA tensor `rasterize_forward` launches csrc/rasterize_forward.cu; on a
-CPU tensor it runs `rasterize_forward_plain`, which follows the TPU kernel's
-chunked formulation (an in-chunk cumulative product and a per-chunk
-transmittance carry) vectorised over tiles.
+K2: the gradient of the tile blend with respect to the pair payload, in two
+passes per tile: pass A front to back records the transmittance at every
+chunk boundary and the tile's live-chunk count; pass B back to front over the
+live chunks turns the un-finalized output cotangents into one 26-wide
+gradient row per pair. Rows past a tile's live chunks get zero rows.
+
+On a CUDA tensor `rasterize_forward` / `rasterize_backward` launch
+csrc/rasterize_forward.cu / csrc/rasterize_backward.cu; on a CPU tensor they
+run `rasterize_forward_plain` / `rasterize_backward_plain`, which follow the
+TPU kernels' chunked formulation (an in-chunk cumulative product and a
+per-chunk transmittance carry) vectorised over tiles.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ MAX_CHUNKS = 512    # per-tile cap: chunk * MAX_CHUNKS pairs
 TILE_BATCH = 256    # tiles per step of the plain version
 
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 
 def _finalize(acc_w, acc_wx, acc_wy, med, t_final, pxf, pyf, half_w, half_h,
@@ -79,6 +88,46 @@ def _finalize(acc_w, acc_wx, acc_wy, med, t_final, pxf, pyf, half_w, half_h,
     return packed
 
 
+def _splat_alphas(block, inrow, pxf, pyf) -> dict:
+    """The blend's per pair-pixel alpha terms for a [B, C, F] block of rows,
+    with K1's and K2's arithmetic (the conic scaled by -0.5*log2(e) and
+    -log2(e), exp2). inrow [B, C] masks rows past a tile's count."""
+    S = PAYLOAD_SLICES
+    mx, cc, op = S["mean2d"].start, S["conic"].start, S["opacity"].start
+    col = lambda j: block[:, :, j:j + 1]                                   # noqa: E731
+    dx = col(mx) - pxf[:, None, :]                                         # [B, C, PIX]
+    dy = col(mx + 1) - pyf[:, None, :]
+    c0e = col(cc) * (-0.5 * LOG2E)
+    c1e = col(cc + 1) * (-LOG2E)
+    c2e = col(cc + 2) * (-0.5 * LOG2E)
+    power2 = dx * (c0e * dx + c1e * dy) + c2e * dy * dy
+    e2 = torch.exp2(power2)
+    alpha_raw = col(op) * e2
+    alpha = torch.clamp_max(alpha_raw, ALPHA_MAX)
+    passes = inrow[..., None] & (power2 <= 0.0) & (alpha >= ALPHA_MIN)
+    a = torch.where(passes, alpha, torch.zeros_like(alpha))
+    return dict(dx=dx, dy=dy, e2=e2, alpha_raw=alpha_raw, alpha=alpha, passes=passes,
+                a=a, c0e=c0e, c1e=c1e, c2e=c2e)
+
+
+def _tile_pixels(tid, grid_x, lane):
+    f32 = torch.float32
+    pxf = ((tid % grid_x) * TILE)[:, None].to(f32) + (lane % TILE).to(f32)
+    pyf = ((tid // grid_x) * TILE)[:, None].to(f32) + (lane // TILE).to(f32)
+    return pxf, pyf
+
+
+def _chunk_rows(pair_payload, start, count, c, chunk, rowid):
+    """Rows of chunk c of each tile, [B, C, F], zero past the tile's count,
+    with their row indices [B, C] and the in-count mask [B, C]."""
+    inrow = rowid[None, :] < (count - c * chunk)[:, None]
+    idx = torch.clamp(start[:, None] + c * chunk + rowid[None, :], 0,
+                      pair_payload.shape[0] - 1)
+    block = torch.where(inrow[..., None], pair_payload[idx],
+                        torch.zeros((), dtype=pair_payload.dtype, device=pair_payload.device))
+    return block, idx, inrow
+
+
 def rasterize_forward_plain(pair_payload, tile_start, tile_count, *, grid_x: int,
                             grid_y: int, width: int, height: int, focal_x: float,
                             focal_y: float, chunk: int = 128,
@@ -94,19 +143,16 @@ def rasterize_forward_plain(pair_payload, tile_start, tile_count, *, grid_x: int
     f32 = torch.float32
     S = PAYLOAD_SLICES
     num_tiles = grid_x * grid_y
-    K = pair_payload.shape[0]
     out = torch.zeros((grid_y, pad_grid_x(grid_x), OUT_PAD, PIX), dtype=f32, device=dev)
     count_all = torch.clamp_max(tile_count, chunk * MAX_CHUNKS)
     lane = torch.arange(PIX, device=dev)
     rowid = torch.arange(chunk, device=dev)
-    mx, cc, op = S["mean2d"].start, S["conic"].start, S["opacity"].start
     vp, cp, rp, ts = (S["view_point"].start, S["camera_planes"].start,
                       S["ray_plane"].start, S["ts"].start)
     for b0 in range(0, num_tiles, TILE_BATCH):
         tid = torch.arange(b0, min(b0 + TILE_BATCH, num_tiles), device=dev)
         B = tid.shape[0]
-        pxf = ((tid % grid_x) * TILE)[:, None].to(f32) + (lane % TILE).to(f32)
-        pyf = ((tid // grid_x) * TILE)[:, None].to(f32) + (lane // TILE).to(f32)
+        pxf, pyf = _tile_pixels(tid, grid_x, lane)
         start = tile_start[tid].to(torch.int64)
         count = count_all[tid].to(torch.int64)
         n_chunks = int(((count + chunk - 1) // chunk).max()) if B else 0
@@ -116,20 +162,9 @@ def rasterize_forward_plain(pair_payload, tile_start, tile_count, *, grid_x: int
         acc_wy = torch.zeros_like(acc_w)
         med = torch.zeros((B, 4, PIX), dtype=f32, device=dev)   # t, coord xyz
         for c in range(n_chunks):
-            inrow = rowid[None, :] < (count - c * chunk)[:, None]          # [B, C]
-            idx = torch.clamp(start[:, None] + c * chunk + rowid[None, :], 0, K - 1)
-            block = torch.where(inrow[..., None], pair_payload[idx],
-                                torch.zeros((), dtype=f32, device=dev))     # [B, C, F]
-            col = lambda j: block[:, :, j:j + 1]                           # noqa: E731
-            dx = col(mx) - pxf[:, None, :]                                 # [B, C, PIX]
-            dy = col(mx + 1) - pyf[:, None, :]
-            c0e = col(cc) * (-0.5 * LOG2E)
-            c1e = col(cc + 1) * (-LOG2E)
-            c2e = col(cc + 2) * (-0.5 * LOG2E)
-            power2 = dx * (c0e * dx + c1e * dy) + c2e * dy * dy
-            alpha = torch.clamp_max(col(op) * torch.exp2(power2), ALPHA_MAX)
-            passes = inrow[..., None] & (power2 <= 0.0) & (alpha >= ALPHA_MIN)
-            a = torch.where(passes, alpha, torch.zeros_like(alpha))
+            block, _, inrow = _chunk_rows(pair_payload, start, count, c, chunk, rowid)
+            sp = _splat_alphas(block, inrow, pxf, pyf)
+            dx, dy, passes, a = sp["dx"], sp["dy"], sp["passes"], sp["a"]
             p_incl = t_carry[:, None, :] * torch.cumprod(1.0 - a, dim=1)
             p_excl = torch.cat([t_carry[:, None, :], p_incl[:, :-1]], dim=1)
             include = passes & (p_incl >= T_STOP)
@@ -198,3 +233,219 @@ def rasterize_forward(pair_payload, tile_start, tile_count, *, grid_x: int,
 
 
 rasterize_forward.launches = 0
+
+
+def _unfinalize(pk, ct, ln):
+    """Output cotangents of one tile batch -> the accumulator cotangents
+    (rasterize_pallas.py:425-461). pk, ct [B, OUT_PAD, PIX]; ln [B, PIX].
+    Returns a dict of [B, PIX] (or [B, k, PIX]) terms."""
+    OC = OUT_CHANNELS
+    W = pk[:, OC["weight"].start]
+    anyc = W > 0.0
+    safe_W = torch.where(anyc, W, torch.ones_like(W))
+    zero = torch.zeros_like(W)
+    cot_W = ct[:, OC["weight"].start]
+    ec, cot_ec = pk[:, OC["coord"]], ct[:, OC["coord"]]
+    cot_Ac = torch.where(anyc[:, None], cot_ec / safe_W[:, None], torch.zeros_like(cot_ec))
+    cot_W = cot_W - torch.where(anyc, torch.sum(cot_ec * ec, dim=1) / safe_W, zero)
+    ed, cot_ed = pk[:, OC["depth"].start], ct[:, OC["depth"].start]
+    cot_Ad = torch.where(anyc, cot_ed / (ln * safe_W), zero)
+    cot_W = cot_W - torch.where(anyc, cot_ed * ed / safe_W, zero)
+    cot_mt = torch.where(anyc, ct[:, OC["mdepth"].start] / ln, zero)
+    cot_mc = torch.where(anyc[:, None], ct[:, OC["mcoord"]], torch.zeros_like(ec))
+    nrm, nlen = pk[:, OC["normal"]], pk[:, OC["normal_len"].start]
+    cot_nrm = ct[:, OC["normal"]]
+    inv_len = torch.where(anyc, 1.0 / torch.clamp_min(nlen, NORMALIZE_EPS), zero)
+    ndot = torch.sum(nrm * cot_nrm, dim=1)
+    degen = nlen * nlen < 1e-30
+    cot_An = torch.where(degen[:, None],
+                         cot_nrm * torch.where(anyc, torch.full_like(W, 1.0 / NORMALIZE_EPS),
+                                               zero)[:, None],
+                         (cot_nrm - nrm * ndot[:, None]) * inv_len[:, None])
+    return dict(rgb=ct[:, OC["color"]], tongue=ct[:, OC["tongue"].start], Ac=cot_Ac,
+                Ad=cot_Ad, mt=cot_mt, mc=cot_mc, An=cot_An, W=cot_W,
+                tfin=ct[:, OC["t_final"].start] * pk[:, OC["t_final"].start])
+
+
+def _cotangent_matrices(u):
+    """The six [B, F, PIX] cotangent matrices of rasterize_pallas.py:463-503:
+    a pixel's gradient row for a splat of weight w at offset (dx, dy) is
+    w@M1 + (w dx)@M2 + (w dy)@M3, plus sel@N1 + (sel dx)@N2 + (sel dy)@N3 for
+    the splat its median channels selected."""
+    S = PAYLOAD_SLICES
+    B, P = u["W"].shape
+    z = lambda: torch.zeros((B, PAYLOAD_WIDTH, P), dtype=u["W"].dtype,  # noqa: E731
+                            device=u["W"].device)
+    M1, M2, M3, N1, N2, N3 = z(), z(), z(), z(), z(), z()
+    vp, cp, rp, ts = (S["view_point"].start, S["camera_planes"].start,
+                      S["ray_plane"].start, S["ts"].start)
+    M1[:, S["rgb"]] = u["rgb"]
+    M1[:, S["tongue"].start] = u["tongue"]
+    M1[:, S["view_point"]] = u["Ac"]
+    M1[:, ts] = u["Ad"]
+    M1[:, S["normal"]] = u["An"]
+    M1[:, ONES_COL] = u["W"]
+    N1[:, S["view_point"]] = u["mc"]
+    N1[:, ts] = u["mt"]
+    for i in range(3):
+        M2[:, cp + 2 * i] = u["Ac"][:, i]
+        M3[:, cp + 2 * i + 1] = u["Ac"][:, i]
+        N2[:, cp + 2 * i] = u["mc"][:, i]
+        N3[:, cp + 2 * i + 1] = u["mc"][:, i]
+    M2[:, rp] = u["Ad"]
+    M3[:, rp + 1] = u["Ad"]
+    N2[:, rp] = u["mt"]
+    N3[:, rp + 1] = u["mt"]
+    return M1, M2, M3, N1, N2, N3
+
+
+def rasterize_backward_plain(pair_payload, tile_start, tile_count, packed, cot, *,
+                             grid_x: int, grid_y: int, width: int, height: int,
+                             focal_x: float, focal_y: float, chunk: int = 128):
+    """Plain PyTorch version of K2 (same arguments and results as
+    `rasterize_backward`), TILE_BATCH tiles at a time. Rows past the last
+    tile's, which K2 leaves unwritten, are zero here."""
+    dev = pair_payload.device
+    f32 = torch.float32
+    num_tiles = grid_x * grid_y
+    K = pair_payload.shape[0]
+    dpay = torch.zeros((K, PAYLOAD_WIDTH), dtype=f32, device=dev)
+    clive_all = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
+    count_all = torch.clamp_max(tile_count, chunk * MAX_CHUNKS)
+    lane = torch.arange(PIX, device=dev)
+    rowid = torch.arange(chunk, device=dev)
+    ein = lambda x, m: torch.einsum("bcp,bfp->bcf", x, m)                  # noqa: E731
+    pxy = lambda x, m: torch.einsum("bcf,bfp->bcp", x, m)                  # noqa: E731
+    for b0 in range(0, num_tiles, TILE_BATCH):
+        tid = torch.arange(b0, min(b0 + TILE_BATCH, num_tiles), device=dev)
+        B = tid.shape[0]
+        pxf, pyf = _tile_pixels(tid, grid_x, lane)
+        start = tile_start[tid].to(torch.int64)
+        count = count_all[tid].to(torch.int64)
+        n_chunks = (count + chunk - 1) // chunk
+        # ---- pass A: checkpoints tchk[c] (the carry entering chunk c) and the
+        # live-chunk count: the loop runs while c < n_chunks and some pixel's
+        # carry is still >= T_STOP
+        t_carry = torch.ones((B, PIX), dtype=f32, device=dev)
+        running = torch.ones(B, dtype=torch.bool, device=dev)
+        clive = torch.zeros(B, dtype=torch.int64, device=dev)
+        tchk = []
+        for c in range(int(n_chunks.max()) if B else 0):
+            tchk.append(t_carry)
+            running = running & (c < n_chunks) & (t_carry.amax(dim=1) >= T_STOP)
+            block, _, inrow = _chunk_rows(pair_payload, start, count, c, chunk, rowid)
+            sp = _splat_alphas(block, inrow, pxf, pyf)
+            p_incl = t_carry[:, None, :] * torch.cumprod(1.0 - sp["a"], dim=1)
+            include = sp["passes"] & (p_incl >= T_STOP)
+            new_t = torch.where(include, p_incl, t_carry[:, None, :]).amin(dim=1)
+            t_carry = torch.where(running[:, None], new_t, t_carry)
+            clive = clive + running.to(torch.int64)
+        clive_all[tid] = clive.to(torch.int32)
+        # ---- un-finalize the output cotangents
+        ty, tx = tid // grid_x, tid % grid_x
+        u = (pxf - width / 2.0) / focal_x
+        v = (pyf - height / 2.0) / focal_y
+        ln = torch.sqrt(u * u + v * v + 1.0)
+        cu = _unfinalize(packed[ty, tx], cot[ty, tx], ln)
+        M1, M2, M3, N1, N2, N3 = _cotangent_matrices(cu)
+        tfin = cu["tfin"][:, None, :]
+        # ---- pass B: back to front over the live chunks
+        s_carry = torch.zeros((B, PIX), dtype=f32, device=dev)
+        med_done = torch.zeros((B, PIX), dtype=torch.bool, device=dev)
+        for c in range(int(clive.max()) - 1 if B else -1, -1, -1):
+            live = c < clive
+            block, idx, inrow = _chunk_rows(pair_payload, start, count, c, chunk, rowid)
+            inrow = inrow & live[:, None]
+            sp = _splat_alphas(block, inrow, pxf, pyf)
+            dx, dy, a, alpha = sp["dx"], sp["dy"], sp["a"], sp["alpha"]
+            om = 1.0 - a
+            t_c = tchk[c][:, None, :]
+            p_incl = t_c * torch.cumprod(om, dim=1)
+            p_excl = torch.cat([t_c, p_incl[:, :-1]], dim=1)
+            include = sp["passes"] & (p_incl >= T_STOP)
+            zero = torch.zeros_like(a)
+            w = torch.where(include, a * p_excl, zero)
+            G2, G3 = pxy(block, M2), pxy(block, M3)
+            G = pxy(block, M1) + dx * G2 + dy * G3
+            # median cotangent: once per pixel, to the last selecting splat
+            mmask = include & (p_excl > MEDIAN_T)
+            midx = torch.where(mmask, rowid[None, :, None], -1).amax(dim=1)       # [B, PIX]
+            sel = ((rowid[None, :, None] == midx[:, None, :]) & mmask
+                   & ~med_done[:, None, :]).to(f32)
+            med_done = med_done | (midx >= 0)
+            H2, H3 = pxy(block, N2), pxy(block, N3)
+            # alpha gradient with the suffix sum of later splats' w*G
+            uu = w * G
+            pref = torch.cumsum(uu, dim=1)
+            total = pref[:, -1:, :]
+            s_after = s_carry[:, None, :] + (total - pref)
+            da = torch.where(include, p_excl * G - (s_after + tfin) / om, zero)
+            s_carry = s_carry + total[:, 0, :]
+            notcl = (sp["alpha_raw"] < ALPHA_MAX).to(f32)
+            dpow = da * alpha * notcl
+            dop_pp = da * sp["e2"] * notcl
+            dB = (ein(w, M1) + ein(w * dx, M2) + ein(w * dy, M3)
+                  + ein(sel, N1) + ein(sel * dx, N2) + ein(sel * dy, N3))
+            dpl = dpow * LN2
+            ddx = dpl * (sp["c0e"] * 2.0 * dx + sp["c1e"] * dy) + w * G2 + sel * H2
+            ddy = dpl * (sp["c2e"] * 2.0 * dy + sp["c1e"] * dx) + w * G3 + sel * H3
+            head = torch.stack([ddx.sum(2), ddy.sum(2), (-0.5 * dx * dx * dpow).sum(2),
+                                (-dx * dy * dpow).sum(2), (-0.5 * dy * dy * dpow).sum(2),
+                                dop_pp.sum(2)], dim=2)                      # [B, C, 6]
+            dB = torch.cat([dB[..., :6] + head, dB[..., 6:]], dim=2)
+            dpay[idx[inrow]] = dB[inrow]      # head: columns 0..5 (mean2d, conic, opacity)
+    return dpay, clive_all
+
+
+def rasterize_backward(pair_payload, tile_start, tile_count, packed, cot, *,
+                       grid_x: int, grid_y: int, width: int, height: int,
+                       focal_x: float, focal_y: float, chunk: int = 128):
+    """Gradient of `rasterize_forward` with respect to pair_payload.
+
+    packed is the forward's output and cot its cotangent, both [grid_y, GXP,
+    24, 256]. Returns (d pair_payload [K, 26], live_chunks [T] int32). Every
+    row of every tile, [tile_start, tile_start + tile_count), is written: a
+    row past the tile's first live_chunks chunks (or past the cap) blends
+    nowhere and gets a zero row. Rows past the last tile's hold whatever the
+    buffer held."""
+    if not pair_payload.is_cuda:
+        return rasterize_backward_plain(
+            pair_payload, tile_start, tile_count, packed, cot, grid_x=grid_x,
+            grid_y=grid_y, width=width, height=height, focal_x=focal_x,
+            focal_y=focal_y, chunk=chunk)
+    num_tiles = grid_x * grid_y
+    cuda_lib.check_cuda(pair_payload, "pair_payload", torch.float32, 2)
+    if pair_payload.shape[1] != PAYLOAD_WIDTH:
+        raise ValueError(f"pair_payload rows must be {PAYLOAD_WIDTH} wide")
+    for name, t in (("tile_start", tile_start), ("tile_count", tile_count)):
+        cuda_lib.check_cuda(t, name, torch.int32, 1)
+        if t.shape[0] != num_tiles:
+            raise ValueError(f"{name} must have {num_tiles} entries")
+    gxp = pad_grid_x(grid_x)
+    for name, t in (("packed", packed), ("cot", cot)):
+        cuda_lib.check_cuda(t, name, torch.float32, 4)
+        if tuple(t.shape) != (grid_y, gxp, OUT_PAD, PIX):
+            raise ValueError(f"{name} must be [{grid_y}, {gxp}, {OUT_PAD}, {PIX}]")
+    if not 0 < chunk * PAYLOAD_WIDTH * 4 <= 40 * 1024:
+        raise ValueError(f"chunk {chunk} does not fit the kernel's shared memory")
+    K = pair_payload.shape[0]
+    dev = pair_payload.device
+    dpay = torch.empty((K, PAYLOAD_WIDTH), dtype=torch.float32, device=dev)
+    clive = torch.empty(num_tiles, dtype=torch.int32, device=dev)
+    # transmittance checkpoints: tile t keeps its n_chunks+1 rows of 256 at
+    # row 2t + ceil(tile_start/chunk), which never overlaps the next tile's
+    tchk = torch.empty((2 * num_tiles + (K + chunk - 1) // chunk + 1, PIX),
+                       dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = cuda_lib.lib("rasterize_backward").ed3dgs_backward_blend(
+            pair_payload.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
+            packed.data_ptr(), cot.data_ptr(), dpay.data_ptr(), clive.data_ptr(),
+            tchk.data_ptr(), num_tiles, grid_x, gxp, chunk, chunk * MAX_CHUNKS,
+            focal_x, focal_y, width / 2.0, height / 2.0, cuda_lib.stream_of(pair_payload))
+    cuda_lib.check_launch(err, "rasterize_backward")
+    rasterize_backward.launches += 1
+    return dpay, clive
+
+
+rasterize_backward.launches = 0
+

@@ -1,5 +1,5 @@
-"""Relayout of the blend kernel's tile-packed output: kernel K5a (port of
-ed3dgs_tpu/ops/relayout.py, `unpack_image`).
+"""Relayout of the blend kernel's tile-packed output: kernels K5a and K5b
+(port of ed3dgs_tpu/ops/relayout.py, `unpack_image` and its custom_vjp).
 
 The blend kernel writes [gy, GXP, C, 256]: one 16x16 tile per (tile row,
 tile column), channel-major, with the tile columns padded to a multiple of 8
@@ -8,11 +8,13 @@ tile column), channel-major, with the tile columns padded to a multiple of 8
     out[c, ty*16 + y, tx*16 + x] = packed[ty, tx, c, 16*y + x]
 
 Tile columns grid_x..GXP are never written by the blend kernel, so callers
-slice [:, :H, :W] before any arithmetic. The reverse (pack) kernel is the
-gradient's and comes with the gradient slice.
+slice [:, :H, :W] before any arithmetic. `pack_image` (K5b) is the exact
+inverse, and `unpack` is the differentiable relayout: an autograd Function
+whose backward packs the image cotangent (the JAX package's
+`unpack_image.defvjp`).
 
-On a CUDA tensor `unpack_image` launches csrc/relayout.cu; on a CPU tensor it
-runs `unpack_image_plain`.
+On a CUDA tensor each wrapper launches its kernel in csrc/relayout.cu; on a
+CPU tensor it runs its plain version.
 """
 
 from __future__ import annotations
@@ -58,3 +60,47 @@ def unpack_image(packed: torch.Tensor) -> torch.Tensor:
 
 
 unpack_image.launches = 0
+
+
+def pack_image_plain(img: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5b: reshape + permute + copy."""
+    C, H, W = img.shape
+    gy, gxp = H // TILE, W // TILE
+    return (img.reshape(C, gy, TILE, gxp, TILE).permute(1, 3, 0, 2, 4)
+            .reshape(gy, gxp, C, PIX).contiguous())
+
+
+def pack_image(img: torch.Tensor) -> torch.Tensor:
+    """[C, gy*16, GXP*16] float32 image -> [gy, GXP, C, 256] tile-packed."""
+    C, H, W = img.shape
+    if H % TILE or W % (TILE * GROUP):
+        raise ValueError(f"image {H}x{W} is not whole tile rows of 8-tile groups")
+    if not img.is_cuda:
+        return pack_image_plain(img)
+    cuda_lib.check_cuda(img, "img", torch.float32, 3)
+    gy, gxp = H // TILE, W // TILE
+    out = torch.empty((gy, gxp, C, PIX), dtype=torch.float32, device=img.device)
+    with torch.cuda.device(img.device):
+        err = cuda_lib.lib("relayout").ed3dgs_pack_image(
+            img.data_ptr(), out.data_ptr(), gy, gxp, C, cuda_lib.stream_of(img))
+    cuda_lib.check_launch(err, "pack_image")
+    pack_image.launches += 1
+    return out
+
+
+pack_image.launches = 0
+
+
+class _Unpack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, packed):
+        return unpack_image(packed)
+
+    @staticmethod
+    def backward(ctx, cot):
+        return pack_image(cot.contiguous())
+
+
+def unpack(packed: torch.Tensor) -> torch.Tensor:
+    """Differentiable `unpack_image`: the backward runs `pack_image`."""
+    return _Unpack.apply(packed)

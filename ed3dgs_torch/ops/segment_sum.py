@@ -1,0 +1,63 @@
+"""CSR segment sum of rows: kernel K3 (port of ed3dgs_tpu/ops/segment_sum.py,
+`segment_sum_rows`).
+
+`segment_sum_rows(rows, starts, ends)` returns `out[s] =
+rows[starts[s]:ends[s]].sum(0)` for monotone CSR bounds (starts and ends
+non-decreasing, starts[s] <= ends[s] <= R); an empty segment gives zeros. It
+turns the rasterizer's per-pair gradient rows, un-permuted so that each
+Gaussian's pairs are contiguous, into per-Gaussian gradients without a
+scatter-add, so the result is deterministic.
+
+The rows are at most 32 floats wide (the pair payload is 26): the TPU
+kernel's 128-lane rule and its over-read slack rows (`pad_rows`, `SS_CHUNK`)
+are not needed, since the CUDA kernel reads no row outside a segment.
+
+On a CUDA tensor `segment_sum_rows` launches csrc/segment_sum.cu, which sums
+in float64 and rounds once; on a CPU tensor it runs `segment_sum_rows_plain`,
+the difference of float64 prefix sums, which agrees with it to the float32
+rounding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+
+MAX_WIDTH = 32   # one warp lane per column
+
+
+def segment_sum_rows_plain(rows: torch.Tensor, starts: torch.Tensor,
+                           ends: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3: float64 prefix sums, differenced at the
+    bounds, rounded to float32."""
+    zero = torch.zeros((1, rows.shape[1]), dtype=torch.float64, device=rows.device)
+    prefix = torch.cat([zero, torch.cumsum(rows.to(torch.float64), dim=0)])
+    return (prefix[ends.long()] - prefix[starts.long()]).to(torch.float32)
+
+
+def segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
+                     ends: torch.Tensor) -> torch.Tensor:
+    """rows [R, F] float32 (F <= 32), starts/ends [S] int32 monotone CSR
+    bounds -> [S, F] float32 segment sums."""
+    if rows.dim() != 2 or rows.shape[1] > MAX_WIDTH:
+        raise ValueError(f"rows must be [R, F] with F <= {MAX_WIDTH}, got {tuple(rows.shape)}")
+    if starts.shape != ends.shape or starts.dim() != 1:
+        raise ValueError("starts and ends must be matching 1-D bounds")
+    if not rows.is_cuda:
+        return segment_sum_rows_plain(rows, starts, ends)
+    cuda_lib.check_cuda(rows, "rows", torch.float32, 2)
+    cuda_lib.check_cuda(starts, "starts", torch.int32, 1)
+    cuda_lib.check_cuda(ends, "ends", torch.int32, 1)
+    S, F = starts.shape[0], rows.shape[1]
+    out = torch.empty((S, F), dtype=torch.float32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        err = cuda_lib.lib("segment_sum").ed3dgs_segment_sum(
+            rows.data_ptr(), starts.data_ptr(), ends.data_ptr(), out.data_ptr(), S, F,
+            cuda_lib.stream_of(rows))
+    cuda_lib.check_launch(err, "segment_sum_rows")
+    segment_sum_rows.launches += 1
+    return out
+
+
+segment_sum_rows.launches = 0

@@ -68,10 +68,13 @@ def project_for_render(
     num_down_emb_c: int = 30,
     num_down_emb_f: int = 30,
     tongue_filter: Optional[str] = None,  # None | "only" | "without"
+    mean2d_offset: Optional[torch.Tensor] = None,
     active_sh_degree=None,
 ):
     """Deform -> activate -> project one camera. Returns
-    (proj, shs_f, xyz_f, extras)."""
+    (proj, shs_f, xyz_f, extras). `mean2d_offset` [N, 2] is added to the
+    pixel-space centres: the trainer passes zeros and reads their gradient,
+    the screen-space gradient that densification accumulates."""
     shs = gm.get_features(params)
     with record_function("ed3dgs.deform"):
         (xyz_f, scales_f, rot_f, opac_f, shs_f), extras = deform_forward(
@@ -110,6 +113,7 @@ def project_for_render(
             tan_fovy=raster_cfg.height / (2.0 * raster_cfg.focal_y),
             focal_x=raster_cfg.focal_x, focal_y=raster_cfg.focal_y,
             kernel_size=kernel_size, sh_degree=sh_degree, mask=mask,
+            mean2d_offset=mean2d_offset,
         )
     return proj, shs_f, xyz_f, extras
 
@@ -130,6 +134,7 @@ def render(
     num_down_emb_c: int = 30,
     num_down_emb_f: int = 30,
     tongue_filter: Optional[str] = None,  # None | "only" | "without"
+    mean2d_offset: Optional[torch.Tensor] = None,
     active_sh_degree=None,
 ) -> dict:
     """One render (reference gaussian_renderer.render :8-142). tongue_filter
@@ -140,7 +145,8 @@ def render(
         iteration=iteration, sh_degree=sh_degree, kernel_size=kernel_size,
         disable_filter3d=disable_filter3d,
         num_down_emb_c=num_down_emb_c, num_down_emb_f=num_down_emb_f,
-        tongue_filter=tongue_filter, active_sh_degree=active_sh_degree)
+        tongue_filter=tongue_filter, mean2d_offset=mean2d_offset,
+        active_sh_degree=active_sh_degree)
     out = rasterize(proj, aux.tongue_class[:, 0], bg, raster_cfg)
     return assemble_outputs(out, proj, shs_f, xyz_f, extras)
 

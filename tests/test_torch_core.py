@@ -213,3 +213,69 @@ def test_gaussian_activations_and_3d_filter_match_jax():
     mask = den != 0.0
     close(j_safe_div(jnp.asarray(num), jnp.asarray(den), jnp.asarray(mask)),
           safe_div(T(num), T(den), T(mask)), atol=0)
+
+
+PROJ_FLOAT_OUT = ("mean2d", "depth", "view_point", "conic", "opacity", "camera_planes",
+                  "ray_plane", "normal", "ts", "rgb", "cov3d")
+
+
+def test_project_gaussians_vjp_matches_jax():
+    """The projection's gradient under autograd against jax.vjp, on the
+    cloud above: a Gaussian at the camera centre, one behind the camera, two
+    flat covariances and an isotropic one. The double-where guards keep every
+    gradient finite, and each input's gradient agrees at 1e-5 of its largest
+    value (the screen-space offset's too: it is densification's statistic),
+    except at the Gaussian on the camera centre: there the guarded depth is
+    1e-8 and its terms scale by 1e8, so its finite gradient is float noise
+    in both packages (measured 3% apart) and is held to finiteness only."""
+    w, h = 48, 40
+    means, scales, q, opac, shs = cloud(300, seed=3)
+    off = np.zeros((300, 2), np.float32)
+    fov = math.radians(55.0)
+    # the camera sits exactly on Gaussian 0
+    cam = j_look_at((0.0, 0.0, 0.0), (0, 0, 2.0), (0, -1, 0), fov,
+                    2 * math.atan(math.tan(fov / 2) * h / w), w, h).matrices()
+    kw = dict(width=w, height=h, tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy,
+              focal_x=cam.focal_x, focal_y=cam.focal_y, kernel_size=0.1, sh_degree=3)
+    rng = np.random.default_rng(11)
+
+    def jf(*xs):
+        p = j_project(*xs[:5], viewmatrix=jnp.asarray(cam.world_view),
+                      projmatrix=jnp.asarray(cam.full_proj), campos=jnp.asarray(cam.campos),
+                      mean2d_offset=xs[5], **kw)
+        return [getattr(p, k) for k in PROJ_FLOAT_OUT]
+
+    inputs = (means, scales, q, opac, shs, off)
+    outs, vjp = jax.vjp(jf, *(jnp.asarray(x) for x in inputs))
+    cots = [rng.normal(size=o.shape).astype(np.float32) for o in outs]
+    want = vjp([jnp.asarray(c) for c in cots])
+
+    leaves = [T(x).requires_grad_(True) for x in inputs]
+    pt = t_project(*leaves[:5], viewmatrix=T(cam.world_view), projmatrix=T(cam.full_proj),
+                   campos=T(cam.campos), mean2d_offset=leaves[5], **kw)
+    got = torch.autograd.grad([getattr(pt, k) for k in PROJ_FLOAT_OUT], leaves,
+                              [T(c) for c in cots])
+    for name, a, b in zip(("means", "scales", "quats", "opac", "shs", "offset"), want, got):
+        a, b = np.asarray(a), b.numpy()
+        assert np.all(np.isfinite(b)), name
+        assert np.all(np.isfinite(a)), name
+        a, b = a[1:], b[1:]
+        assert np.abs(b - a).max() <= 1e-5 * np.abs(a).max(), (
+            name, float(np.abs(b - a).max()), float(np.abs(a).max()))
+    assert np.abs(np.asarray(want[5])).max() > 0
+
+
+def test_points_to_normal_vjp_is_finite_on_flat_regions():
+    """A flat region has a zero cross product: the safe normalisation's
+    gradient there is zero in both packages, not NaN."""
+    pts = np.zeros((3, 12, 10), np.float32)
+    pts[:, 6:, :] = np.random.default_rng(4).normal(size=(3, 6, 10))
+    cot = np.random.default_rng(5).normal(size=(3, 12, 10)).astype(np.float32)
+    _, vjp = jax.vjp(j_cm.points_to_normal, jnp.asarray(pts))
+    (want,) = vjp(jnp.asarray(cot))
+    x = T(pts).requires_grad_(True)
+    (got,) = torch.autograd.grad(t_cm.points_to_normal(x), x, T(cot))
+    assert np.all(np.isfinite(got.numpy()))
+    assert np.all(got.numpy()[:, :5] == 0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * np.abs(np.asarray(want)).max())

@@ -6,12 +6,16 @@ repo's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: K4 and K5a bit-exact (integer scans; a permutation). K1 at atol
-1e-4 plus rtol 1e-4 on every pixel: the kernel sums and multiplies in
+Tolerances: K4, K5a and K5b bit-exact (integer scans; permutations). K1 at
+atol 1e-4 plus rtol 1e-4 on every pixel: the kernel sums and multiplies in
 sequence where the plain version uses torch.cumprod and einsum, and the
 expected-coordinate channels divide by the blend weight. Only the median
 channels may differ beyond that, for a pixel whose transmittance sits at the
-0.5 crossing; at most 0.1% of pixels may do so.
+0.5 crossing; at most 0.1% of pixels may do so. K2: live-chunk counts
+exactly, every row of every tile within 1e-4 of its column's largest value
+(the same orders of summation differ), zero where the plain version's is,
+and bit-identical from run to run. K3: within 1e-6 of the largest output (both round an exact-to-float64
+sum once).
 """
 
 import math
@@ -22,7 +26,7 @@ import torch
 
 from ed3dgs_torch.core.projection import project_gaussians
 from ed3dgs_torch.data.cameras import look_at_camera
-from ed3dgs_torch.ops import binning, binning_scan, rasterize_cuda, relayout
+from ed3dgs_torch.ops import binning, binning_scan, rasterize_cuda, relayout, segment_sum
 from ed3dgs_torch.ops.rasterize import RasterConfig, rasterize
 
 pytestmark = pytest.mark.cuda
@@ -130,3 +134,75 @@ def test_rasterize_on_card_matches_cpu(dev):
         assert torch.isfinite(a).all(), name
         limit = MAX_FLIPPED if name in ("median_coord", "median_depth") else 0.0
         assert outside(a, b).float().mean() <= limit, name
+
+
+@pytest.mark.parametrize("gy,gx,C", [(35, 51, 24), (3, 11, 5)])
+def test_pack_kernel_matches_plain(dev, gy, gx, C):
+    img = torch.randn(C, gy * 16, relayout.pad_grid_x(gx) * 16, device=dev)
+    before = relayout.pack_image.launches
+    got = relayout.pack_image(img)
+    torch.cuda.synchronize()
+    assert relayout.pack_image.launches == before + 1
+    assert torch.equal(got, relayout.pack_image_plain(img))
+    assert torch.equal(relayout.unpack_image(got), img)
+
+
+@pytest.mark.parametrize("S,F", [(100_352, 26), (1000, 32), (7, 3)])
+def test_segment_sum_kernel_matches_plain(dev, S, F):
+    rng = np.random.default_rng(S)
+    lengths = rng.integers(0, 30, S) * (rng.uniform(size=S) > 0.2)
+    lengths[S // 2] = 3000
+    ends = np.cumsum(lengths).astype(np.int32)
+    starts = (ends - lengths).astype(np.int32)
+    rows = torch.randn(int(ends[-1]) + 5, F, device=dev)
+    st, en = torch.as_tensor(starts, device=dev), torch.as_tensor(ends, device=dev)
+    got = segment_sum.segment_sum_rows(rows, st, en)
+    want = segment_sum.segment_sum_rows_plain(rows, st, en)
+    assert torch.equal(got, segment_sum.segment_sum_rows(rows, st, en))     # deterministic
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert float(got[torch.as_tensor(lengths == 0, device=dev)].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("w,h,n,chunk,grow,dead", [
+    (48, 40, 300, 32, 1.0, False), (200, 136, 3000, 128, 1.0, False),
+    # ~2500 pairs a tile against a cap of 4 * 512: rows past the cap are dead
+    (48, 40, 2500, 4, 20.0, True)])
+def test_backward_blend_kernel_matches_plain(dev, w, h, n, chunk, grow, dead):
+    arrays, cam = scene(n, w, h, seed=2)
+    arrays = (arrays[0], arrays[1] * grow, *arrays[2:])
+    proj = project(arrays, cam, w, h, dev)
+    bins = binning.bin_gaussians(proj, width=w, height=h, pair_capacity=1 << 15)
+    rows = binning.build_gaussian_payload(proj, torch.as_tensor(arrays[5], device=dev))
+    pairs = rows[bins.order][bins.pair_gauss].contiguous()
+    gx, gy = bins.grid
+    kw = dict(grid_x=gx, grid_y=gy, width=w, height=h, focal_x=cam.focal_x,
+              focal_y=cam.focal_y, chunk=chunk)
+    packed = rasterize_cuda.rasterize_forward(pairs, bins.tile_start, bins.tile_count, **kw)
+    packed[:, gx:] = 0.0
+    cot = torch.randn(packed.shape, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    cot = cot * 0.01
+    before = rasterize_cuda.rasterize_backward.launches
+    # leave NaN in the block the caching allocator hands the output next, so
+    # that a row K2 fails to write shows
+    torch.full((pairs.shape[0], 26), float("nan"), device=dev)
+    got, live = rasterize_cuda.rasterize_backward(pairs, bins.tile_start, bins.tile_count,
+                                                  packed, cot, **kw)
+    again, _ = rasterize_cuda.rasterize_backward(pairs, bins.tile_start, bins.tile_count,
+                                                 packed, cot, **kw)
+    want, want_live = rasterize_cuda.rasterize_backward_plain(
+        pairs, bins.tile_start, bins.tile_count, packed, cot, **kw)
+    torch.cuda.synchronize()
+    assert rasterize_cuda.rasterize_backward.launches == before + 2
+    assert torch.equal(live, want_live)
+    # every row of every tile is written, zero past the tile's live chunks
+    total = int(bins.tile_count.sum())
+    assert total > 0
+    if dead:
+        assert bool((torch.minimum(bins.tile_count, live * chunk) < bins.tile_count).any())
+    g, a, p = got[:total], again[:total], want[:total]
+    assert torch.equal(g, a)                      # no atomics: bit-identical
+    assert torch.isfinite(g).all()
+    col_max = p.abs().amax(dim=0)
+    assert bool(((g - p).abs().amax(dim=0) <= 1e-4 * col_max).all())
+    dead_rows = p.abs().amax(dim=1) == 0
+    assert bool((g[dead_rows] == 0).all())

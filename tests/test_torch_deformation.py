@@ -134,3 +134,57 @@ def test_c2f_num_embeddings_and_anneal_start():
     final, orig = tl[:5], tl[10:]
     for a, b in zip(final, orig):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-7)
+
+
+# The deformation network's gradient at the train step's bf16 activations:
+# the weight matrices' gradients and the embedding's are products of bf16
+# cotangents and activations accumulated in float32 and rounded to bf16 once,
+# in both packages; at most BF16_GRAD_OFF of an array's elements may differ
+# from the JAX package's by more than one bf16 ulp (2^-7 relative; measured:
+# at most 0.2%). float32 activations miss that bound on every such array
+# (measured: 6% to 80% of the elements). The biases, the temporal table and
+# the camera offsets sum bf16 cotangents over the Gaussians, which XLA and
+# PyTorch round at other points (up to 2.6e-2 of a leaf's largest value
+# apart); the float32 step holds them to 1e-5 (tests/test_torch_train.py).
+BF16_ULP, BF16_GRAD_OFF = 2.0 ** -7, 1e-2
+
+
+def vjp_both(bf16_torch, iteration=20_000, cam_no=4, n=256):
+    jcfg, tcfg, jp, tp = networks(True)
+    tcfg = dataclasses.replace(tcfg, bf16_activations=bf16_torch)
+    xs = inputs(jcfg, n=n)
+    kw = dict(num_down_emb_c=jcfg.min_embeddings, num_down_emb_f=jcfg.min_embeddings)
+
+    def jf(p, x):
+        return jd.deform_forward(p, jcfg, *x, jnp.float32(0.37), iteration,
+                                 cam_no=jnp.int32(cam_no), **kw)[0]
+    jx = tuple(jnp.asarray(x) for x in xs)
+    outs, vjp = jax.vjp(jf, jp, jx)
+    rng = np.random.default_rng(7)
+    cots = [rng.normal(size=o.shape).astype(np.float32) for o in outs]
+    jg, jgx = vjp(tuple(jnp.asarray(c) for c in cots))
+    want = {**flatten_pytree(jg), "embedding": np.asarray(jgx[-1])}
+
+    flat = {k: torch.as_tensor(np.array(v)).requires_grad_(True)
+            for k, v in flatten_pytree(jp).items()}
+    emb = torch.as_tensor(xs[-1]).requires_grad_(True)
+    touts = td.deform_forward(convert.unflatten(flat), tcfg,
+                              *(torch.as_tensor(x) for x in xs[:-1]), emb, 0.37, iteration,
+                              cam_no=torch.tensor(cam_no), **kw)[0]
+    g = torch.autograd.grad(touts, [*flat.values(), emb], [torch.as_tensor(c) for c in cots])
+    got = {**dict(zip(flat, (x.numpy() for x in g[:-1]))), "embedding": g[-1].numpy()}
+    keys = [k for k in want if k.endswith("/w")] + ["embedding"]
+    return {k: float((np.abs(got[k] - want[k])
+                      > BF16_ULP * np.abs(want[k]) + 1e-7 * np.abs(want[k]).max()).mean())
+            for k in keys}
+
+
+def test_deform_gradient_bf16_matches_jax():
+    off = vjp_both(True)
+    assert len(off) == 25
+    assert max(off.values()) <= BF16_GRAD_OFF, off
+
+
+def test_deform_gradient_bf16_is_not_f32():
+    off = vjp_both(False)
+    assert min(off.values()) > BF16_GRAD_OFF, off
