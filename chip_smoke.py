@@ -18,23 +18,36 @@ chunk 128):
 2. drives the forward main path: `ed3dgs_torch.render.render` on three
    frames. Every launch count is set to 0 just before and read just after;
    K1, K4 and K5a must each have risen by one per frame. Profiles one frame;
-3. drives the train path: `init_train_state` -> `make_train_step`, one
-   warm-up step that records the inputs the gradient hands K2, K3 and K5b,
-   then five steps at iteration 20,000 (deformation, coarse-to-fine, SH 3 and
-   the depth-normal term live; SSIM on two of them) with reg_coef=0, the cut
-   of this slice (the KNN regulariser's kernels are not ported yet). Every
-   count is set to 0 just before the five steps; all six kernels must have
-   risen by steps x batch. Prints each step's loss, the step time by CUDA
-   events, and one profiled step's device busy time, idle share and top
-   device items;
-4. holds K2, K3 and K5b against their plain versions on the recorded inputs
-   (K5b bit-exact; K2's live-chunk counts exactly and every row of every
-   tile within K2_REL of its column's largest value; K3 within K3_REL of the
-   largest output), runs the payload gradient (K2 -> un-permute -> K3) twice and
-   requires bit-identical results, and times them as in 1;
+3. drives the training loop of the JAX package's tools/train.py at the
+   config's reg_coef (1.0) and knn_coverage_target (0.95): the 3D filter
+   from `compute_3d_filter` over the bench camera and four around it;
+   `refresh_knn_cache` (its wall time, final buckets, overflow, far demand
+   and the trainer's coverage measure); `init_train_state` ->
+   `make_train_step`, one warm-up step that records the inputs the step
+   hands K2, K3, K5b, K6 and K7, then five steps at iteration 20,000
+   (deformation, coarse-to-fine, SH 3, the KNN regulariser and the
+   depth-normal term live; SSIM on two of them). Every count is set to 0
+   just before the five steps: K1-K5b must have risen by steps x batch, K6
+   and K7 by exactly one per step, K8 (no production caller) not at all.
+   Prints each step's loss, the step time by CUDA events, and one profiled
+   step's device busy time, idle share and top device items. Then
+   `make_densify_step` at the config's gradient threshold (n_cloned,
+   n_split, the alive count, its time) or, where nothing reaches it, at the
+   99.9th percentile of the same statistics, the filter and KNN refreshes,
+   and two more steps, counted as the five were;
+4. holds K2, K3, K5b, K6, K7 and K8 against their plain versions on the
+   recorded inputs (K5b bit-exact; K2's live-chunk counts exactly and every
+   row of every tile within K2_REL of its column's largest value; K3 and K8
+   within K3_REL of the largest output; the KNN loss within KNN_LOSS_REL
+   and every row of dL/demb within KNN_ROW_REL of its largest value), runs
+   the payload gradient (K2 -> un-permute -> K3) and the KNN gradient (K6 ->
+   K7) twice each and requires bit-identical results, and times them as in
+   1;
 5. compares a 4096-Gaussian cut on the card with the CPU: its bf16
-   deformation, its render at 160x110 (float32 activations) and one train
-   step's loss and gradients (float32 activations).
+   deformation, its render at 160x110 (float32 activations), one train
+   step's loss and gradients at reg_coef 1 (float32 activations, each
+   device building its own KNN cache), one `densify` with the same injected
+   draws, and `create_from_points`.
 
 Weights are random, from numpy seeds; so are the training targets. Results go
 to DIR/chip_smoke.json (default smoke_out/ in the checkout), with the
@@ -109,8 +122,20 @@ MEDIAN_KEYS = ("median_coord", "median_depth")
 BF16_ATOL, BF16_MAX_DIFFERING = 1e-6, 1e-3
 # K2 against its plain version: every row of every tile within K2_REL of
 # its column's largest value (sequential sums against cumprod/cumsum/einsum).
-# K3 against its plain version: both round a float64-exact sum once.
+# K3 (and K8, the same kernel) against its plain version: both round a
+# float64-exact sum once.
 K2_REL, K3_REL = 1e-4, 1e-6
+# K6 -> K7 against the plain chain: the kernel reduces d2 by a shuffle
+# butterfly and the loss by CTA partials, torch.sum in another order; every
+# other operation is the same. The loss within KNN_LOSS_REL, every row of
+# dL/demb within KNN_ROW_REL of that row's largest value.
+KNN_LOSS_REL, KNN_ROW_REL = 1e-5, 1e-5
+# the 3D filter's cameras: the bench camera and four around it
+FILTER_EYES = ((0.0, 0.0, 0.0), (0.3, 0.0, 0.0), (-0.3, 0.0, 0.0), (0.0, 0.2, 0.0),
+               (0.0, -0.2, 0.0))
+MORE_STEPS = 2               # steps after the densify step and the refreshes
+# the small cut's densify: free capacity beside the cloud, hot statistics
+SMALL_CAP = 5120
 # One train step of the small cut, card against CPU (float32 activations):
 # the loss within SMALL_LOSS_REL, and every gradient leaf within
 # SMALL_GRAD_REL of that leaf's largest value.
@@ -135,6 +160,13 @@ KERNELS = {
     "K5b": dict(name="pack_image", route="cuda",
                 source="ed3dgs_torch/csrc/relayout.cu",
                 replaces="ed3dgs_tpu/ops/relayout.py:83"),
+    "K6": dict(name="knn_rows", route="cuda", source="ed3dgs_torch/csrc/knn_loss.cu",
+               replaces="ed3dgs_tpu/ops/knn_loss.py:504"),
+    "K7": dict(name="knn_reverse", route="cuda", source="ed3dgs_torch/csrc/knn_loss.cu",
+               replaces="ed3dgs_tpu/ops/knn_loss.py:545"),
+    "K8": dict(name="segment_sum_rows_packed", route="cuda",
+               source="ed3dgs_torch/csrc/segment_sum.cu",
+               replaces="ed3dgs_tpu/ops/segment_sum.py:228"),
 }
 
 
@@ -176,12 +208,28 @@ def bench_cloud(n: int, seed: int = 0) -> dict:
     return {k: np.asarray(v, np.float32) for k, v in fields.items()}
 
 
-def bench_camera(width: int, height: int):
+def bench_camera(width: int, height: int, eye=(0.0, 0.0, 0.0)):
     from ed3dgs_torch.data.cameras import look_at_camera
     fov = math.radians(50.0)
-    return look_at_camera((0, 0, 0), (0, 0, 2.0), (0, -1, 0), fov,
+    return look_at_camera(eye, (0, 0, 2.0), (0, -1, 0), fov,
                           2 * math.atan(math.tan(fov / 2) * height / width),
                           width, height).matrices()
+
+
+def filter_cameras(torch, device):
+    """compute_3d_filter's camera arguments for FILTER_EYES, and the scene
+    extent those cameras give (1.1 x the largest distance of a centre from
+    their mean, the reference's getNerfppNorm)."""
+    cams = [bench_camera(WIDTH, HEIGHT, eye) for eye in FILTER_EYES]
+    f32 = dict(dtype=torch.float32, device=device)
+    args = (torch.as_tensor(np.stack([c.world_view for c in cams]), **f32),
+            torch.tensor([c.focal_x for c in cams], **f32),
+            torch.tensor([c.focal_y for c in cams], **f32),
+            torch.tensor([float(c.width) for c in cams], **f32),
+            torch.tensor([float(c.height) for c in cams], **f32))
+    centers = np.stack([c.campos for c in cams])
+    extent = 1.1 * float(np.linalg.norm(centers - centers.mean(0), axis=1).max())
+    return args, extent
 
 
 def time_ms(torch, fn, iters: int, flush) -> float:
@@ -266,8 +314,9 @@ def print_profile(what, wall_ms, busy_ms, items, stages):
 
 
 def train_setup(cfg, rcfg):
-    """The nersemble config's TrainSetup (as the JAX package's tools/train.py
-    builds it), with reg_coef=0: this slice's cut."""
+    """The nersemble config's TrainSetup, as the JAX package's tools/train.py
+    builds it (the tongue terms are off in the config; COLMAP supervision
+    is not ported yet)."""
     from ed3dgs_torch.train.trainer import TrainSetup
     model, hidden, opt = cfg.model, cfg.hidden, cfg.opt
     return TrainSetup(
@@ -275,7 +324,7 @@ def train_setup(cfg, rcfg):
         white_background=model.white_background, kernel_size=model.kernel_size,
         disable_filter3d=model.disable_filter3D, use_coord_map=model.use_coord_map,
         lambda_dssim=opt.lambda_dssim, opacity_l1_coef=opt.opacity_l1_coef_fine,
-        reg_coef=0.0, coef_tv_temporal=opt.coef_tv_temporal_embedding,
+        reg_coef=opt.reg_coef, coef_tv_temporal=opt.coef_tv_temporal_embedding,
         lambda_depth_normal=opt.lambda_depth_normal,
         radegs_from_iter=opt.radegs_regularization_from_iter,
         num_down_emb=hidden.min_embeddings, sh_degree=model.sh_degree)
@@ -316,11 +365,15 @@ def main():
     from ed3dgs_torch.config.loader import load_full_config
     from ed3dgs_torch.convert import gaussians_from_numpy
     from ed3dgs_torch.models.deformation import deform_forward, init_deform_params
-    from ed3dgs_torch.models.gaussians import get_features
-    from ed3dgs_torch.ops import (binning, binning_scan, cuda_lib, rasterize, rasterize_cuda,
-                                  relayout, segment_sum)
+    from ed3dgs_torch.models.gaussians import compute_3d_filter, create_from_points, get_features
+    from ed3dgs_torch.ops import (binning, binning_scan, cuda_lib, knn_loss, rasterize,
+                                  rasterize_cuda, relayout, segment_sum)
     from ed3dgs_torch.render import raster_config_from_camera, render, settings_from_camera
-    from ed3dgs_torch.train.trainer import init_train_state, make_loss_and_grads, make_train_step
+    from ed3dgs_torch.train.trainer import (KNN_CAPS_DEFAULT, KNN_K, init_train_state,
+                                            make_densify_step, make_loss_and_grads,
+                                            make_train_step, refresh_knn_cache,
+                                            update_knn_cache)
+    from ed3dgs_torch.train.densify import densify
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -517,15 +570,54 @@ def main():
     result["profile"] = print_profile("frame", *profile_window(
         torch, lambda: frame(FRAME_TIMES[1]), os.path.join(out_dir, "profile_frame.txt")))
 
-    # ---- 3. the train path: five steps --------------------------------------
+    # ---- 3. the training loop at the config's reg_coef -----------------------
     setup = train_setup(cfg, rcfg)
     B = setup.batch_size
-    state, optimizer = init_train_state(params, hidden, opt, 1.0, seed=0)
+    fargs, extent = filter_cameras(torch, DEVICE)
+
+    def refresh_filter(p, a):
+        return a._replace(filter_3d=compute_3d_filter(p.xyz, a.alive, *fargs))
+
+    knn_caps = dict(KNN_CAPS_DEFAULT)
+
+    def refresh_knn(p, a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = refresh_knn_cache(p, a, knn_caps, coverage_target=opt.knn_coverage_target)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        g = cache.graph
+        edges = int(a.alive.sum()) * KNN_K
+        coverage = 1.0 - int(g.overflow.sum()) / edges
+        caps = {k: v for k, v in knn_caps.items() if not k.startswith("_")}
+        print(f"  refresh_knn_cache: {wall_ms:.1f} ms wall, buckets {caps}, overflow "
+              f"{g.overflow.tolist()}, n_far {int(g.n_far)}, coverage measure "
+              f"1 - sum(overflow)/(alive*K) = {coverage:.5f} (target "
+              f"{opt.knn_coverage_target})", flush=True)
+        if coverage < opt.knn_coverage_target:
+            fail("the KNN graph misses its coverage target")
+        return cache, dict(wall_ms=wall_ms, caps=caps, overflow=g.overflow.tolist(),
+                           n_far=int(g.n_far), coverage=coverage)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aux = refresh_filter(params, aux)
+    torch.cuda.synchronize()
+    filter_ms = (time.perf_counter() - t0) * 1e3
+    f3d = aux.filter_3d[aux.alive]
+    print(f"train loop: compute_3d_filter over {len(FILTER_EYES)} cameras {filter_ms:.1f} ms "
+          f"wall, filter {float(f3d.min()):.3e}..{float(f3d.max()):.3e}", flush=True)
+    if not bool(torch.isfinite(aux.filter_3d).all()) or float(f3d.min()) <= 0:
+        fail("compute_3d_filter gave non-finite or non-positive scales")
+    knn_cache, knn_info = refresh_knn(params, aux)
+    result["knn_refresh"] = dict(knn_info, filter_ms=filter_ms)
+
+    state, optimizer = init_train_state(params, hidden, opt, extent, seed=0)
     state = state._replace(iteration=TRAIN_ITERATION)
     step = make_train_step(setup, optimizer)
     batches = [make_batch(torch, cam, B, 0.1 + 0.2 * i, i in SSIM_STEPS, 100 + i, DEVICE)
                for i in range(TRAIN_STEPS)]
-    print(f"train path: batch {B}, iteration {TRAIN_ITERATION}, reg_coef 0, "
+    print(f"train path: batch {B}, iteration {TRAIN_ITERATION}, reg_coef {setup.reg_coef}, "
           f"lambda_dssim {setup.lambda_dssim} (SSIM on steps {list(SSIM_STEPS)}), "
           f"opacity_l1 {setup.opacity_l1_coef}, depth-normal {setup.lambda_depth_normal} "
           f"from {setup.radegs_from_iter}", flush=True)
@@ -533,65 +625,145 @@ def main():
     restore = [recorder(seen, rasterize, "rasterize_backward", "K2"),
                recorder(seen, rasterize, "segment_sum_rows", "K3"),
                recorder(seen, relayout, "pack_image", "K5b"),
-               recorder(seen, rasterize, "sorted_payload_grad", "grad")]
+               recorder(seen, rasterize, "sorted_payload_grad", "grad"),
+               recorder(seen, knn_loss, "knn_rows", "K6"),
+               recorder(seen, knn_loss, "knn_reverse", "K7")]
     try:
         state, taux, metrics = step(state, aux, make_batch(torch, cam, B, 0.05, True, 99,
-                                                           DEVICE))
+                                                           DEVICE), knn_cache)
         torch.cuda.synchronize()
     finally:
         for r in restore:
             r()
-    if set(seen) != {"K2", "K3", "K5b", "grad"}:
+    if set(seen) != {"K2", "K3", "K5b", "grad", "K6", "K7"}:
         fail(f"the warm-up step did not reach every gradient kernel: {sorted(seen)}")
     counters = {"K1": rasterize_cuda.rasterize_forward, "K2": rasterize_cuda.rasterize_backward,
                 "K3": segment_sum.segment_sum_rows, "K4": binning_scan.fused_bin_scans,
-                "K5a": relayout.unpack_image, "K5b": relayout.pack_image}
-    for fn in counters.values():
-        fn.launches = 0
-    losses, events = [], []
-    t_host = time.perf_counter()
-    for i in range(TRAIN_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, taux, metrics = step(state, taux, batches[i])
-        end.record()
-        events.append((start, end))
-        losses.append(metrics)
-    torch.cuda.synchronize()
-    step_host_ms = (time.perf_counter() - t_host) * 1e3 / TRAIN_STEPS
-    train_launches = {k: fn.launches for k, fn in counters.items()}
-    step_ms = [s.elapsed_time(e) for s, e in events]
-    print(f"train path: {TRAIN_STEPS} steps: launches {train_launches}", flush=True)
-    for k, n in train_launches.items():
-        if n != TRAIN_STEPS * B:
-            fail(f"{k} launched {n} times in {TRAIN_STEPS} steps of batch {B}")
+                "K5a": relayout.unpack_image, "K5b": relayout.pack_image,
+                "K6": knn_loss.knn_rows, "K7": knn_loss.knn_reverse,
+                "K8": segment_sum.segment_sum_rows_packed}
+    # launches per step: one per camera of the blend path, one KNN loss
+    # (the tongue graph is off), none of K8 (no production caller)
+    per_step = {k: (B if k in ("K1", "K2", "K3", "K4", "K5a", "K5b") else
+                    1 if k in ("K6", "K7") else 0) for k in counters}
+
+    def run_steps(state, taux, batches, what):
+        """The steps of `batches` with every count set to 0 just before;
+        fails unless each kernel rose by its per-step launches."""
+        for fn in counters.values():
+            fn.launches = 0
+        out, events = [], []
+        t_host = time.perf_counter()
+        for b in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, taux, metrics = step(state, taux, b, knn_cache)
+            end.record()
+            events.append((start, end))
+            out.append(metrics)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t_host) * 1e3 / len(batches)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        print(f"train path, {what}: {len(batches)} steps: launches {launches}", flush=True)
+        for k, n in launches.items():
+            if n != per_step[k] * len(batches):
+                fail(f"{k} launched {n} times in {len(batches)} steps of batch {B} ({what})")
+        for i, m in enumerate(out):
+            vals = {k: float(m[k]) for k in ("loss", "l1", "ssim", "psnr", "opacity_mean",
+                                             "depth_normal", "emb_loss")}
+            print(f"  step {i}: " + " ".join(f"{k}={v:.6f}" for k, v in vals.items())
+                  + f" num_pairs={int(m['num_pairs'])}", flush=True)
+            if not all(math.isfinite(v) for v in vals.values()) or bool(m["tile_overflow"]):
+                fail(f"train step {i} ({what}): non-finite metrics or tile overflow")
+            if vals["depth_normal"] <= 0 or vals["emb_loss"] <= 0:
+                fail(f"train step {i} ({what}): the depth-normal or KNN term is not live")
+        step_ms = [s.elapsed_time(e) for s, e in events]
+        print("  train-step ms (CUDA events): " + ", ".join(f"{x:.3f}" for x in step_ms)
+              + f"; host wall {host_ms:.3f} ms/step", flush=True)
+        return state, taux, out, step_ms, host_ms, launches
+
+    state, taux, losses, step_ms, step_host_ms, train_launches = run_steps(
+        state, taux, batches, "after the first refresh")
     for i, m in enumerate(losses):
-        vals = {k: float(m[k]) for k in ("loss", "l1", "ssim", "psnr", "opacity_mean",
-                                         "depth_normal")}
-        print(f"  step {i}: " + " ".join(f"{k}={v:.6f}" for k, v in vals.items())
-              + f" num_pairs={int(m['num_pairs'])}", flush=True)
-        if not all(math.isfinite(v) for v in vals.values()) or bool(m["tile_overflow"]):
-            fail(f"train step {i}: non-finite metrics or tile overflow")
-        if vals["depth_normal"] <= 0 or (i in SSIM_STEPS) == (vals["ssim"] == 1.0):
-            fail(f"train step {i}: the depth-normal or SSIM term is not live as configured")
+        if (i in SSIM_STEPS) == (float(m["ssim"]) == 1.0):
+            fail(f"train step {i}: the SSIM term is not live as configured")
     for name, t in list(state.params["gaussians"]._asdict().items()):
         if not bool(torch.isfinite(t).all()):
             fail(f"parameter {name} is not finite after the steps")
     if float(taux.denom.sum()) <= 0 or not bool(torch.isfinite(taux.xyz_grad_accum).all()):
         fail("the densification statistics did not accumulate")
-    print("  train-step ms (CUDA events): " + ", ".join(f"{x:.3f}" for x in step_ms)
-          + f"; host wall {step_host_ms:.3f} ms/step", flush=True)
     result.update(train_step_ms=step_ms, train_host_ms_per_step=step_host_ms,
                   train_launches=train_launches,
-                  train_losses=[float(m["loss"]) for m in losses])
+                  train_losses=[float(m["loss"]) for m in losses],
+                  emb_losses=[float(m["emb_loss"]) for m in losses])
     del losses, batches
     pbatch = make_batch(torch, cam, B, 0.6, True, 200, DEVICE)
 
     def profiled_step():
-        step(state, taux, pbatch)
+        step(state, taux, pbatch, knn_cache)
     result["train_profile"] = print_profile("train step", *profile_window(
         torch, profiled_step, os.path.join(out_dir, "profile_step.txt")))
+
+    # densify at the config's threshold (tools/train.py:556-567), then the
+    # 3D filter and the KNN cache are rebuilt for the new cloud
+    thr = (opt.densify_grad_threshold_fine_init
+           - TRAIN_ITERATION * (opt.densify_grad_threshold_fine_init
+                                - opt.densify_grad_threshold_after) / opt.densify_until_iter)
+    densify_step = make_densify_step(opt, opt.percent_dense, extent)
+    n_before = int(taux.alive.sum())
+    mean_grad = (taux.xyz_grad_accum / taux.denom.clamp_min(1.0))[taux.alive & (taux.denom > 0)]
+    q = torch.quantile(mean_grad, torch.tensor([0.5, 0.99, 0.999], device=mean_grad.device))
+    q = q.tolist()
+    print(f"densify statistics: mean screen-space gradient norm over {mean_grad.numel()} "
+          f"seen Gaussians: median {q[0]:.3e}, 99th percentile {q[1]:.3e}, max "
+          f"{float(mean_grad.max()):.3e}; {int((mean_grad >= thr).sum())} at or above the "
+          f"config's threshold {thr}; {CAPACITY - n_before} free slots", flush=True)
+    densified = []
+    # the config's threshold; if that finds nothing hot (random targets give
+    # small screen-space gradients), the 99.9th percentile of the same
+    # statistics instead, so that the full-size step clones or splits
+    state0, taux0 = state, taux
+    for what, t in (("config", thr), ("99.9th percentile", q[2])):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        state, taux, n_c, n_s = densify_step(
+            state0, taux0, torch.Generator(device=DEVICE).manual_seed(0), t)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        n_after = int(taux.alive.sum())
+        print(f"densify step at the {what} threshold {t:.3e} (percent_dense "
+              f"{opt.percent_dense}, extent {extent:.4f}): n_cloned {int(n_c)}, n_split "
+              f"{int(n_s)}, alive {n_before} -> {n_after} of {CAPACITY}; "
+              f"{start.elapsed_time(end):.3f} ms (CUDA events), host wall {host_ms:.3f} ms",
+              flush=True)
+        if n_after != n_before + int(n_c) + int(n_s):
+            fail("the densify step lost count of the Gaussians it added")
+        densified.append(dict(threshold=t, n_cloned=int(n_c), n_split=int(n_s),
+                              alive_before=n_before, alive_after=n_after,
+                              ms=start.elapsed_time(end), host_ms=host_ms))
+        if n_after > n_before:
+            break
+    if n_after == n_before:
+        fail("no densify step cloned or split")
+    del state0, taux0
+    t0 = time.perf_counter()
+    taux = refresh_filter(state.params["gaussians"], taux)
+    torch.cuda.synchronize()
+    filter2_ms = (time.perf_counter() - t0) * 1e3
+    knn_cache, knn_info2 = refresh_knn(state.params["gaussians"], taux)
+    more = [make_batch(torch, cam, B, 0.35 + 0.2 * i, False, 400 + i, DEVICE)
+            for i in range(MORE_STEPS)]
+    state, taux, losses2, step_ms2, host_ms2, launches2 = run_steps(
+        state, taux, more, "after densify and the refreshes")
+    result["densify"] = dict(steps=densified, extent=extent, filter_ms=filter2_ms,
+                             knn_refresh=knn_info2, steps_after_ms=step_ms2,
+                             steps_after_host_ms=host_ms2, launches_after=launches2)
+    del losses2, more
 
     # ---- 4. the gradient kernels against their plain versions --------------
     # (the recorded inputs include the forward's saved output, which carries
@@ -688,6 +860,78 @@ def main():
     rows["K3"] = dict(KERNELS["K3"], max_abs_err=err3, ms=ms3, plain_ms=plain3,
                       bound_ms=b3, bound_by=by3, library_ms=lib3)
 
+    # K8 is the K3 kernel under its own counter: the same inputs, the same
+    # bound and the same library yardstick
+    out8 = segment_sum.segment_sum_rows_packed(rows3, st3, en3)
+    err8 = float((out8 - out3_plain).abs().max())
+    print(f"K8 segment_sum_rows_packed (the K3 kernel): max_abs_err={err8:.3e} "
+          f"(limit {K3_REL} x {scale3:.3e})", flush=True)
+    if not err8 <= K3_REL * scale3:
+        fail("K8 disagrees with its plain version")
+    ms8 = time_ms(torch, lambda: segment_sum.segment_sum_rows_packed(rows3, st3, en3), 50,
+                  flush)
+    rows["K8"] = dict(KERNELS["K8"], max_abs_err=err8, ms=ms8, plain_ms=plain3,
+                      bound_ms=b3, bound_by=by3, library_ms=lib3)
+    del out3, out3_plain, out8
+
+    # K6 -> K7 on the graph and embedding table the warm-up step handed them
+    (emb_r, nbr, w_eff, coef), _ = seen["K6"]
+    (_, _, _, rev_ptr, rev_pair), _ = seen["K7"]
+    Cp, E = emb_r.shape
+    K = nbr.shape[1]
+
+    def knn_chain(rows_fn, reverse_fn):
+        loss, de, s = rows_fn(emb_r, nbr, w_eff, coef)
+        return loss, de, s, reverse_fn(emb_r, s, de, rev_ptr, rev_pair)
+    loss6, de6, s6, out7 = knn_chain(knn_loss.knn_rows, knn_loss.knn_reverse)
+    again = knn_chain(knn_loss.knn_rows, knn_loss.knn_reverse)
+    det_knn = torch.equal(loss6, again[0]) and torch.equal(out7, again[3])
+    loss_p, de_p, s_p, out_p = knn_chain(knn_loss.knn_rows_plain, knn_loss.knn_reverse_plain)
+    loss_err = abs(float(loss6) - float(loss_p))
+    row_max = out_p.abs().amax(dim=1)
+    row_err = (out7 - out_p).abs().amax(dim=1)
+    worst_row = float((row_err / torch.clamp_min(row_max, 1e-30)).max())
+    err6 = float((de6 - de_p).abs().max())
+    err7 = float((out7 - knn_loss.knn_reverse_plain(emb_r, s6, de6, rev_ptr, rev_pair))
+                 .abs().max())
+    n_rev = rev_pair.shape[0]
+    loss_rel = loss_err / abs(float(loss_p))
+    print(f"K6 knn_rows + K7 knn_reverse: Cp={Cp} K={K} E={E} in-edges {n_rev}; loss "
+          f"{float(loss6):.8f} vs plain {float(loss_p):.8f} (rel {loss_rel:.2e}, "
+          f"limit {KNN_LOSS_REL}); worst row of dL/demb / its largest value {worst_row:.2e} "
+          f"(limit {KNN_ROW_REL}); K6 de max_abs_err {err6:.3e}, K7 max_abs_err {err7:.3e} "
+          f"on K6's output; two runs bit-identical={det_knn}", flush=True)
+    if (loss_err > KNN_LOSS_REL * abs(float(loss_p)) or not bool(torch.isfinite(out7).all())
+            or not bool((row_err <= KNN_ROW_REL * row_max).all())):
+        fail("K6/K7 disagree with their plain versions")
+    if not det_knn:
+        fail("the KNN loss or its gradient differs from run to run")
+    ms6 = time_ms(torch, lambda: knn_loss.knn_rows(emb_r, nbr, w_eff, coef), 50, flush)
+    plain6 = time_ms(torch, lambda: knn_loss.knn_rows_plain(emb_r, nbr, w_eff, coef), 10, flush)
+    ms7 = time_ms(torch, lambda: knn_loss.knn_reverse(emb_r, s6, de6, rev_ptr, rev_pair), 50,
+                  flush)
+    plain7 = time_ms(torch, lambda: knn_loss.knn_reverse_plain(emb_r, s6, de6, rev_ptr,
+                                                                rev_pair), 10, flush)
+    # K6 reads the table, the ranks, weights and coef once and writes de, s
+    # and the partials; per edge: difference, square and sum over E, the
+    # weight, sqrt, the loss term, s, and s * diff summed over E.
+    # K7 reads the table, the in-edges' s and pair ids, the bounds and de,
+    # and writes the gradient; per in-edge: difference, product, sum over E.
+    bytes6 = 4 * (2 * Cp * E + 3 * Cp * K + Cp + -(-Cp // knn_loss.ROWS_PER_BLOCK))
+    b6, by6 = bound(bytes6, Cp * K * (5 * E + 8))
+    bytes7 = 4 * (3 * Cp * E + 2 * n_rev + Cp + 1)
+    b7, by7 = bound(bytes7, n_rev * 3 * E + Cp * E)
+    print(f"  K6 work: {bytes6 / 1e6:.1f} MB, {Cp * K * (5 * E + 8) / 1e9:.3f} GFLOP; "
+          f"K7 work: {bytes7 / 1e6:.1f} MB, {(n_rev * 3 * E + Cp * E) / 1e9:.3f} GFLOP",
+          flush=True)
+    rows["K6"] = dict(KERNELS["K6"], max_abs_err=err6, ms=ms6, plain_ms=plain6,
+                      bound_ms=b6, bound_by=by6, library_ms=None)
+    rows["K7"] = dict(KERNELS["K7"], max_abs_err=err7, ms=ms7, plain_ms=plain7,
+                      bound_ms=b7, bound_by=by7, library_ms=None)
+    result["knn_kernels"] = dict(Cp=Cp, K=K, E=E, in_edges=n_rev, loss=float(loss6),
+                                 loss_plain=float(loss_p), worst_row=worst_row)
+    del again, de_p, s_p, out_p, de6, s6, out7
+
     (gp, gk, gc, gbins, gkw), _ = seen["grad"]
     d_first = rasterize.sorted_payload_grad(gp, gk, gc, gbins, gkw)
     d_again = rasterize.sorted_payload_grad(gp, gk, gc, gbins, gkw)
@@ -747,13 +991,15 @@ def main():
         fail("small render: num_pairs disagrees between the card and the CPU")
 
     ssetup = dataclasses.replace(train_setup(cfg, scfg), hidden=hidden32)
-    sgrads = {}
+    sgrads, semb = {}, {}
     for dev in (DEVICE, "cpu"):
         sp, sa = gaussians_from_numpy(small, device=dev)
         sd = init_deform_params(hidden32, seed=0, device=dev)
+        scache = update_knn_cache(sp, sa)
         sgrads[dev] = make_loss_and_grads(ssetup)(
             {"gaussians": sp, "deform": sd}, sa,
-            make_batch(torch, scam, B, 0.5, True, 300, dev), TRAIN_ITERATION)
+            make_batch(torch, scam, B, 0.5, True, 300, dev), scache, TRAIN_ITERATION)
+        semb[dev] = float(sgrads[dev][1]["emb_loss"])
     loss_c, loss_h = float(sgrads[DEVICE][0]), float(sgrads["cpu"][0])
     grad_worst = {}
     for k, g_cpu in sgrads["cpu"][2].items():
@@ -766,16 +1012,57 @@ def main():
     vs_c, vs_h = sgrads[DEVICE][3].cpu(), sgrads["cpu"][3]
     grad_worst["vs_grad"] = float((vs_c - vs_h).abs().max()) / float(vs_h.abs().max())
     top = sorted(grad_worst.items(), key=lambda kv: -kv[1])[:6]
-    print(f"small train step {SMALL_N} Gaussians {SMALL_W}x{SMALL_H} (float32): loss cuda="
-          f"{loss_c:.7f} cpu={loss_h:.7f} (limit rel {SMALL_LOSS_REL}); worst gradient leaves "
-          f"(max|diff| / max|g|, limit {SMALL_GRAD_REL}): "
+    print(f"small train step {SMALL_N} Gaussians {SMALL_W}x{SMALL_H} (float32, reg_coef "
+          f"{ssetup.reg_coef}): loss cuda={loss_c:.7f} cpu={loss_h:.7f} (limit rel "
+          f"{SMALL_LOSS_REL}), emb_loss cuda={semb[DEVICE]:.7e} cpu={semb['cpu']:.7e}; worst "
+          f"gradient leaves (max|diff| / max|g|, limit {SMALL_GRAD_REL}): "
           + ", ".join(f"{k} {v:.2e}" for k, v in top), flush=True)
-    result["small_train"] = dict(loss_cuda=loss_c, loss_cpu=loss_h, grad_rel=grad_worst)
-    if abs(loss_c - loss_h) > SMALL_LOSS_REL * abs(loss_h) or max(
-            grad_worst.values()) > SMALL_GRAD_REL:
+    result["small_train"] = dict(loss_cuda=loss_c, loss_cpu=loss_h, emb_loss=semb,
+                                 grad_rel=grad_worst)
+    if (abs(loss_c - loss_h) > SMALL_LOSS_REL * abs(loss_h)
+            or abs(semb[DEVICE] - semb["cpu"]) > SMALL_LOSS_REL * abs(semb["cpu"])
+            or semb["cpu"] <= 0 or max(grad_worst.values()) > SMALL_GRAD_REL):
         fail("small train step: the card's loss or gradients disagree with the CPU's")
 
-    order = ("K1", "K2", "K3", "K4", "K5a", "K5b")
+    # one densify of the small cut with free capacity and numpy-seeded
+    # statistics, the same draws handed to both devices
+    rng = np.random.default_rng(500)
+    hot = dict(small, xyz_grad_accum=rng.uniform(0, 1e-3, SMALL_N).astype(np.float32),
+               denom=rng.integers(0, 4, SMALL_N).astype(np.float32))
+    noise = rng.normal(size=(2, SMALL_CAP, 3)).astype(np.float32)
+    dens = {}
+    for dev in (DEVICE, "cpu"):
+        sp, sa = gaussians_from_numpy(hot, capacity=SMALL_CAP, device=dev)
+        dens[dev] = densify(sp, sa, grad_threshold=2e-4, percent_dense=opt.percent_dense,
+                            scene_extent=1.0, max_gaussians=SMALL_CAP,
+                            noise=torch.as_tensor(noise, device=dev))
+    dc, dh = dens[DEVICE], dens["cpu"]
+    same_masks = (torch.equal(dc.aux.alive.cpu(), dh.aux.alive)
+                  and torch.equal(dc.reset_mask.cpu(), dh.reset_mask)
+                  and (int(dc.n_cloned), int(dc.n_split)) == (int(dh.n_cloned), int(dh.n_split)))
+    dens_err = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(dc.params, dh.params))
+    print(f"small densify: n_cloned {int(dh.n_cloned)} n_split {int(dh.n_split)}, masks and "
+          f"counts equal={same_masks}, worst parameter max|diff| / max|v| {dens_err:.2e} "
+          f"(limit {SMALL_LOSS_REL})", flush=True)
+    if not same_masks or dens_err > SMALL_LOSS_REL or int(dh.n_split) == 0:
+        fail("small densify: the card disagrees with the CPU")
+
+    # create_from_points: its 3-NN scales on the card and on the CPU
+    colors = np.clip(small["features_dc"][:, 0] * 0.28 + 0.5, 0, 1)
+    made = {dev: create_from_points(small["xyz"], colors, capacity=SMALL_CAP, device=dev)
+            for dev in (DEVICE, "cpu")}
+    made_err = max(float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(made[DEVICE][0], made["cpu"][0]))
+    made_alive = torch.equal(made[DEVICE][1].alive.cpu(), made["cpu"][1].alive)
+    print(f"small create_from_points: worst parameter max|diff| / max|v| {made_err:.2e} "
+          f"(limit {SMALL_LOSS_REL}), alive equal={made_alive}", flush=True)
+    if made_err > SMALL_LOSS_REL or not made_alive:
+        fail("small create_from_points: the card disagrees with the CPU")
+    result["small_densify"] = dict(n_cloned=int(dh.n_cloned), n_split=int(dh.n_split),
+                                   param_rel=dens_err, create_rel=made_err)
+
+    order = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "K8")
     kernel_rows = [dict(rows[k], launches=train_launches[k]) for k in order]
     result["kernels"] = kernel_rows
     result["total_s"] = time.perf_counter() - t_start

@@ -3,19 +3,21 @@
 
 The cloud keeps the JAX package's fixed capacity C with an `alive` mask, so a
 checkpoint and its tensors have the same shapes in both packages.
-Construction from points and the 3D-filter computation come with the
-training slice.
+Densification (train/densify.py) fills free slots instead of reallocating.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..core.sh import rgb_to_sh
 from ..data import ply as plyio
 from ..device import resolve_device
+from ..ops.knn import mean_sqdist_3nn
 
 
 class GaussianParams(NamedTuple):
@@ -110,6 +112,80 @@ def from_numpy(fields: dict, *, capacity: Optional[int] = None, device="cuda"):
         denom=pad(fields.get("denom", zeros_c)),
     )
     return params, aux
+
+
+def create_from_points(points: np.ndarray, colors: np.ndarray, *, capacity: int,
+                       embedding_dim: int = 32, sh_degree: int = 3,
+                       tongue_mask_loss_enabled: bool = False, device="cuda"):
+    """Initialize from a point cloud (create_from_pcd,
+    scene/gaussian_model.py:150-192): SH DC from colors, log-scales from the
+    3-NN mean squared distance (clamped to <= 1.0), identity rotations,
+    opacity 0.1, zero embeddings; tongue class = pure-red input points."""
+    dev = resolve_device(device)
+    n = points.shape[0]
+    if n > capacity:
+        raise ValueError(f"init cloud ({n}) exceeds capacity ({capacity})")
+    C = capacity
+    pts = torch.as_tensor(np.asarray(points, np.float32), device=dev)
+    d2 = torch.clamp_min(mean_sqdist_3nn(pts), 1e-7)
+    scales = torch.clamp_max(torch.log(torch.sqrt(d2)), 1.0)[:, None].repeat(1, 3)
+
+    def pad(x, fill=0.0):
+        return torch.cat([x, torch.full((C - n, *x.shape[1:]), fill, dtype=x.dtype, device=dev)])
+
+    fused_color = rgb_to_sh(torch.as_tensor(np.asarray(colors, np.float32), device=dev))
+    params = GaussianParams(
+        xyz=pad(pts),
+        features_dc=pad(fused_color[:, None, :]),
+        features_rest=torch.zeros((C, (sh_degree + 1) ** 2 - 1, 3), device=dev),
+        scaling=pad(scales, fill=-10.0),
+        rotation=torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev).repeat(C, 1),
+        opacity=pad(torch.full((n, 1), float(inverse_sigmoid(torch.tensor(0.1))), device=dev)),
+        embedding=torch.zeros((C, embedding_dim), device=dev),
+    )
+    red = np.all(np.asarray(colors) == np.array([1.0, 0, 0]), axis=1)
+    tongue = torch.zeros((C, 1), device=dev)
+    if tongue_mask_loss_enabled and red.any():
+        tongue[:n, 0] = torch.as_tensor(red, dtype=torch.float32, device=dev)
+    zeros_c = torch.zeros(C, device=dev)
+    aux = GaussianAux(
+        alive=torch.arange(C, device=dev) < n, tongue_class=tongue,
+        filter_3d=torch.zeros((C, 1), device=dev),
+        max_radii2d=zeros_c, xyz_grad_accum=zeros_c.clone(), denom=zeros_c.clone())
+    return params, aux
+
+
+def num_alive(aux: GaussianAux) -> torch.Tensor:
+    return torch.sum(aux.alive.to(torch.int32))
+
+
+# --- RaDe-GS 3D filter (scene/gaussian_model.py:538-592) -------------------
+
+def compute_3d_filter(xyz: torch.Tensor, alive: torch.Tensor, view_mats: torch.Tensor,
+                      focals_x: torch.Tensor, focals_y: torch.Tensor, widths: torch.Tensor,
+                      heights: torch.Tensor) -> torch.Tensor:
+    """Per-Gaussian screen-space low-pass scale from the closest camera that
+    sees it. view_mats: [M, 4, 4] world->view matrices (math convention);
+    focals_x/focals_y, widths/heights: [M]. Returns [C, 1] filter scale
+    (distance / focal * sqrt(0.2)); unseen slots get the farthest seen
+    distance."""
+    R = view_mats[:, :3, :3]
+    t = view_mats[:, :3, 3]
+    cam_xyz = torch.einsum("mij,nj->mni", R, xyz) + t[:, None, :]
+    x, y, z = cam_xyz[..., 0], cam_xyz[..., 1], cam_xyz[..., 2]
+    valid_depth = z > 0.2
+    zc = torch.clamp_min(z, 0.001)
+    px = x / zc * focals_x[:, None] + widths[:, None] / 2.0
+    py = y / zc * focals_y[:, None] + heights[:, None] / 2.0
+    in_screen = ((px >= -0.15 * widths[:, None]) & (px <= 1.15 * widths[:, None])
+                 & (py >= -0.15 * heights[:, None]) & (py <= 1.15 * heights[:, None]))
+    valid = valid_depth & in_screen & alive[None, :]
+    dist = torch.where(valid, z, torch.full_like(z, 1e5)).amin(dim=0)
+    seen = valid.any(dim=0)
+    max_seen = torch.where(seen, dist, torch.full_like(dist, -float("inf"))).amax()
+    dist = torch.where(seen, dist, max_seen)
+    focal = focals_x.amax()
+    return (dist / focal * math.sqrt(0.2))[:, None]
 
 
 # --- ply checkpoint I/O (scene/gaussian_model.py:231-347) ------------------

@@ -62,6 +62,12 @@ SIGNATURES = {
         # img, packed, gy, gxp, C, stream
         "ed3dgs_pack_image": [_P, _P, _I, _I, _I, _P],
     },
+    "knn_loss": {
+        # emb, nbr, w, coef, de, s, partials, Cp, E, K, stream
+        "ed3dgs_knn_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # emb, s, de, rev_ptr, rev_pair, out, Cp, E, K, stream
+        "ed3dgs_knn_reverse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
 }
 
 

@@ -1,5 +1,6 @@
-"""CSR segment sum of rows: kernel K3 (port of ed3dgs_tpu/ops/segment_sum.py,
-`segment_sum_rows`).
+"""CSR segment sum of rows: kernels K3 and K8 (port of
+ed3dgs_tpu/ops/segment_sum.py, `segment_sum_rows` and
+`segment_sum_rows_packed`).
 
 `segment_sum_rows(rows, starts, ends)` returns `out[s] =
 rows[starts[s]:ends[s]].sum(0)` for monotone CSR bounds (starts and ends
@@ -16,6 +17,12 @@ On a CUDA tensor `segment_sum_rows` launches csrc/segment_sum.cu, which sums
 in float64 and rounds once; on a CPU tensor it runs `segment_sum_rows_plain`,
 the difference of float64 prefix sums, which agrees with it to the float32
 rounding.
+
+K8, `segment_sum_rows_packed`, is the TPU's version of the same function for
+rows at most 32 floats wide: it packs four rows into each 128-lane row so
+that narrow rows are not padded to 128 lanes. Every row the CUDA kernel takes
+is at most 32 wide already, so K8 is bound to the K3 kernel: the same launch,
+counted on its own wrapper.
 """
 
 from __future__ import annotations
@@ -40,12 +47,40 @@ def segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
                      ends: torch.Tensor) -> torch.Tensor:
     """rows [R, F] float32 (F <= 32), starts/ends [S] int32 monotone CSR
     bounds -> [S, F] float32 segment sums."""
+    _validate(rows, starts, ends)
+    if not rows.is_cuda:
+        return segment_sum_rows_plain(rows, starts, ends)
+    out = _launch(rows, starts, ends)
+    segment_sum_rows.launches += 1
+    return out
+
+
+segment_sum_rows.launches = 0
+
+
+def segment_sum_rows_packed(rows: torch.Tensor, starts: torch.Tensor,
+                            ends: torch.Tensor) -> torch.Tensor:
+    """K8: `segment_sum_rows` for narrow rows (F <= 32), with the JAX
+    signature; on a CUDA tensor it launches the K3 kernel, counted here."""
+    _validate(rows, starts, ends)
+    if not rows.is_cuda:
+        return segment_sum_rows_plain(rows, starts, ends)
+    out = _launch(rows, starts, ends)
+    segment_sum_rows_packed.launches += 1
+    return out
+
+
+segment_sum_rows_packed.launches = 0
+
+
+def _validate(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor):
     if rows.dim() != 2 or rows.shape[1] > MAX_WIDTH:
         raise ValueError(f"rows must be [R, F] with F <= {MAX_WIDTH}, got {tuple(rows.shape)}")
     if starts.shape != ends.shape or starts.dim() != 1:
         raise ValueError("starts and ends must be matching 1-D bounds")
-    if not rows.is_cuda:
-        return segment_sum_rows_plain(rows, starts, ends)
+
+
+def _launch(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
     cuda_lib.check_cuda(rows, "rows", torch.float32, 2)
     cuda_lib.check_cuda(starts, "starts", torch.int32, 1)
     cuda_lib.check_cuda(ends, "ends", torch.int32, 1)
@@ -56,8 +91,4 @@ def segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
             rows.data_ptr(), starts.data_ptr(), ends.data_ptr(), out.data_ptr(), S, F,
             cuda_lib.stream_of(rows))
     cuda_lib.check_launch(err, "segment_sum_rows")
-    segment_sum_rows.launches += 1
     return out
-
-
-segment_sum_rows.launches = 0

@@ -65,6 +65,19 @@ def ssim(img1, img2, window_size: int = 11):
     return torch.mean(ssim_map)
 
 
+def embedding_knn_loss(embedding, neighbor_indices, neighbor_weight, mask=None):
+    """Per-Gaussian embedding smoothness against its cached K nearest
+    neighbours (train.py:231-235); masked rows contribute 0. The small-scale
+    oracle of the fused loss the train step runs (ops/knn_loss.py)."""
+    emb_knn = embedding[neighbor_indices.long()]             # [N, K, E]
+    d2 = torch.sum((embedding[:, None, :] - emb_knn) ** 2, dim=-1)
+    per = torch.sqrt(d2 * neighbor_weight + 1e-20)
+    if mask is None:
+        return torch.mean(per)
+    m = mask.to(torch.float32)[:, None]
+    return torch.sum(per * m) / torch.clamp_min(torch.sum(m) * per.shape[1], 1.0)
+
+
 def temporal_tv_loss(weight):
     """Smoothness of the temporal table. Reproduces the reference's exact
     (quirky) formula (train.py:240-245): differences are taken against the

@@ -1,36 +1,51 @@
-"""The training step (port of ed3dgs_tpu/train/trainer.py: `TrainSetup`,
-`make_train_step`, `init_train_state`).
+"""The training step, the KNN graph cache and the densify step (port of
+ed3dgs_tpu/train/trainer.py: `TrainSetup`, `update_knn_cache`,
+`refresh_knn_cache`, `make_train_step`, `make_densify_step`,
+`init_train_state`).
 
 One step renders the batch's cameras one after another (the JAX package's
 `lax.map` "scan" mode), assembles the loss (L1, gated SSIM, opacity mean,
-temporal TV, depth-normal on the last camera behind `radegs_from_iter`),
-backpropagates through the blend kernels, the projection and the
-deformation network in one autograd pass that also reads the gradient of
-zero screen-space offsets (the densification statistic), applies the 9-group
-Adam update and accumulates the densification statistics.
+the KNN embedding regulariser, temporal TV, depth-normal on the last camera
+behind `radegs_from_iter`, and with `tongue_enabled` the tongue mask, KNN
+and colour terms), backpropagates through the blend kernels, the
+projection, the deformation network and the KNN loss kernels in one
+autograd pass that also reads the gradient of zero screen-space offsets
+(the densification statistic), applies the 9-group Adam update and
+accumulates the densification statistics.
+
+The KNN regulariser runs on a graph cache (`KnnCache`) rebuilt on the
+densification cadence by `refresh_knn_cache`, which grows the graph's
+capacity buckets until its dropped edges fit the coverage target. The JAX
+package also pins the far list's memory layout after each refresh
+(`_pin_row_major`); that is an XLA layout choice for the TPU with no
+counterpart here.
 
 Not ported yet, and refused with NotImplementedError rather than skipped:
-the KNN embedding regulariser (`reg_coef != 0`, kernels K6/K7 and the graph
-cache), the tongue losses, COLMAP point-cloud supervision, the strip-exchange
-comms and the vmapped batch. ROADMAP.md names the slice that brings each.
+COLMAP point-cloud supervision, the strip-exchange comms and the vmapped
+batch. ROADMAP.md names the slice that brings each.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..config.params import DeformHiddenConfig, OptimizationConfig
 from ..models import gaussians as gm
 from ..models.deformation import init_deform_params
+from ..ops import knn_loss
+from ..ops.knn import far_shell
+from ..ops.knn import knn as knn_op
 from ..ops.rasterize import RasterConfig
 from ..render import RenderSettings, render
 from . import losses as L
-from .densify import add_densification_stats
-from .optim import TrainState, build_optimizer, flatten_params, unflatten_params
+from .densify import add_densification_stats, densify
+from .optim import (TrainState, build_optimizer, flatten_params, reset_moments_at,
+                    unflatten_params)
 
-NEXT_SLICE = "slice 3 of the port (ROADMAP.md, Queue 1 item 7)"
+KNN_K = 20              # neighbours per Gaussian (train.py:222 o3d_knn(..., 20))
 
 
 @dataclass(frozen=True)
@@ -60,16 +75,11 @@ class TrainSetup:
 
 
 def check_supported(setup: TrainSetup):
-    """Raise for every part of the JAX step this slice does not carry."""
-    if setup.reg_coef != 0:
-        raise NotImplementedError(
-            f"reg_coef={setup.reg_coef}: the KNN embedding regulariser (kernels K6, K7, "
-            f"prepare_knn_graph, refresh_knn_cache) comes with {NEXT_SLICE}; "
-            "pass reg_coef=0")
-    if setup.tongue_enabled:
-        raise NotImplementedError(f"tongue losses come with {NEXT_SLICE}")
+    """Raise for every part of the JAX step the port does not carry yet."""
     if setup.colmap_supervision:
-        raise NotImplementedError(f"COLMAP point-cloud supervision comes with {NEXT_SLICE}")
+        raise NotImplementedError(
+            "COLMAP point-cloud supervision comes with slice 4 of the port, with the host "
+            "point-cloud readers (ROADMAP.md, Queue 1 item 8)")
     if setup.comms != "gspmd":
         raise NotImplementedError(
             f"comms={setup.comms!r}: the strip exchange comes with the multi-device "
@@ -81,27 +91,186 @@ def check_supported(setup: TrainSetup):
             "(ROADMAP.md, Queue 1 item 12)")
 
 
-def _render_one(params, aux, dparams, setup: TrainSetup, settings, iteration, offset):
+# --- the KNN graph cache ------------------------------------------------------
+
+class KnnCache(NamedTuple):
+    graph: knn_loss.KnnGraph     # the non-tongue embedding graph
+    t_graph: knn_loss.KnnGraph   # the tongue graph (the same graph when tongue is off)
+
+
+def _masked_coef(mask, k):
+    m = mask.to(torch.float32)
+    return m / torch.clamp_min(torch.sum(m) * k, 1.0)
+
+
+def _graph_inputs(xyz, mask, shell, k):
+    """(idx, w, coef, pts, pts_valid) of the masked points' graph, the rest
+    parked on `shell`. Weights below float32's smallest normal are flushed
+    to zero, as the JAX package's arithmetic (XLA on the CPU and the TPU)
+    flushes them."""
+    pts = torch.where(mask[:, None], xyz, shell)
+    d2, idx = knn_op(pts, k=k)
+    w = torch.exp(-2000.0 * torch.clamp_min(d2, 0.0))
+    w = torch.where(mask[:, None] & (w >= torch.finfo(torch.float32).tiny), w,
+                    torch.zeros_like(w))
+    return idx, w, _masked_coef(mask, k), pts, mask
+
+
+def _cache_inputs(params, aux, tongue_enabled, k):
+    """The graph inputs of the cache: the main graph's, and the tongue
+    graph's or None. Dead slots (and, for the main graph, tongue Gaussians)
+    are parked on a far shell at ~1e3, which keeps them out of the live
+    points' neighbourhoods and clusters them into their own Morton blocks;
+    the tongue graph parks the rest on the mirrored shell."""
+    tongue = torch.round(aux.tongue_class[:, 0]) > 0.5
+    shell = far_shell(aux.alive.shape[0], aux.alive.device)
+    main = _graph_inputs(params.xyz, aux.alive & ~tongue, shell, k)
+    return main, (_graph_inputs(params.xyz, aux.alive & tongue, -shell, k)
+                  if tongue_enabled else None)
+
+
+def _prepare_cache(inputs, spill_a, spill_b, far_capacity) -> KnnCache:
+    def prepare(idx, w, coef, pts, valid):
+        return knn_loss.prepare_knn_graph(idx, w, coef, pts, pts_valid=valid, spill_a=spill_a,
+                                          spill_b=spill_b, far_capacity=far_capacity)
+    main, tongue = inputs
+    graph = prepare(*main)
+    return KnnCache(graph, graph if tongue is None else prepare(*tongue))
+
+
+def update_knn_cache(params: gm.GaussianParams, aux: gm.GaussianAux,
+                     tongue_enabled: bool = False, k: int = KNN_K,
+                     spill_a: int = 512, spill_b: int = 768,
+                     far_capacity: int = 1 << 19) -> KnnCache:
+    """Recompute the embedding regulariser's neighbourhood graph
+    (train.py:217-229) on the cloud's device and prepare it for the fused
+    loss (ops/knn_loss.py) at the given capacity buckets."""
+    return _prepare_cache(_cache_inputs(params, aux, tongue_enabled, k), spill_a, spill_b,
+                          far_capacity)
+
+
+# Default and ceiling capacity buckets of the KNN graph for
+# refresh_knn_cache. At the ceiling the graph degrades deterministically
+# (overflowing edges dropped from the loss and both gradient halves).
+KNN_CAPS_DEFAULT = {"spill_a": 256, "spill_b": 768, "far": 1 << 19}
+KNN_CAPS_MAX = {"spill_a": 4096, "spill_b": 8192, "far": 1 << 21}
+
+
+def _snug_far(demand: int) -> int:
+    """The 2^17-granular far bucket that holds 1.25x the demand."""
+    return -(-int(demand * 1.25) // (1 << 17)) << 17
+
+
+def refresh_knn_cache(params: gm.GaussianParams, aux: gm.GaussianAux,
+                      caps: Optional[dict] = None, *, tongue_enabled: bool = False,
+                      coverage_target: float = 0.95, k: int = KNN_K,
+                      quiet: bool = True) -> KnnCache:
+    """Build the KNN cache at adaptively sized capacity buckets, as the JAX
+    package does: grow the buckets (doubling, the far bucket straight to a
+    snug size, up to KNN_CAPS_MAX) until the dropped-edge count fits
+    `(1 - coverage_target) * alive * k`, then shrink an oversized far
+    bucket after three refreshes in a row that did not need it.
+    coverage_target=1.0 demands the exact graph. `caps` is MUTATED, so a
+    caller keeps the bucket state across refreshes."""
+    caps = caps if caps is not None else dict(KNN_CAPS_DEFAULT)
+    caps.setdefault("_far_quiet", 0)
+    edges = int(aux.alive.sum()) * k
+    budget = (1.0 - coverage_target) * max(edges, 1)
+    # the neighbours do not depend on the buckets: search once, prepare per bucket
+    inputs = _cache_inputs(params, aux, tongue_enabled, k)
+    while True:
+        cache = _prepare_cache(inputs, caps["spill_a"], caps["spill_b"], caps["far"])
+        ovf = (cache.graph.overflow + cache.t_graph.overflow).tolist()
+        if sum(ovf) <= budget:
+            break
+        grew = False
+        for i, name in enumerate(("spill_a", "spill_b")):
+            # while the total exceeds the budget, some bucket exceeds a third
+            if ovf[i] > budget / 3 and caps[name] < KNN_CAPS_MAX[name]:
+                caps[name] *= 2
+                grew = True
+        if ovf[2] > budget / 3 and caps["far"] < KNN_CAPS_MAX["far"]:
+            # the far demand is exact at build time: jump to the snug bucket
+            demand = max(int(cache.graph.n_far), int(cache.t_graph.n_far))
+            caps["far"] = min(max(_snug_far(demand), caps["far"] + (1 << 17)),
+                              KNN_CAPS_MAX["far"])
+            grew = True
+        if not grew:
+            print(f"[knn] WARNING: dropped-edge count {sum(ovf)} exceeds the coverage "
+                  f"budget {budget:.0f} at the bucket ceiling {caps}; the KNN "
+                  f"regularizer runs on a deterministically truncated graph")
+            break
+        if not quiet:
+            print(f"[knn] overflow {ovf} over budget {budget:.0f}; growing buckets to "
+                  f"{caps}", flush=True)
+    demand = max(int(cache.graph.n_far), int(cache.t_graph.n_far))
+    want = max(1 << 15, _snug_far(max(demand, 1)))
+    if want < caps["far"]:
+        caps["_far_quiet"] += 1
+        if caps["_far_quiet"] >= 3:
+            caps["far"] = want
+            caps["_far_quiet"] = 0
+            if not quiet:
+                print(f"[knn] far bucket -> {want} (demand {demand})", flush=True)
+            # the shrunk bucket holds the demand: it drops no more than before
+            return _prepare_cache(inputs, caps["spill_a"], caps["spill_b"], caps["far"])
+    else:
+        caps["_far_quiet"] = 0
+    return cache
+
+
+# --- the train step -------------------------------------------------------------
+
+def _render_one(params, aux, dparams, setup: TrainSetup, settings, iteration, offset,
+                tongue_filter=None):
     # oneupSHdegree every 1000 iterations (train.py:129-130)
     bg = torch.full((3,), 1.0 if setup.white_background else 0.0, device=params.xyz.device)
     return render(params, aux, dparams, setup.hidden, settings, setup.raster, bg,
                   iteration=iteration, sh_degree=setup.sh_degree,
                   kernel_size=setup.kernel_size, disable_filter3d=setup.disable_filter3d,
                   num_down_emb_c=setup.num_down_emb, num_down_emb_f=setup.num_down_emb,
-                  mean2d_offset=offset,
+                  tongue_filter=tongue_filter, mean2d_offset=offset,
                   active_sh_degree=min(iteration // 1000, setup.sh_degree))
 
 
+def _tongue_terms(setup: TrainSetup, gparams, aux, dparams, batch, knn_cache, r_last,
+                  iteration):
+    """The tongue losses of the last camera (train.py, tongue_mask_loss):
+    the blended tongue channel against the tongue mask, the KNN term on the
+    tongue graph, and the colour of the tongue-only and tongue-free renders
+    inside and outside the mask: {name: term}, added to the loss in order
+    with weights 5, reg_coef, 1 and 0.5."""
+    B = setup.batch_size
+    gt = batch["gt_image"]
+    gt_tongue = batch["tongue_gt"][-1]                                   # [1, H, W]
+    t_l1 = L.l1_loss(gt_tongue[None], r_last["tongue_mask"][None], keepdim=True).mean()
+    t_emb = knn_loss.knn_loss_fused(gparams.embedding, knn_cache.t_graph, KNN_K)
+    settings = RenderSettings(batch["viewmatrix"][B - 1], batch["projmatrix"][B - 1],
+                              batch["campos"][B - 1], batch["time"][B - 1],
+                              batch["cam_no"][B - 1])
+    gt_mean = torch.mean(gt_tongue)
+    r_tongue = _render_one(gparams, aux, dparams, setup, settings, iteration, None, "only")
+    t_rgb = torch.mean(torch.abs(gt[-1] * gt_tongue - r_tongue["render"] * gt_tongue))
+    t_rgb = torch.where(gt_mean > 0.005, t_rgb / torch.clamp_min(gt_mean, 1e-8),
+                        torch.zeros_like(t_rgb))
+    r_wo = _render_one(gparams, aux, dparams, setup, settings, iteration, None, "without")
+    inv = 1.0 - gt_tongue
+    wo_rgb = torch.mean(torch.abs(gt[-1] * inv - r_wo["render"] * inv))
+    wo_rgb = wo_rgb / torch.clamp_min(torch.mean(inv), 1e-8)
+    return {"tongue_l1": t_l1, "tongue_emb": t_emb, "tongue_rgb": t_rgb,
+            "wo_tongue_rgb": wo_rgb}
+
+
 def make_loss_and_grads(setup: TrainSetup):
-    """(params, aux, batch, iteration) -> (loss, metrics, grads, vs_grad,
-    radii, visible): the step's forward and backward without the update.
-    grads is {path: tensor} over every parameter (zeros where the loss does
-    not reach); vs_grad [C, 2] is the gradient of the zero screen-space
-    offsets, summed over the batch."""
+    """(params, aux, batch, knn_cache, iteration) -> (loss, metrics, grads,
+    vs_grad, radii, visible): the step's forward and backward without the
+    update. grads is {path: tensor} over every parameter (zeros where the
+    loss does not reach); vs_grad [C, 2] is the gradient of the zero
+    screen-space offsets, summed over the batch."""
     check_supported(setup)
     B = setup.batch_size
 
-    def loss_fn(params, offsets, aux, batch, iteration):
+    def loss_fn(params, offsets, aux, batch, knn_cache, iteration):
         gparams: gm.GaussianParams = params["gaussians"]
         dparams = params["deform"]
         reg_kick_on = iteration >= setup.radegs_from_iter
@@ -128,6 +297,9 @@ def make_loss_and_grads(setup: TrainSetup):
         if setup.opacity_l1_coef > 0:
             loss = loss + setup.opacity_l1_coef * opa_loss
 
+        emb_loss = knn_loss.knn_loss_fused(gparams.embedding, knn_cache.graph, KNN_K)
+        loss = loss + setup.reg_coef * emb_loss
+
         tv_loss = zero
         if setup.coef_tv_temporal > 0:
             tv_loss = L.temporal_tv_loss(dparams["weight"])
@@ -146,27 +318,36 @@ def make_loss_and_grads(setup: TrainSetup):
                                       rc.focal_x, rc.focal_y))
             loss = loss + setup.lambda_depth_normal * dn
 
+        tongue_metrics = {}
+        if setup.tongue_enabled:
+            tongue_metrics = _tongue_terms(setup, gparams, aux, dparams, batch, knn_cache,
+                                           r_last, iteration)
+            for name, weight in (("tongue_l1", 5.0), ("tongue_emb", setup.reg_coef),
+                                 ("tongue_rgb", 1.0), ("wo_tongue_rgb", 0.5)):
+                loss = loss + weight * tongue_metrics[name]
+
         radii = torch.stack([r["radii"] for r in renders]).amax(dim=0)
         visible = torch.stack([r["visibility_filter"] for r in renders]).any(dim=0)
         metrics = {
             "loss": loss, "l1": l1, "l1_items": l1_items,
             "psnr": torch.mean(L.psnr(image, gt)),
-            "ssim": ssim_val, "emb_loss": zero, "tv_loss": tv_loss,
+            "ssim": ssim_val, "emb_loss": emb_loss, "tv_loss": tv_loss,
             "opacity_mean": opa_loss, "depth_normal": dn, "pcd_loss": zero,
             "num_pairs": torch.stack([r["num_pairs"] for r in renders]).amax(),
             "tile_overflow": torch.stack([r["tile_overflow"] for r in renders]).any(),
             "send_overflow": torch.zeros((), dtype=torch.int32, device=image.device),
+            **tongue_metrics,
         }
         return loss, metrics, radii, visible
 
-    def loss_and_grads(params, aux, batch, iteration: int):
+    def loss_and_grads(params, aux, batch, knn_cache: KnnCache, iteration: int):
         flat = flatten_params(params)
         leaves = {p: t.detach().requires_grad_(True) for p, t in flat.items()}
         C = aux.alive.shape[0]
         offsets = torch.zeros((B, C, 2), dtype=torch.float32, device=aux.alive.device,
                               requires_grad=True)
         loss, metrics, radii, visible = loss_fn(unflatten_params(leaves), offsets, aux,
-                                                batch, iteration)
+                                                batch, knn_cache, iteration)
         grads = torch.autograd.grad(loss, [*leaves.values(), offsets], allow_unused=True)
         g = {p: torch.zeros_like(leaves[p]) if d is None else d
              for p, d in zip(leaves, grads)}
@@ -177,22 +358,44 @@ def make_loss_and_grads(setup: TrainSetup):
 
 
 def make_train_step(setup: TrainSetup, optimizer):
-    """The train step: (state, aux, batch) -> (state, aux, metrics), with
-    `optimizer` from `init_train_state` (it holds the lr schedules). Batch
-    entries (leading dim B): gt_image [B,3,H,W], viewmatrix [B,4,4],
-    projmatrix [B,4,4], campos [B,3], time [B], cam_no [B]; use_ssim, a bool
-    (the host-computed periodic SSIM gate, train.py:199)."""
+    """The train step: (state, aux, batch, knn_cache) -> (state, aux,
+    metrics), with `optimizer` from `init_train_state` (it holds the lr
+    schedules) and `knn_cache` from `refresh_knn_cache`. Batch entries
+    (leading dim B): gt_image [B,3,H,W], viewmatrix [B,4,4], projmatrix
+    [B,4,4], campos [B,3], time [B], cam_no [B], tongue_gt [B,1,H,W] (read
+    with tongue_enabled); use_ssim, a bool (the host-computed periodic SSIM
+    gate, train.py:199)."""
     loss_and_grads = make_loss_and_grads(setup)
 
-    def train_step(state: TrainState, aux: gm.GaussianAux, batch):
+    def train_step(state: TrainState, aux: gm.GaussianAux, batch, knn_cache: KnnCache):
         iteration = int(state.iteration)
         _, metrics, grads, vs_grad, radii, visible = loss_and_grads(
-            state.params, aux, batch, iteration)
+            state.params, aux, batch, knn_cache, iteration)
         params, opt_state = optimizer.update(grads, state.opt_state, state.params)
         aux2 = add_densification_stats(aux, vs_grad, visible, radii)
         return TrainState(params, opt_state, iteration + 1), aux2, metrics
 
     return train_step
+
+
+def make_densify_step(opt_cfg: OptimizationConfig, percent_dense: float,
+                      scene_extent: float):
+    """(state, aux, generator, grad_threshold[, noise]) -> (state, aux,
+    n_cloned, n_split): densify the cloud (train/densify.py) and zero the
+    Adam moments of every slot it touched. The caller then refreshes the 3D
+    filter and the KNN cache, as tools/train.py does."""
+    def densify_step(state: TrainState, aux, generator, grad_threshold, noise=None):
+        res = densify(state.params["gaussians"], aux, generator,
+                      grad_threshold=grad_threshold, percent_dense=percent_dense,
+                      scene_extent=scene_extent, max_gaussians=opt_cfg.max_number_gaussians,
+                      noise=noise)
+        params = dict(state.params)
+        params["gaussians"] = res.params
+        opt_state = reset_moments_at(state.opt_state, res.reset_mask)
+        return (TrainState(params, opt_state, state.iteration), res.aux, res.n_cloned,
+                res.n_split)
+
+    return densify_step
 
 
 def init_train_state(params: gm.GaussianParams, hidden: DeformHiddenConfig,

@@ -15,7 +15,11 @@ channels may differ beyond that, for a pixel whose transmittance sits at the
 exactly, every row of every tile within 1e-4 of its column's largest value
 (the same orders of summation differ), zero where the plain version's is,
 and bit-identical from run to run. K3: within 1e-6 of the largest output (both round an exact-to-float64
-sum once).
+sum once); K8, the same kernel under its own counter, likewise. K6 and K7
+(the KNN regulariser) against their plain versions: the loss within 1e-5
+relative, every row of dL/demb within 1e-5 of that row's largest value (the
+kernel reduces d2 by a shuffle butterfly and the loss by CTA partials; the
+terms are otherwise the same operations), and bit-identical from run to run.
 """
 
 import math
@@ -26,7 +30,8 @@ import torch
 
 from ed3dgs_torch.core.projection import project_gaussians
 from ed3dgs_torch.data.cameras import look_at_camera
-from ed3dgs_torch.ops import binning, binning_scan, rasterize_cuda, relayout, segment_sum
+from ed3dgs_torch.ops import (binning, binning_scan, knn, knn_loss, rasterize_cuda, relayout,
+                              segment_sum)
 from ed3dgs_torch.ops.rasterize import RasterConfig, rasterize
 
 pytestmark = pytest.mark.cuda
@@ -206,3 +211,69 @@ def test_backward_blend_kernel_matches_plain(dev, w, h, n, chunk, grow, dead):
     assert bool(((g - p).abs().amax(dim=0) <= 1e-4 * col_max).all())
     dead_rows = p.abs().amax(dim=1) == 0
     assert bool((g[dead_rows] == 0).all())
+
+
+def test_packed_segment_sum_is_the_k3_kernel(dev):
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(0, 12, 5000)
+    ends = np.cumsum(lengths).astype(np.int32)
+    starts = (ends - lengths).astype(np.int32)
+    rows = torch.randn(int(ends[-1]), 20, device=dev)
+    st, en = torch.as_tensor(starts, device=dev), torch.as_tensor(ends, device=dev)
+    before = (segment_sum.segment_sum_rows_packed.launches, segment_sum.segment_sum_rows.launches)
+    got = segment_sum.segment_sum_rows_packed(rows, st, en)
+    torch.cuda.synchronize()
+    assert (segment_sum.segment_sum_rows_packed.launches,
+            segment_sum.segment_sum_rows.launches) == (before[0] + 1, before[1])
+    want = segment_sum.segment_sum_rows_plain(rows, st, en)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def knn_graph_case(dev, C, K, spatial, caps, seed=0):
+    """A KNN graph on the card: neighbours by position (the trainer's kind)
+    or at random (no locality: the far and spill lists fill up)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    pts = torch.rand(C, 3, device=dev, generator=g) * 2 - 1
+    if spatial:
+        d2, idx = knn.knn(pts, k=K)
+        w = torch.exp(-20.0 * d2)
+    else:
+        idx = torch.randint(0, C, (C, K), device=dev, generator=g)
+        w = torch.rand(C, K, device=dev, generator=g)
+    mask = torch.rand(C, device=dev, generator=g) > 0.1
+    w = w * mask[:, None]
+    coef = mask.float() / (mask.sum() * K)
+    graph = knn_loss.prepare_knn_graph(idx, w, coef, pts, pts_valid=mask, **caps)
+    emb = torch.randn(C, 32, device=dev, generator=g) * 0.3
+    return graph, emb
+
+
+@pytest.mark.parametrize("C,K,spatial,caps,overflows", [
+    # the trainer's default buckets drop ~0.7% of this cloud's edges
+    (100_000, 20, True, dict(spill_a=256, spill_b=768, far_capacity=1 << 19), True),
+    (3000, 20, False, dict(spill_a=256, spill_b=256, far_capacity=256), True),
+    (700, 5, False, {}, False)])
+def test_knn_loss_kernels_match_plain(dev, C, K, spatial, caps, overflows):
+    graph, emb = knn_graph_case(dev, C, K, spatial, caps)
+    assert bool((graph.overflow > 0).any()) == overflows
+    Cp = graph.pi.shape[0]
+    emb_r = torch.cat([emb, emb.new_zeros(Cp - C, 32)])[graph.pi].contiguous()
+    before = (knn_loss.knn_rows.launches, knn_loss.knn_reverse.launches)
+    loss, de, s = knn_loss.knn_rows(emb_r, graph.nbr, graph.w, graph.coef)
+    out = knn_loss.knn_reverse(emb_r, s, de, graph.rev_ptr, graph.rev_pair)
+    loss2, de2, s2 = knn_loss.knn_rows(emb_r, graph.nbr, graph.w, graph.coef)
+    out2 = knn_loss.knn_reverse(emb_r, s2, de2, graph.rev_ptr, graph.rev_pair)
+    torch.cuda.synchronize()
+    assert (knn_loss.knn_rows.launches, knn_loss.knn_reverse.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(loss, loss2) and torch.equal(out, out2)        # no atomics
+    loss_p, de_p, s_p = knn_loss.knn_rows_plain(emb_r, graph.nbr, graph.w, graph.coef)
+    out_p = knn_loss.knn_reverse_plain(emb_r, s_p, de_p, graph.rev_ptr, graph.rev_pair)
+    assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    assert torch.isfinite(out).all()
+    row_max = out_p.abs().amax(dim=1)
+    assert bool(((out - out_p).abs().amax(dim=1) <= 1e-5 * row_max).all())
+    # through the autograd Function: the same gradient
+    e = emb.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(knn_loss.knn_loss_fused(e, graph, K), e)
+    assert torch.equal(g, out[graph.inv[:C]])

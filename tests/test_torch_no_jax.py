@@ -24,7 +24,8 @@ assert not bad, bad
 assert sys.modules["jax"] is None
 for name in ("ed3dgs_torch.train.trainer", "ed3dgs_torch.train.optim",
              "ed3dgs_torch.train.losses", "ed3dgs_torch.train.densify",
-             "ed3dgs_torch.ops.segment_sum"):
+             "ed3dgs_torch.ops.segment_sum", "ed3dgs_torch.ops.knn",
+             "ed3dgs_torch.ops.knn_loss"):
     assert name in names, name
 print(len(names))
 """
@@ -35,7 +36,7 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 27   # every module of both slices was imported
+    assert int(out.stdout.split()[-1]) >= 29   # every module of the three slices was imported
 
 
 def test_chip_smoke_imports_without_jax():
@@ -49,14 +50,15 @@ def test_chip_smoke_imports_without_jax():
 def test_cpu_tensors_launch_no_kernel():
     """A forward and backward pass on CPU tensors runs the plain versions:
     no kernel counter moves."""
-    from ed3dgs_torch.ops import binning_scan, rasterize_cuda, relayout, segment_sum
+    from ed3dgs_torch.ops import binning_scan, knn_loss, rasterize_cuda, relayout, segment_sum
     from ed3dgs_torch.ops.rasterize import RasterConfig, rasterize
     from ed3dgs_torch.core.projection import project_gaussians
     from ed3dgs_torch.data.cameras import look_at_camera
 
     counters = (binning_scan.fused_bin_scans, rasterize_cuda.rasterize_forward,
                 relayout.unpack_image, rasterize_cuda.rasterize_backward,
-                segment_sum.segment_sum_rows, relayout.pack_image)
+                segment_sum.segment_sum_rows, relayout.pack_image, knn_loss.knn_rows,
+                knn_loss.knn_reverse, segment_sum.segment_sum_rows_packed)
     before = [f.launches for f in counters]
     rng = np.random.default_rng(0)
     n = 60
@@ -76,6 +78,13 @@ def test_cpu_tensors_launch_no_kernel():
     assert float(out.alpha.max()) > 0.5
     (grad,) = torch.autograd.grad(out.color.sum() + out.expected_depth.sum(), xyz)
     assert float(grad.abs().max()) > 0
+    emb = torch.randn(n, 8, requires_grad=True)
+    idx = torch.randint(0, n, (n, 5))
+    graph = knn_loss.prepare_knn_graph(idx, torch.rand(n, 5), torch.full((n,), 0.01), xyz.detach())
+    (gemb,) = torch.autograd.grad(knn_loss.knn_loss_fused(emb, graph, 5), emb)
+    assert float(gemb.abs().max()) > 0
+    segment_sum.segment_sum_rows_packed(torch.ones(6, 4), torch.tensor([0, 2], dtype=torch.int32),
+                                        torch.tensor([2, 6], dtype=torch.int32))
     assert [f.launches for f in counters] == before
 
 

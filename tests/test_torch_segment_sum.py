@@ -1,8 +1,8 @@
-"""The plain version of kernel K3 (ed3dgs_torch.ops.segment_sum on CPU
-tensors) against the Pallas segment-sum kernel in interpret mode, on CSR
+"""The plain versions of kernels K3 and K8 (ed3dgs_torch.ops.segment_sum on
+CPU tensors) against the Pallas segment-sum kernels in interpret mode, on CSR
 bounds with empty segments, gaps and a long segment. Bound: 1e-6 of the
-largest output value (the TPU kernel sums float32 rows by a HIGHEST-precision
-matmul, the port differences float64 prefix sums)."""
+largest output value (the TPU kernels sum float32 rows by HIGHEST-precision
+matmuls, the port differences float64 prefix sums)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from ed3dgs_tpu.ops.segment_sum import segment_sum_rows as j_segment_sum
+from ed3dgs_tpu.ops.segment_sum import segment_sum_rows_packed as j_segment_sum_packed
 
 from ed3dgs_torch.ops import segment_sum
 
@@ -45,7 +46,23 @@ def test_segment_sum_matches_pallas_interpret(S, F, empty_frac):
     assert np.abs(got.numpy() - want).max() <= REL * np.abs(want).max()
 
 
-def test_segment_sum_refuses_wide_rows():
+@pytest.mark.parametrize("S,F,empty_frac", [(300, 26, 0.3), (64, 7, 0.5), (129, 32, 0.0)])
+def test_packed_segment_sum_matches_pallas_interpret(S, F, empty_frac):
+    """K8, the TPU's narrow-row variant (four rows packed per 128-lane row),
+    on its own narrow rows; the port's K8 is K3's function."""
+    R = 16384
+    starts, ends = csr(S + 1, S, R, empty_frac)
+    rows = np.random.default_rng(F + 1).normal(size=(R, F)).astype(np.float32)
+    want = np.asarray(j_segment_sum_packed(jnp.asarray(rows), jnp.asarray(starts),
+                                           jnp.asarray(ends), chunk=64, interpret=True))
+    got = segment_sum.segment_sum_rows_packed(torch.as_tensor(rows), torch.as_tensor(starts),
+                                              torch.as_tensor(ends))
+    assert got.shape == (S, F)
+    assert np.abs(got.numpy() - want).max() <= REL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("fn", ["segment_sum_rows", "segment_sum_rows_packed"])
+def test_segment_sum_refuses_wide_rows(fn):
     with pytest.raises(ValueError, match="F <= 32"):
-        segment_sum.segment_sum_rows(torch.zeros(4, 33), torch.zeros(1, dtype=torch.int32),
-                                     torch.ones(1, dtype=torch.int32))
+        getattr(segment_sum, fn)(torch.zeros(4, 33), torch.zeros(1, dtype=torch.int32),
+                                 torch.ones(1, dtype=torch.int32))

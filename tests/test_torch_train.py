@@ -2,9 +2,12 @@
 both on the CPU, on the same numpy-seeded cloud, cameras, targets and
 deformation weights (the JAX model's, carried across by convert.py).
 
-The JAX step runs with reg_coef=0 (the port refuses the KNN regulariser until
-its slice), float32 activations, and the "pallas" backend in interpret mode;
-the port's step runs the plain versions of its kernels. Its gradients are
+The JAX step runs with reg_coef=0 here (the KNN regulariser at the config's
+reg_coef=1 is in tests/test_torch_train_knn.py, the tongue terms in
+tests/test_torch_train_tongue.py), float32 activations, and the "pallas"
+backend in interpret mode; the port's step runs the plain versions of its
+kernels. Both compute the KNN loss every step whatever reg_coef is, each on
+the graph cache its own `update_knn_cache` built. Its gradients are
 read through the optimizer it is handed and its screen-space gradient
 through `add_densification_stats`, both wrapped here (the JAX package is not
 changed).
@@ -21,6 +24,7 @@ import dataclasses
 import math
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -97,11 +101,11 @@ def cameras():
                            W, H).matrices() for i in range(B)]
 
 
-def setup_kw():
-    return dict(batch_size=B, white_background=True, kernel_size=0.1,
-                disable_filter3d=False, lambda_dssim=1.0, opacity_l1_coef=1e-4,
-                reg_coef=0.0, coef_tv_temporal=1e-3, lambda_depth_normal=0.05,
-                radegs_from_iter=15_000, num_down_emb=30, sh_degree=3)
+def setup_kw(**over):
+    return {**dict(batch_size=B, white_background=True, kernel_size=0.1,
+                   disable_filter3d=False, lambda_dssim=1.0, opacity_l1_coef=1e-4,
+                   reg_coef=0.0, coef_tv_temporal=1e-3, lambda_depth_normal=0.05,
+                   radegs_from_iter=15_000, num_down_emb=30, sh_degree=3), **over}
 
 
 def raster_kw(cam):
@@ -109,9 +113,12 @@ def raster_kw(cam):
                 pair_capacity=1 << 12, chunk=32)
 
 
-def batch_np(cams, use_ssim=True, seed=3):
+def batch_np(cams, use_ssim=True, seed=3, tongue=False):
+    """The batch; with `tongue`, a tongue mask target over part of each view."""
     rng = np.random.default_rng(seed)
-    return {
+    extra = ({"tongue_gt": (rng.uniform(0, 1, (B, 1, H, W)) > 0.6).astype(np.float32)}
+             if tongue else {})
+    return {**extra,
         "gt_image": rng.uniform(0, 1, (B, 3, H, W)).astype(np.float32),
         "viewmatrix": np.stack([c.world_view for c in cams]).astype(np.float32),
         "projmatrix": np.stack([c.full_proj for c in cams]).astype(np.float32),
@@ -122,38 +129,49 @@ def batch_np(cams, use_ssim=True, seed=3):
     }
 
 
+def read_out(seen, key, tree):
+    """Store `tree` as numpy in seen[key], also from inside a jitted step."""
+    jax.debug.callback(lambda t: seen.__setitem__(key, jax.tree_util.tree_map(np.asarray, t)),
+                       tree)
+
+
 class Recorder:
     """An optax optimizer that remembers the gradients it was handed."""
 
     def __init__(self, inner):
-        self.inner, self.grads = inner, None
+        self.inner, self.seen = inner, {}
 
     def init(self, params):
         return self.inner.init(params)
 
     def update(self, grads, state, params=None):
-        self.grads = grads
+        read_out(self.seen, "grads", grads)
         return self.inner.update(grads, state, params)
 
 
-def jax_step(state, aux, batch, monkeypatch):
-    """One JAX step, returning (new_state, new_aux, metrics, grads, vs_grad)."""
+def jax_step(state, aux, batch, monkeypatch, knn=None, jit=False, **over):
+    """One JAX step, returning (new_state, new_aux, metrics, grads, vs_grad);
+    `over` overrides TrainSetup fields, `knn` the cache (default: built by
+    update_knn_cache), `jit` compiles the step as the JAX trainer runs it."""
     cams = cameras()
     hidden = hidden_config()
     rcfg = JRasterConfig(backend="pallas", interpret=True, **raster_kw(cams[0]))
-    setup = jtrainer.TrainSetup(raster=rcfg, hidden=hidden, **setup_kw())
+    setup = jtrainer.TrainSetup(raster=rcfg, hidden=hidden, **setup_kw(**over))
     rec = Recorder(j_build_optimizer(JOpt(), 1.0))
     seen = {}
 
     def spy(aux_, vs, visible, radii):
-        seen["vs"] = vs
+        read_out(seen, "vs", vs)
         return stats(aux_, vs, visible, radii)
     monkeypatch.setattr(jtrainer, "add_densification_stats", spy)
-    knn = jtrainer.update_knn_cache(state.params["gaussians"], aux)
+    if knn is None:
+        knn = jtrainer.update_knn_cache(state.params["gaussians"], aux,
+                                        tongue_enabled=setup.tongue_enabled)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    step = jtrainer.make_train_step(setup, JOpt(), rec, jit=False)
+    step = jtrainer.make_train_step(setup, JOpt(), rec, jit=jit)
     new_state, new_aux, metrics = step(state, aux, jb, knn)
-    return new_state, new_aux, metrics, flatten_pytree(rec.grads), np.asarray(seen["vs"])
+    jax.effects_barrier()
+    return new_state, new_aux, metrics, flatten_pytree(rec.seen["grads"]), seen["vs"]
 
 
 def dead_slots_as_trained(rotation, filter_3d):
@@ -181,7 +199,7 @@ def jax_problem():
     return fields, state, aux
 
 
-def torch_side(fields, jstate):
+def torch_side(fields, jstate, **over):
     cams = cameras()
     hidden = DeformHiddenConfig(**dataclasses.asdict(hidden_config()))
     tparams, taux = convert.gaussians_from_numpy(
@@ -194,8 +212,13 @@ def torch_side(fields, jstate):
     params = {"gaussians": tparams, "deform": tdef}
     state = optim.TrainState(params, optimizer.init(params), ITERATION)
     setup = trainer.TrainSetup(raster=RasterConfig(**raster_kw(cams[0])), hidden=hidden,
-                               **setup_kw())
+                               **setup_kw(**over))
     return state, taux, setup, optimizer
+
+
+def torch_cache(state, aux, setup):
+    return trainer.update_knn_cache(state.params["gaussians"], aux,
+                                    tongue_enabled=setup.tongue_enabled)
 
 
 def torch_batch(batch):
@@ -222,22 +245,20 @@ def f32_steps():
     finally:
         mp.undo()
     tstate, taux, setup, optimizer = torch_side(fields, jstate)
+    cache = torch_cache(tstate, taux, setup)
     loss_and_grads = trainer.make_loss_and_grads(setup)
-    tout = loss_and_grads(tstate.params, taux, torch_batch(batch), ITERATION)
+    tout = loss_and_grads(tstate.params, taux, torch_batch(batch), cache, ITERATION)
     step = trainer.make_train_step(setup, optimizer)
-    tstep = step(tstate, taux, torch_batch(batch))
+    tstep = step(tstate, taux, torch_batch(batch), cache)
     return jout, tout, tstep
 
 
 def test_step_loss_and_metrics_match_jax(f32_steps):
     (_, _, jmetrics, _, _), (loss, metrics, *_), (_, _, step_metrics) = f32_steps
     assert set(metrics) == set(jmetrics)
-    # the KNN loss is not computed with reg_coef=0 (JAX computes it and
-    # multiplies it by 0)
-    assert float(metrics["emb_loss"]) == 0.0
+    # the KNN loss is computed at reg_coef=0 too, as JAX computes it
+    assert float(metrics["emb_loss"]) > 0
     for k, v in jmetrics.items():
-        if k == "emb_loss":
-            continue
         np.testing.assert_allclose(metrics[k].numpy(), np.asarray(v), rtol=REL, atol=1e-7,
                                    err_msg=k)
         np.testing.assert_array_equal(step_metrics[k].numpy(), metrics[k].numpy())
@@ -271,8 +292,6 @@ def test_step_aux_update_matches_jax(f32_steps):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(reg_coef=1.0), "KNN embedding regulariser"),
-    (dict(tongue_enabled=True), "tongue"),
     (dict(colmap_supervision=True), "COLMAP"),
     (dict(comms="strip"), "strip"),
     (dict(batch_mode="vmap"), "vmap"),
@@ -301,9 +320,11 @@ def test_step_gradients_finite_on_degenerate_dead_slots():
     assert float(taux.filter_3d[N:].abs().max()) == 0.0
     tdef = init_deform_params(hidden, seed=2, device="cpu")
     setup = trainer.TrainSetup(raster=RasterConfig(**raster_kw(cams[0])), hidden=hidden,
-                               **setup_kw())
+                               **setup_kw(reg_coef=1.0))
+    cache = trainer.update_knn_cache(tparams, taux)
     loss, _, grads, vs, _, _ = trainer.make_loss_and_grads(setup)(
-        {"gaussians": tparams, "deform": tdef}, taux, torch_batch(batch_np(cams)), ITERATION)
+        {"gaussians": tparams, "deform": tdef}, taux, torch_batch(batch_np(cams)), cache,
+        ITERATION)
     assert bool(torch.isfinite(loss))
     for k, g in grads.items():
         assert bool(torch.isfinite(g).all()), k

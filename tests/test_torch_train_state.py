@@ -29,7 +29,7 @@ from ed3dgs_torch.train import optim, trainer
 
 from test_torch_train import (CAP, ITERATION, N, REL, assert_grads_match, batch_np, cameras,
                               cloud, hidden_config, jax_model, jax_problem, jax_step,
-                              torch_batch, torch_side)
+                              torch_batch, torch_cache, torch_side)
 
 
 def test_optimizer_matches_optax():
@@ -137,14 +137,15 @@ def test_jax_checkpoint_resumes_in_the_port(tmp_path, monkeypatch):
     batch = batch_np(cameras(), use_ssim=False, seed=4)
     s2, a2, m2, jgrads, jvs = jax_step(s1, a1, batch, monkeypatch)
     _, _, setup, optimizer = torch_side(fields, s1)
+    cache = torch_cache(tstate, taux, setup)
     loss, metrics, tgrads, tvs, _, _ = trainer.make_loss_and_grads(setup)(
-        tstate.params, taux, torch_batch(batch), tstate.iteration)
+        tstate.params, taux, torch_batch(batch), cache, tstate.iteration)
     np.testing.assert_allclose(float(loss), float(m2["loss"]), rtol=REL)
     assert float(metrics["ssim"]) == 1.0
     assert_grads_match(jgrads, tgrads)
     assert np.abs(tvs.numpy() - jvs).max() <= REL * np.abs(jvs).max()
     t2, taux2, _ = trainer.make_train_step(setup, optimizer)(
-        tstate, taux, torch_batch(batch))
+        tstate, taux, torch_batch(batch), cache)
     assert t2.iteration == it + 1 and all(st.count == 2 for st in t2.opt_state.values())
     np.testing.assert_array_equal(taux2.denom.numpy(), np.asarray(a2.denom))
     np.testing.assert_array_equal(taux2.max_radii2d.numpy(), np.asarray(a2.max_radii2d))
