@@ -14,7 +14,8 @@ chunk 128):
    and K5a; holds each of them against its plain PyTorch version on those
    inputs (K4 and K5a bit-exact; K1 within the tolerances below) and times
    kernel, plain version and library yardstick with CUDA events, L2 flushed
-   before every launch;
+   before every launch (K1 and K2 also report their registers, shared
+   memory and resident CTAs per SM);
 2. drives the forward main path: `ed3dgs_torch.render.render` on three
    frames. Every launch count is set to 0 just before and read just after;
    K1, K4 and K5a must each have risen by one per frame. Profiles one frame;
@@ -495,8 +496,10 @@ def main():
     b1, by1 = bound(bytes1, ops1)
     print(f"  K1 work: rows read {rows_read}, pair-pixel evaluations {stats['evals']}, "
           f"blended {stats['includes']}; {bytes1 / 1e6:.1f} MB, {ops1 / 1e9:.2f} GFLOP")
+    info1 = rasterize_cuda.kernel_info("rasterize_forward", chunk)
+    print(f"  K1 {ms1:.4f} ms; {info1}", flush=True)
     rows["K1"] = dict(KERNELS["K1"], max_abs_err=err1, ms=ms1, plain_ms=plain1,
-                      bound_ms=b1, bound_by=by1, library_ms=None)
+                      bound_ms=b1, bound_by=by1, library_ms=None, **info1)
     result["K1_flipped_fraction"] = {names[c]: float(flipped[c]) for c in range(len(names))}
     result["K1_work"] = dict(rows_read=rows_read, bytes=bytes1, ops=ops1, **stats)
     del packed, packed_plain, a, b, diff, off
@@ -825,8 +828,10 @@ def main():
     print(f"  K2 work: live rows {rows_live}, pair-pixel evaluations {stats2['evals']}, "
           f"blended {stats2['includes']}; {bytes2 / 1e6:.1f} MB, {ops2 / 1e9:.2f} GFLOP",
           flush=True)
+    info2 = rasterize_cuda.kernel_info("rasterize_backward", chunk2)
+    print(f"  K2 {ms2:.4f} ms; {info2}", flush=True)
     rows["K2"] = dict(KERNELS["K2"], max_abs_err=err2, ms=ms2, plain_ms=plain2,
-                      bound_ms=b2, bound_by=by2, library_ms=None)
+                      bound_ms=b2, bound_by=by2, library_ms=None, **info2)
     result["K2_work"] = dict(rows_live=rows_live, rows=total2, bytes=bytes2, ops=ops2, **stats2)
     del dpay, dpay_plain, got2, want2
 

@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 NEAR_PLANE = 0.2  # reference cuda_rasterizer/auxiliary.h:21
 FAR_PLANE = 100.0
 
@@ -81,10 +83,10 @@ def _pixel_grid(width, height, focal_x, focal_y, offset, device):
 
 
 def camera_rays_z(width: int, height: int, focal_x: float, focal_y: float,
-                  device="cpu") -> torch.Tensor:
+                  device="cuda") -> torch.Tensor:
     """Per-pixel ray-length factor ln = sqrt(u^2+v^2+1) (forward.cu:590-591).
-    Returns [H, W]."""
-    u, v = _pixel_grid(width, height, focal_x, focal_y, 0.0, device)
+    Returns [H, W] on `device` (the GPU unless the caller asks for the CPU)."""
+    u, v = _pixel_grid(width, height, focal_x, focal_y, 0.0, resolve_device(device))
     return torch.sqrt(u * u + v * v + 1.0)
 
 

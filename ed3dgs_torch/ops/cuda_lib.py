@@ -4,8 +4,11 @@ Each source is compiled by nvcc for sm_90a into its own shared library with a
 plain C interface and loaded with ctypes, at first use. Nothing is built or
 loaded when a module is imported, so the CPU tests import every module on a
 machine without nvcc. `build()` starts one nvcc per source, all at once.
-Libraries land in `csrc/build/` (git-ignored), named by a hash of the source
-and the flags, so an edited source is rebuilt.
+Libraries land in `csrc/build/` (git-ignored), named by a hash of the source,
+the shared headers (`csrc/*.cuh`) and the flags, so an edited source or header
+is rebuilt. Every library hashes every header, whether its source includes it
+or not: a header edit rebuilds all of them (seconds, in parallel), and no
+include has to be traced.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ BUILD_DIR = CSRC / "build"
 # versions compute them, so the blend's `power <= 0` and alpha >= 1/255 masks
 # flip only where float ordering genuinely differs; no --use_fast_math (its
 # approximate exp2/divide flips those masks, tests/test_rasterize_pallas.py).
+# A kernel that wants fused multiply-adds off its mask path writes fmaf().
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -40,17 +44,21 @@ SIGNATURES = {
         "ed3dgs_fused_bin_scans": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "rasterize_forward": {
-        # payload, tile_start, tile_count, out, num_tiles, grid_x, gxp, chunk,
-        # cap, focal_x, focal_y, half_w, half_h, stream
+        # payload, tile_start, tile_count, out, num_tiles, grid_x, gxp,
+        # chunk, cap, focal_x, focal_y, half_w, half_h, stream
         "ed3dgs_forward_blend": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _F, _F, _F, _F, _P],
+        # chunk, *registers, *shared bytes, *CTAs per SM
+        "ed3dgs_forward_blend_info": [_I, _P, _P, _P],
     },
     "rasterize_backward": {
         # payload, tile_start, tile_count, packed, cot, dpay, live_chunks,
-        # tchk, num_tiles, grid_x, gxp, chunk, cap, focal_x, focal_y,
-        # half_w, half_h, stream
-        "ed3dgs_backward_blend": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _F, _F, _F, _F, _P],
+        # tchk, ttot, tmed, num_tiles, grid_x, gxp, chunk, cap, focal_x,
+        # focal_y, half_w, half_h, stream
+        "ed3dgs_backward_blend": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _F, _F, _F, _F, _P],
+        # chunk, *registers, *shared bytes, *CTAs per SM
+        "ed3dgs_backward_blend_info": [_I, _P, _P, _P],
     },
     "segment_sum": {
         # rows, starts, ends, out, S, F, stream
@@ -81,6 +89,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}.{h.hexdigest()[:12]}.so"
 

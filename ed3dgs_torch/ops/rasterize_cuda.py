@@ -18,10 +18,16 @@ On a CUDA tensor `rasterize_forward` / `rasterize_backward` launch
 csrc/rasterize_forward.cu / csrc/rasterize_backward.cu; on a CPU tensor they
 run `rasterize_forward_plain` / `rasterize_backward_plain`, which follow the
 TPU kernels' chunked formulation (an in-chunk cumulative product and a
-per-chunk transmittance carry) vectorised over tiles.
+per-chunk transmittance carry) vectorised over tiles. Inside a tile each
+kernel's warp skips the rows that cannot pass at any of its 8x4 pixels
+(csrc/blend_common.cuh `meets_block`: a conservative screen box, then the
+pass ellipse against the block; the copies here are `cull_box_plain` and
+`meets_block_plain`): a failed pass changes nothing.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -46,10 +52,12 @@ OUT_CHANNELS = {
 OUT_DIM = 18
 OUT_PAD = 24
 MAX_CHUNKS = 512    # per-tile cap: chunk * MAX_CHUNKS pairs
+MAX_CHUNK = 512     # rows per chunk: the kernels' shared memory stays < 227 KB
 TILE_BATCH = 256    # tiles per step of the plain version
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
+BOX_FAR = 1 << 30   # cull_box_plain's bound for "the whole plane"
 
 
 def _finalize(acc_w, acc_wx, acc_wy, med, t_final, pxf, pyf, half_w, half_h,
@@ -115,6 +123,75 @@ def _tile_pixels(tid, grid_x, lane):
     pxf = ((tid % grid_x) * TILE)[:, None].to(f32) + (lane % TILE).to(f32)
     pyf = ((tid // grid_x) * TILE)[:, None].to(f32) + (lane // TILE).to(f32)
     return pxf, pyf
+
+
+def _cull_plain(rows: torch.Tensor):
+    """csrc/blend_common.cuh `splat_cull` on [K, 26] rows, in the same
+    float32 operations: the box [K, 4] and (kc, ka, a, b, c, r2), each [K]."""
+    S = PAYLOAD_SLICES
+    f32 = torch.float32
+    mx, my = rows[:, S["mean2d"].start], rows[:, S["mean2d"].start + 1]
+    a, b, c = (rows[:, S["conic"].start + i] for i in range(3))
+    opc = rows[:, S["opacity"].start]
+    alpha_min = torch.tensor(ALPHA_MIN, dtype=f32)
+    ac = a * c
+    det = ac - b * b
+    cull = (torch.isfinite(mx) & torch.isfinite(my) & torch.isfinite(opc) & (a > 0)
+            & (c > 0) & torch.isfinite(ac) & (det > torch.tensor(1e-3, dtype=f32) * ac))
+    one, zero = torch.ones_like(det), torch.zeros_like(det)
+    safe_det = torch.where(cull, det, one)
+    r2 = (2.0 * torch.log(torch.where(cull, opc / alpha_min, one))
+          + torch.tensor(1e-3, dtype=f32)) * torch.tensor(1.01, dtype=f32)
+    ex = torch.sqrt(torch.where(cull, r2 * c / safe_det, one)) + 1.0
+    ey = torch.sqrt(torch.where(cull, r2 * a / safe_det, one)) + 1.0
+    far = float(BOX_FAR)
+    box = torch.stack([torch.floor(torch.clamp_min(mx - ex, -far)),
+                       torch.ceil(torch.clamp_max(mx + ex, far)),
+                       torch.floor(torch.clamp_min(my - ey, -far)),
+                       torch.ceil(torch.clamp_max(my + ey, far))], dim=1).to(torch.int64)
+    whole = torch.tensor([-BOX_FAR, BOX_FAR, -BOX_FAR, BOX_FAR], dtype=torch.int64)
+    none = torch.tensor([BOX_FAR, -BOX_FAR, BOX_FAR, -BOX_FAR], dtype=torch.int64)
+    box = torch.where(cull[:, None], box, whole)
+    box = torch.where((opc < alpha_min)[:, None], none, box)
+    keep = lambda x, other: torch.where(cull, x, other)                     # noqa: E731
+    return (box, keep(-b / torch.where(cull, c, one), zero),
+            keep(-b / torch.where(cull, a, one), zero), keep(a, zero), keep(b, zero),
+            keep(c, zero), keep(r2, one))
+
+
+def cull_box_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernels' screen box (csrc/blend_common.cuh
+    `splat_cull`): for [K, 26] pair rows, the inclusive integer pixel bounds
+    [K, 4] = (x0, x1, y0, y1) outside which a row fails `_splat_alphas`' pass
+    test. The whole plane (+-2^30) for a conic that is not positive definite
+    or nearly degenerate or for values that are not finite; empty (x0 > x1)
+    for an opacity below 1/255."""
+    return _cull_plain(rows)[0]
+
+
+def meets_block_plain(rows: torch.Tensor, bx0: int, by0: int) -> torch.Tensor:
+    """Plain version of the kernels' per-warp test (csrc/blend_common.cuh
+    `meets_block`): [K] bool, False where a row can pass at no pixel of the
+    8x4 block whose top-left pixel is (bx0, by0): its box misses the block,
+    or the least q over the block grown by one pixel exceeds r2."""
+    box, kc, ka, a, b, c, r2 = _cull_plain(rows)
+    S = PAYLOAD_SLICES
+    mx, my = rows[:, S["mean2d"].start], rows[:, S["mean2d"].start + 1]
+    in_box = (box[:, 1] >= bx0) & (box[:, 0] <= bx0 + 7) & (box[:, 3] >= by0) & (
+        box[:, 2] <= by0 + 3)
+    u0, u1 = float(bx0 - 1) - mx, float(bx0 + 8) - mx
+    v0, v1 = float(by0 - 1) - my, float(by0 + 4) - my
+    centre = (u0 <= 0) & (u1 >= 0) & (v0 <= 0) & (v1 >= 0)
+    b2 = 2.0 * b
+
+    def q(u, v):
+        return u * (a * u + b2 * v) + c * v * v
+
+    clamp = lambda x, lo, hi: torch.minimum(torch.maximum(x, lo), hi)      # noqa: E731
+    qmin = torch.minimum(
+        torch.minimum(q(u0, clamp(kc * u0, v0, v1)), q(u1, clamp(kc * u1, v0, v1))),
+        torch.minimum(q(clamp(ka * v0, u0, u1), v0), q(clamp(ka * v1, u0, u1), v1)))
+    return in_box & (centre | (qmin <= r2))
 
 
 def _chunk_rows(pair_payload, start, count, c, chunk, rowid):
@@ -197,6 +274,34 @@ def rasterize_forward_plain(pair_payload, tile_start, tile_count, *, grid_x: int
     return out
 
 
+def _check_tiles(pair_payload, tile_start, tile_count, num_tiles):
+    cuda_lib.check_cuda(pair_payload, "pair_payload", torch.float32, 2)
+    if pair_payload.shape[1] != PAYLOAD_WIDTH:
+        raise ValueError(f"pair_payload rows must be {PAYLOAD_WIDTH} wide")
+    for name, t in (("tile_start", tile_start), ("tile_count", tile_count)):
+        cuda_lib.check_cuda(t, name, torch.int32, 1)
+        if t.shape[0] != num_tiles:
+            raise ValueError(f"{name} must have {num_tiles} entries")
+
+
+def _check_chunk(chunk: int):
+    if not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} must be in 1..{MAX_CHUNK}")
+
+
+def kernel_info(kernel: str, chunk: int = 128) -> dict:
+    """K1's ("rasterize_forward") or K2's ("rasterize_backward") registers
+    per thread, shared memory per CTA at `chunk` and resident CTAs per SM,
+    as the card reports them."""
+    fn = {"rasterize_forward": "ed3dgs_forward_blend_info",
+          "rasterize_backward": "ed3dgs_backward_blend_info"}[kernel]
+    _check_chunk(chunk)
+    out = [ctypes.c_int(0) for _ in range(3)]
+    err = getattr(cuda_lib.lib(kernel), fn)(chunk, *(ctypes.addressof(v) for v in out))
+    cuda_lib.check_launch(err, fn)
+    return dict(registers=out[0].value, smem_bytes=out[1].value, ctas_per_sm=out[2].value)
+
+
 def rasterize_forward(pair_payload, tile_start, tile_count, *, grid_x: int,
                       grid_y: int, width: int, height: int, focal_x: float,
                       focal_y: float, chunk: int = 128) -> torch.Tensor:
@@ -210,23 +315,17 @@ def rasterize_forward(pair_payload, tile_start, tile_count, *, grid_x: int,
             width=width, height=height, focal_x=focal_x, focal_y=focal_y,
             chunk=chunk)
     num_tiles = grid_x * grid_y
-    cuda_lib.check_cuda(pair_payload, "pair_payload", torch.float32, 2)
-    if pair_payload.shape[1] != PAYLOAD_WIDTH:
-        raise ValueError(f"pair_payload rows must be {PAYLOAD_WIDTH} wide")
-    for name, t in (("tile_start", tile_start), ("tile_count", tile_count)):
-        cuda_lib.check_cuda(t, name, torch.int32, 1)
-        if t.shape[0] != num_tiles:
-            raise ValueError(f"{name} must have {num_tiles} entries")
-    if not 0 < chunk * PAYLOAD_WIDTH * 4 <= 48 * 1024:
-        raise ValueError(f"chunk {chunk} does not fit 48 KB of shared memory")
+    _check_tiles(pair_payload, tile_start, tile_count, num_tiles)
+    _check_chunk(chunk)
     gxp = pad_grid_x(grid_x)
     out = torch.empty((grid_y, gxp, OUT_PAD, PIX), dtype=torch.float32,
                       device=pair_payload.device)
     with torch.cuda.device(pair_payload.device):
         err = cuda_lib.lib("rasterize_forward").ed3dgs_forward_blend(
             pair_payload.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-            out.data_ptr(), num_tiles, grid_x, gxp, chunk, chunk * MAX_CHUNKS,
-            focal_x, focal_y, width / 2.0, height / 2.0, cuda_lib.stream_of(pair_payload))
+            out.data_ptr(), num_tiles, grid_x, gxp, chunk,
+            chunk * MAX_CHUNKS, focal_x, focal_y, width / 2.0, height / 2.0,
+            cuda_lib.stream_of(pair_payload))
     cuda_lib.check_launch(err, "rasterize_forward")
     rasterize_forward.launches += 1
     return out
@@ -414,34 +513,30 @@ def rasterize_backward(pair_payload, tile_start, tile_count, packed, cot, *,
             grid_y=grid_y, width=width, height=height, focal_x=focal_x,
             focal_y=focal_y, chunk=chunk)
     num_tiles = grid_x * grid_y
-    cuda_lib.check_cuda(pair_payload, "pair_payload", torch.float32, 2)
-    if pair_payload.shape[1] != PAYLOAD_WIDTH:
-        raise ValueError(f"pair_payload rows must be {PAYLOAD_WIDTH} wide")
-    for name, t in (("tile_start", tile_start), ("tile_count", tile_count)):
-        cuda_lib.check_cuda(t, name, torch.int32, 1)
-        if t.shape[0] != num_tiles:
-            raise ValueError(f"{name} must have {num_tiles} entries")
+    _check_tiles(pair_payload, tile_start, tile_count, num_tiles)
     gxp = pad_grid_x(grid_x)
     for name, t in (("packed", packed), ("cot", cot)):
         cuda_lib.check_cuda(t, name, torch.float32, 4)
         if tuple(t.shape) != (grid_y, gxp, OUT_PAD, PIX):
             raise ValueError(f"{name} must be [{grid_y}, {gxp}, {OUT_PAD}, {PIX}]")
-    if not 0 < chunk * PAYLOAD_WIDTH * 4 <= 40 * 1024:
-        raise ValueError(f"chunk {chunk} does not fit the kernel's shared memory")
+    _check_chunk(chunk)
     K = pair_payload.shape[0]
     dev = pair_payload.device
     dpay = torch.empty((K, PAYLOAD_WIDTH), dtype=torch.float32, device=dev)
     clive = torch.empty(num_tiles, dtype=torch.int32, device=dev)
-    # transmittance checkpoints: tile t keeps its n_chunks+1 rows of 256 at
-    # row 2t + ceil(tile_start/chunk), which never overlaps the next tile's
-    tchk = torch.empty((2 * num_tiles + (K + chunk - 1) // chunk + 1, PIX),
+    # per chunk and pixel: the transmittance entering the chunk, the chunk's
+    # sum of w*G and its median row; tile t keeps its n_chunks+1 rows of 256
+    # of each plane at row 2t + ceil(tile_start/chunk), which never overlaps
+    # the next tile's
+    tchk = torch.empty((3, 2 * num_tiles + (K + chunk - 1) // chunk + 1, PIX),
                        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = cuda_lib.lib("rasterize_backward").ed3dgs_backward_blend(
             pair_payload.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
             packed.data_ptr(), cot.data_ptr(), dpay.data_ptr(), clive.data_ptr(),
-            tchk.data_ptr(), num_tiles, grid_x, gxp, chunk, chunk * MAX_CHUNKS,
-            focal_x, focal_y, width / 2.0, height / 2.0, cuda_lib.stream_of(pair_payload))
+            tchk[0].data_ptr(), tchk[1].data_ptr(), tchk[2].data_ptr(), num_tiles, grid_x,
+            gxp, chunk, chunk * MAX_CHUNKS, focal_x, focal_y, width / 2.0, height / 2.0,
+            cuda_lib.stream_of(pair_payload))
     cuda_lib.check_launch(err, "rasterize_backward")
     rasterize_backward.launches += 1
     return dpay, clive

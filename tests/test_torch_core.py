@@ -156,7 +156,7 @@ def test_camera_math_matches_jax():
     close(j_cm.depth_to_normal(jnp.asarray(depth), 34, 21, 30.0, 28.0),
           t_cm.depth_to_normal(T(depth), 34, 21, 30.0, 28.0).numpy())
     close(j_cm.camera_rays_z(34, 21, 30.0, 28.0),
-          t_cm.camera_rays_z(34, 21, 30.0, 28.0).numpy())
+          t_cm.camera_rays_z(34, 21, 30.0, 28.0, device="cpu").numpy())
     close(j_cm.projection_matrix_cv(0.01, 100.0, 0.9, 0.7, 0.1, -0.05),
           t_cm.projection_matrix_cv(0.01, 100.0, 0.9, 0.7, 0.1, -0.05))
     cj = j_look_at((0.3, 0.1, -0.2), (0, 0, 2), (0, -1, 0), 0.9, 0.7, 40, 30).matrices()

@@ -14,8 +14,10 @@ channels may differ beyond that, for a pixel whose transmittance sits at the
 0.5 crossing; at most 0.1% of pixels may do so. K2: live-chunk counts
 exactly, every row of every tile within 1e-4 of its column's largest value
 (the same orders of summation differ), zero where the plain version's is,
-and bit-identical from run to run. K3: within 1e-6 of the largest output (both round an exact-to-float64
-sum once); K8, the same kernel under its own counter, likewise. K6 and K7
+and bit-identical from run to run; K1 and K2 are held so on scenes and on
+synthetic tiles that probe the warps' row skipping (`blend_case`). K3: within
+1e-6 of the largest output (both round an exact-to-float64 sum once); K8,
+the same kernel under its own counter, likewise. K6 and K7
 (the KNN regulariser) against their plain versions: the loss within 1e-5
 relative, every row of dL/demb within 1e-5 of that row's largest value (the
 kernel reduces d2 by a shuffle butterfly and the loss by CTA partials; the
@@ -45,6 +47,18 @@ MEDIAN_CHANNELS = [*range(rasterize_cuda.OUT_CHANNELS["mcoord"].start,
 
 def outside(got, want):
     return (got - want).abs() > ATOL + RTOL * want.abs()
+
+
+def poison_next_block(rows, dev):
+    """Fill with NaN the block that the caching allocator hands the next
+    [rows, 26] float32 request (K2's output, the wrapper's first allocation)
+    and return its address. Freeing the block restores the allocator's state,
+    so the same request gets the same block, and a row K2 leaves unwritten
+    stays NaN."""
+    block = torch.full((rows, 26), float("nan"), device=dev)
+    ptr = block.data_ptr()
+    del block
+    return ptr
 
 
 @pytest.fixture
@@ -187,11 +201,10 @@ def test_backward_blend_kernel_matches_plain(dev, w, h, n, chunk, grow, dead):
     cot = torch.randn(packed.shape, device=dev, generator=torch.Generator(dev).manual_seed(0))
     cot = cot * 0.01
     before = rasterize_cuda.rasterize_backward.launches
-    # leave NaN in the block the caching allocator hands the output next, so
-    # that a row K2 fails to write shows
-    torch.full((pairs.shape[0], 26), float("nan"), device=dev)
+    poisoned = poison_next_block(pairs.shape[0], dev)
     got, live = rasterize_cuda.rasterize_backward(pairs, bins.tile_start, bins.tile_count,
                                                   packed, cot, **kw)
+    assert got.data_ptr() == poisoned              # K2 wrote into the NaN block
     again, _ = rasterize_cuda.rasterize_backward(pairs, bins.tile_start, bins.tile_count,
                                                  packed, cot, **kw)
     want, want_live = rasterize_cuda.rasterize_backward_plain(
@@ -277,3 +290,144 @@ def test_knn_loss_kernels_match_plain(dev, C, K, spatial, caps, overflows):
     e = emb.clone().requires_grad_(True)
     (g,) = torch.autograd.grad(knn_loss.knn_loss_fused(e, graph, K), e)
     assert torch.equal(g, out[graph.inv[:C]])
+
+
+def pair_rows(rng, centers, conics, opacity):
+    """[K, 26] pair rows with the given means, conics and opacities; the
+    other columns random (colours, tongue, planes, depth, unit normals) and
+    the ones column 1."""
+    k = len(centers)
+    rows = np.zeros((k, 26), np.float32)
+    rows[:, 0:2] = centers
+    rows[:, 2:5] = conics
+    rows[:, 5] = opacity
+    rows[:, 6:9] = rng.uniform(0, 1, (k, 3))
+    rows[:, 9] = rng.uniform(0, 1, k) > 0.7
+    rows[:, 10:13] = rng.normal(0, 1, (k, 3))
+    rows[:, 13:21] = rng.normal(0, 0.01, (k, 8))
+    rows[:, 21] = rng.uniform(1, 4, k)
+    nrm = rng.normal(size=(k, 3))
+    rows[:, 22:25] = nrm / np.linalg.norm(nrm, axis=1, keepdims=True)
+    rows[:, 25] = 1.0
+    return rows
+
+
+def random_splats(rng, n, x0, y0, size=16.0):
+    """n splats of 1.5-6 px over a size x size square at (x0, y0)."""
+    s = rng.uniform(1.5, 6.0, (n, 2))
+    th = rng.uniform(0, np.pi, n)
+    cs, sn = np.cos(th), np.sin(th)
+    a = (cs / s[:, 0]) ** 2 + (sn / s[:, 1]) ** 2
+    c = (sn / s[:, 0]) ** 2 + (cs / s[:, 1]) ** 2
+    b = cs * sn * (1 / s[:, 0] ** 2 - 1 / s[:, 1] ** 2)
+    centers = np.stack([x0 + rng.uniform(-4, size + 4, n), y0 + rng.uniform(-4, size + 4, n)], 1)
+    return centers, np.stack([a, b, c], 1), rng.uniform(0.2, 0.95, n)
+
+
+def blend_case(case, seed=0):
+    """Tiles of synthetic pair rows that probe the kernels' warp walk: the
+    rows of tile t are (centers, conics, opacities) from `tile_rows(t)`.
+    Returns (rows [K, 26], tile_count [T], grid_x, grid_y, chunk)."""
+    rng = np.random.default_rng(seed)
+    gx, gy, chunk = 4, 3, 32
+    amin = np.float32(1.0) / np.float32(255.0)
+    counts = [30 + 7 * t for t in range(gx * gy)]
+
+    def tile_rows(t, n):
+        x0, y0 = 16 * (t % gx), 16 * (t // gx)
+        ctr, con, opc = random_splats(rng, n, x0, y0)
+        if case == "edge":
+            # circles whose pass edge q = r2 lies exactly on the pixel column
+            # or row where one warp block meets the next (x0+7 | x0+8, y0+3 | y0+4)
+            for i in range(n):
+                k = int(rng.integers(1, 9))
+                r2 = 2.0 * np.log(opc[i] * 255.0)
+                side = rng.integers(0, 4)
+                ctr[i] = ((x0 + 8 + k, y0 + 4 * rng.integers(0, 4)) if side == 0 else
+                          (x0 + 7 - k, y0 + 4 * rng.integers(0, 4)) if side == 1 else
+                          (x0 + 8 * rng.integers(0, 2), y0 + 4 + k) if side == 2 else
+                          (x0 + 8 * rng.integers(0, 2), y0 + 3 - k))
+                con[i] = (r2 / k ** 2, 0.0, r2 / k ** 2)
+        elif case == "opacity":
+            pick = np.array([amin, np.nextafter(amin, np.float32(1)),
+                             np.nextafter(amin, np.float32(0)), amin * np.float32(1.0001),
+                             amin * np.float32(0.999), amin * np.float32(1.02)], np.float32)
+            opc[: n // 2] = pick[rng.integers(0, len(pick), n // 2)]
+        elif case == "conic":
+            special = np.array([(0.0, 0.0, 0.0), (0.05, 0.1, 0.05), (-0.02, 0.0, 0.03),
+                                (0.03, 0.0, -0.02), (0.0, 0.01, 0.0),
+                                (0.2, 0.9995 * 0.2, 0.2), (0.2, 0.9994 * 0.2, 0.2),
+                                (0.2, -0.99951 * 0.2, 0.2)])
+            sel = rng.integers(0, len(special), n // 3)
+            con[: n // 3] = special[sel]
+            opc[: n // 3] = np.where(sel == 0, 0.02, opc[: n // 3])
+        elif case == "saturate":
+            # four wide near-opaque splats saturate every pixel of the tile
+            # within a few rows of each chunk; later rows include nowhere
+            for start in range(0, n, chunk):
+                for i in range(start + 3, min(start + 7, n)):
+                    ctr[i] = (x0 + 8, y0 + 8)
+                    con[i] = (1e-3, 0.0, 1e-3)
+                    opc[i] = 0.99
+        return ctr, con, opc
+
+    if case == "cap":
+        chunk = 4                       # cap 4 * 512 = 2048 pairs a tile
+        counts[5] = 2500
+    if case == "unequal":
+        counts = [int(x) for x in rng.integers(0, 12, gx * gy)]
+        counts[7] = 3000
+    parts = [pair_rows(rng, *tile_rows(t, n)) for t, n in enumerate(counts)]
+    return np.concatenate(parts), np.array(counts, np.int32), gx, gy, chunk
+
+
+@pytest.mark.parametrize("case", ["edge", "opacity", "conic", "saturate", "cap", "unequal"])
+def test_blend_kernels_on_edge_cases(dev, case):
+    """K1 and K2 against their plain versions where the warp walk decides
+    something: boxes on a warp block's boundary, opacities around 1/255,
+    conics without a box, pixels that saturate mid-chunk, a tile past the
+    cap and tiles of very unequal length. Same rules as above; K2 run twice
+    is bit-identical."""
+    rows, counts, gx, gy, chunk = blend_case(case)
+    pairs = torch.as_tensor(rows, device=dev)
+    tile_count = torch.as_tensor(counts, device=dev)
+    tile_start = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32),
+                                 device=dev)
+    w, h = 16 * gx, 16 * gy
+    kw = dict(grid_x=gx, grid_y=gy, width=w, height=h, focal_x=60.0, focal_y=58.0,
+              chunk=chunk)
+    packed = rasterize_cuda.rasterize_forward(pairs, tile_start, tile_count, **kw)
+    stats = {}
+    want = rasterize_cuda.rasterize_forward_plain(pairs, tile_start, tile_count, stats=stats,
+                                                  **kw)
+    got1, want1 = packed[:, :gx], want[:, :gx]
+    assert torch.isfinite(got1).all()
+    off = outside(got1, want1).float().mean(dim=(0, 1, 3))
+    other = [c for c in range(rasterize_cuda.OUT_PAD) if c not in MEDIAN_CHANNELS]
+    assert off[other].max() == 0
+    assert off[MEDIAN_CHANNELS].max() <= MAX_FLIPPED
+    if case == "saturate":
+        # most pair-pixels come after their pixel's in-chunk product fell
+        # below 1e-4
+        assert stats["evals"] < 0.3 * 256 * rows.shape[0]
+
+    packed[:, gx:] = 0.0
+    cot = torch.randn(packed.shape, device=dev, generator=torch.Generator(dev).manual_seed(1))
+    cot = cot * 0.01
+    poisoned = poison_next_block(pairs.shape[0], dev)
+    got, live = rasterize_cuda.rasterize_backward(pairs, tile_start, tile_count, packed, cot,
+                                                  **kw)
+    assert got.data_ptr() == poisoned              # K2 wrote into the NaN block
+    again, _ = rasterize_cuda.rasterize_backward(pairs, tile_start, tile_count, packed, cot,
+                                                 **kw)
+    p, want_live = rasterize_cuda.rasterize_backward_plain(pairs, tile_start, tile_count, packed,
+                                                           cot, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(live, want_live)
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    col_max = p.abs().amax(dim=0)
+    assert bool(((got - p).abs().amax(dim=0) <= 1e-4 * col_max).all())
+    assert bool((got[p.abs().amax(dim=1) == 0] == 0).all())
+    if case == "cap":
+        assert int(counts.max()) > chunk * rasterize_cuda.MAX_CHUNKS

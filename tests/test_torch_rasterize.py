@@ -148,3 +148,112 @@ def test_tile_overflow_is_reported():
     out = rasterize(to_torch(proj), torch.zeros(n), torch.ones(3), cfg)
     assert want and bool(out.tile_overflow)
     assert torch.isfinite(out.color).all()
+
+
+def _box_rows(seed):
+    """[K, 26] pair rows for the screen-box test: random splats (positive
+    definite conics from covariances of 0.3 to 30 px, any orientation,
+    opacities over (0, 1)) and adversarial ones: circles whose pass edge
+    falls exactly on a warp block's pixel boundary, opacities at and around
+    1/255, zero, indefinite and nearly degenerate conics on either side of
+    the box's 1e-3 determinant threshold, and very thin, huge and tiny
+    splats."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    amin = f32(1.0) / f32(255.0)
+    rows = []
+
+    def add(mx, my, a, b, c, opc):
+        r = np.zeros(26, f32)
+        r[0:6] = mx, my, a, b, c, opc
+        rows.append(r)
+
+    for _ in range(1500):
+        s = np.exp(rng.uniform(np.log(0.3), np.log(30.0), 2))
+        th = rng.uniform(0, np.pi)
+        R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        inv = np.linalg.inv(R @ np.diag(s * s) @ R.T + 0.1 * np.eye(2))
+        add(rng.uniform(-8, 72), rng.uniform(-8, 72), inv[0, 0], inv[0, 1], inv[1, 1],
+            rng.uniform(0.0, 1.0))
+    for opc in (0.99, 0.5, 0.02):
+        r2 = 2.0 * np.log(opc * 255.0)
+        for k in (1, 4, 8, 16):
+            # q = r2 exactly at the integer offset k from an integer centre
+            add(8.0, 12.0, r2 / k ** 2, 0.0, r2 / k ** 2, opc)
+            add(31.0, 15.0, r2 / k ** 2, 0.0, 4 * r2 / k ** 2, opc)
+    for opc in (amin, np.nextafter(amin, f32(1)), np.nextafter(amin, f32(0)),
+                amin * f32(1.0001), amin * f32(1.01), amin * f32(0.999)):
+        for conic in ((0.5, 0.0, 0.5), (1e-4, 0.0, 1e-4), (0.02, 0.01, 0.03)):
+            add(20.3, 19.7, *conic, opc)
+    for conic in ((0.0, 0.0, 0.0), (0.05, 0.1, 0.05), (-0.1, 0.0, 0.1), (0.1, 0.0, -0.1),
+                  (0.0, 0.02, 0.0)):
+        add(24.0, 24.0, *conic, 0.9)
+    for rho in (0.9994, 0.9995, 0.99951, 0.9996, 0.999):
+        # det / (a c) = 1 - rho^2 around the box's threshold
+        for a, c in ((1.0, 1.0), (0.01, 0.04), (2.0, 0.005)):
+            add(30.5, 29.5, a, rho * np.sqrt(a * c), c, 0.95)
+            add(30.5, 29.5, a, -rho * np.sqrt(a * c), c, 0.95)
+    for s in (0.05, 200.0):
+        add(17.0, 40.0, 1.0 / s ** 2, 0.0, 1.0 / s ** 2, 0.8)
+    return torch.as_tensor(np.stack(rows))
+
+
+def test_cull_box_holds_every_passing_pixel():
+    """The kernels' warps skip rows that cannot pass at their pixels:
+    cull_box_plain (the box's float32 copy) must hold every pixel at which
+    the blend's pass test (`_splat_alphas`) passes, on a 144 x 144 pixel
+    window around every splat, and meets_block_plain (the per-warp test)
+    must keep every 8x4 block of that window where some pixel passes."""
+    rows = _box_rows(0)
+    box = rasterize_cuda.cull_box_plain(rows)
+    xs = torch.arange(-40, 104, dtype=torch.float32)
+    pyf, pxf = torch.meshgrid(xs, xs, indexing="ij")
+    pxf, pyf = pxf.reshape(1, -1), pyf.reshape(1, -1)
+    n_pass = n_culled_out = 0
+    for b0 in range(0, rows.shape[0], 128):
+        block = rows[b0:b0 + 128][None]
+        inrow = torch.ones(block.shape[:2], dtype=torch.bool)
+        passes = rasterize_cuda._splat_alphas(block, inrow, pxf, pyf)["passes"][0]
+        bx = box[b0:b0 + 128]
+        inside = ((pxf >= bx[:, 0:1]) & (pxf <= bx[:, 1:2])
+                  & (pyf >= bx[:, 2:3]) & (pyf <= bx[:, 3:4]))
+        assert not bool((passes & ~inside).any())
+        n_pass += int(passes.sum())
+        n_culled_out += int((~inside).sum())
+    # not vacuous: many pixels pass, and the boxes exclude most of the window
+    assert n_pass > 100_000 and n_culled_out > 0.5 * rows.shape[0] * pxf.shape[1]
+    # the kernels' per-warp test (box, then the pass ellipse against the
+    # warp's 8x4 block): where it says no, no pixel of the block passes
+    n_missed = 0
+    blocks = [(bx, by) for by in range(-40, 104, 4) for bx in range(-40, 104, 8)]
+    for b0 in range(0, rows.shape[0], 128):
+        block = rows[b0:b0 + 128][None]
+        inrow = torch.ones(block.shape[:2], dtype=torch.bool)
+        passes = rasterize_cuda._splat_alphas(block, inrow, pxf, pyf)["passes"][0]
+        passes = passes.reshape(-1, 36, 4, 18, 8).any(dim=4).any(dim=2)   # [C, by, bx]
+        for i, (bx, by) in enumerate(blocks):
+            meets = rasterize_cuda.meets_block_plain(rows[b0:b0 + 128], bx, by)
+            hit = passes[:, i // 18, i % 18]
+            assert not bool((hit & ~meets).any())
+            n_missed += int((~meets).sum())
+    # the ellipse test rejects blocks the box alone keeps
+    in_box = sum(int(((bxs[:, 1] >= bx) & (bxs[:, 0] <= bx + 7) & (bxs[:, 3] >= by)
+                      & (bxs[:, 2] <= by + 3)).sum())
+                 for bxs in [rasterize_cuda.cull_box_plain(rows)] for bx, by in blocks)
+    assert rows.shape[0] * len(blocks) - n_missed < 0.95 * in_box
+    # the box is tight: a circle of pass radius 8 spans 8 + at most 2 pixels
+    r2 = 2.0 * np.log(0.99 * 255.0)
+    circle = torch.tensor([[8.0, 12.0, r2 / 64, 0.0, r2 / 64, 0.99] + [0.0] * 20])
+    x0, x1, y0, y1 = rasterize_cuda.cull_box_plain(circle)[0].tolist()
+    assert 8 - 11 <= x0 <= 8 - 8 and 8 + 8 <= x1 <= 8 + 11 and 12 - 11 <= y0 and y1 <= 12 + 11
+    # the edge cases' boxes: empty below 1/255, the whole plane where the
+    # conic is not positive definite or nearly degenerate
+    far = rasterize_cuda.BOX_FAR
+    special = torch.zeros((4, 26))
+    special[:, 0:6] = torch.tensor([[5.0, 5.0, 0.5, 0.0, 0.5, 0.003],
+                                    [5.0, 5.0, 0.0, 0.0, 0.0, 0.5],
+                                    [5.0, 5.0, 0.05, 0.1, 0.05, 0.5],
+                                    [5.0, 5.0, 1.0, 0.99999, 1.0, 0.5]])
+    got = rasterize_cuda.cull_box_plain(special).tolist()
+    assert got[0][0] > got[0][1] and got[0][2] > got[0][3]
+    assert got[1] == got[2] == got[3] == [-far, far, -far, far]
