@@ -23,7 +23,9 @@ chunk 128):
    config's reg_coef (1.0) and knn_coverage_target (0.95): the 3D filter
    from `compute_3d_filter` over the bench camera and four around it;
    `refresh_knn_cache` (its wall time, final buckets, overflow, far demand
-   and the trainer's coverage measure); `init_train_state` ->
+   and the trainer's coverage measure) and its two halves timed apart (the
+   neighbour search `_cache_inputs`, the graph preparation `_prepare_cache`);
+   `init_train_state` ->
    `make_train_step`, one warm-up step that records the inputs the step
    hands K2, K3, K5b, K6 and K7, then five steps at iteration 20,000
    (deformation, coarse-to-fine, SH 3, the KNN regulariser and the
@@ -31,7 +33,8 @@ chunk 128):
    just before the five steps: K1-K5b must have risen by steps x batch, K6
    and K7 by exactly one per step, K8 (no production caller) not at all.
    Prints each step's loss, the step time by CUDA events, and one profiled
-   step's device busy time, idle share and top device items. Then
+   step's device busy time, idle share and top device items, and K6's and
+   K7's device time inside it (warm L2). Then
    `make_densify_step` at the config's gradient threshold (n_cloned,
    n_split, the alive count, its time) or, where nothing reaches it, at the
    99.9th percentile of the same statistics, the filter and KNN refreshes,
@@ -43,7 +46,9 @@ chunk 128):
    and every row of dL/demb within KNN_ROW_REL of its largest value), runs
    the payload gradient (K2 -> un-permute -> K3) and the KNN gradient (K6 ->
    K7) twice each and requires bit-identical results, and times them as in
-   1;
+   1 (K6 and K7 also report registers, shared memory, spilled bytes,
+   resident CTAs per SM and their wrappers' host microseconds a call, and
+   the graph's in-degree distribution);
 5. compares a 4096-Gaussian cut on the card with the CPU: its bf16
    deformation, its render at 160x110 (float32 activations), one train
    step's loss and gradients at reg_coef 1 (float32 activations, each
@@ -233,14 +238,21 @@ def filter_cameras(torch, device):
     return args, extent
 
 
-def time_ms(torch, fn, iters: int, flush) -> float:
+def time_ms(torch, fn, iters: int, flush, spin: bool = True) -> float:
     """Mean device time of `fn` over `iters` launches, each after an L2
-    flush (the main path finds these inputs cold)."""
+    flush (the main path finds these inputs cold). With `spin` (the kernels
+    line's method) the card then spins for ~1 ms before the start event, so
+    that the host has queued `fn` before the card reaches it and the events
+    time the card's work alone; without it, a wrapper's host work between
+    the start event and its launch is timed too wherever it outlasts the
+    flush (see `host_us`)."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         flush()
+        if spin:
+            torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -249,6 +261,21 @@ def time_ms(torch, fn, iters: int, flush) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def host_us(torch, fn, calls: int = 100) -> float:
+    """Host microseconds per call of `fn` (a wrapper's checks, allocations
+    and launches), with the card held busy by a ~0.1 s spin so that no call
+    waits on it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -370,7 +397,8 @@ def main():
     from ed3dgs_torch.ops import (binning, binning_scan, cuda_lib, knn_loss, rasterize,
                                   rasterize_cuda, relayout, segment_sum)
     from ed3dgs_torch.render import raster_config_from_camera, render, settings_from_camera
-    from ed3dgs_torch.train.trainer import (KNN_CAPS_DEFAULT, KNN_K, init_train_state,
+    from ed3dgs_torch.train.trainer import (KNN_CAPS_DEFAULT, KNN_K, _cache_inputs,
+                                            _prepare_cache, init_train_state,
                                             make_densify_step, make_loss_and_grads,
                                             make_train_step, refresh_knn_cache,
                                             update_knn_cache)
@@ -613,7 +641,24 @@ def main():
     if not bool(torch.isfinite(aux.filter_3d).all()) or float(f3d.min()) <= 0:
         fail("compute_3d_filter gave non-finite or non-positive scales")
     knn_cache, knn_info = refresh_knn(params, aux)
-    result["knn_refresh"] = dict(knn_info, filter_ms=filter_ms)
+    # the refresh's two halves, each ending in a synchronise: the neighbour
+    # search (knn_op, inside _cache_inputs) and the graph preparation at the
+    # buckets the refresh settled on
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+    inputs, search_ms = wall(lambda: _cache_inputs(params, aux, False, KNN_K))
+    _, prepare_ms = wall(lambda: _prepare_cache(inputs, knn_caps["spill_a"],
+                                                knn_caps["spill_b"], knn_caps["far"]))
+    print(f"  refresh split: neighbour search (_cache_inputs) {search_ms:.1f} ms, graph "
+          f"preparation (_prepare_cache) {prepare_ms:.1f} ms wall, beside "
+          f"refresh_knn_cache's {knn_info['wall_ms']:.1f} ms", flush=True)
+    result["knn_refresh"] = dict(knn_info, filter_ms=filter_ms, search_ms=search_ms,
+                                 prepare_ms=prepare_ms)
+    del inputs
 
     state, optimizer = init_train_state(params, hidden, opt, extent, seed=0)
     state = state._replace(iteration=TRAIN_ITERATION)
@@ -705,8 +750,16 @@ def main():
 
     def profiled_step():
         step(state, taux, pbatch, knn_cache)
-    result["train_profile"] = print_profile("train step", *profile_window(
-        torch, profiled_step, os.path.join(out_dir, "profile_step.txt")))
+    prof = profile_window(torch, profiled_step, os.path.join(out_dir, "profile_step.txt"))
+    result["train_profile"] = print_profile("train step", *prof)
+    # K6's and K7's device time inside the step (warm L2: the step has just
+    # gathered the table they read), per launch
+    knn_step_ms = {}
+    for k, fn_name in (("K6", "knn_rows"), ("K7", "knn_reverse")):
+        hits = [(us, n) for name, us, n in prof[2] if fn_name in name]
+        knn_step_ms[k] = (sum(us for us, _ in hits) / 1e3 / max(1, sum(n for _, n in hits))
+                          if hits else None)
+    print(f"  K6/K7 device ms per launch inside the profiled step: {knn_step_ms}", flush=True)
 
     # densify at the config's threshold (tools/train.py:556-567), then the
     # 3D filter and the KNN cache are rebuilt for the new cloud
@@ -901,6 +954,10 @@ def main():
                  .abs().max())
     n_rev = rev_pair.shape[0]
     loss_rel = loss_err / abs(float(loss_p))
+    indeg = (rev_ptr[1:] - rev_ptr[:-1]).float()
+    print(f"  K7 in-degree over {Cp} ranks: max {int(indeg.max())}, p99 "
+          f"{float(torch.quantile(indeg, 0.99)):.0f}, mean {float(indeg.mean()):.3f}",
+          flush=True)
     print(f"K6 knn_rows + K7 knn_reverse: Cp={Cp} K={K} E={E} in-edges {n_rev}; loss "
           f"{float(loss6):.8f} vs plain {float(loss_p):.8f} (rel {loss_rel:.2e}, "
           f"limit {KNN_LOSS_REL}); worst row of dL/demb / its largest value {worst_row:.2e} "
@@ -929,10 +986,19 @@ def main():
     print(f"  K6 work: {bytes6 / 1e6:.1f} MB, {Cp * K * (5 * E + 8) / 1e9:.3f} GFLOP; "
           f"K7 work: {bytes7 / 1e6:.1f} MB, {(n_rev * 3 * E + Cp * E) / 1e9:.3f} GFLOP",
           flush=True)
+    info6, info7 = knn_loss.kernel_info("knn_rows", K), knn_loss.kernel_info("knn_reverse", K)
+    host6 = host_us(torch, lambda: knn_loss.knn_rows(emb_r, nbr, w_eff, coef))
+    host7 = host_us(torch, lambda: knn_loss.knn_reverse(emb_r, s6, de6, rev_ptr, rev_pair))
+    print(f"  K6 {ms6:.4f} ms cold, {knn_step_ms['K6']} ms in the step, {host6:.1f} us of "
+          f"host a call; {info6}\n"
+          f"  K7 {ms7:.4f} ms cold, {knn_step_ms['K7']} ms in the step, {host7:.1f} us of "
+          f"host a call; {info7}", flush=True)
     rows["K6"] = dict(KERNELS["K6"], max_abs_err=err6, ms=ms6, plain_ms=plain6,
-                      bound_ms=b6, bound_by=by6, library_ms=None)
+                      bound_ms=b6, bound_by=by6, library_ms=None, step_ms=knn_step_ms["K6"],
+                      host_us=host6, **info6)
     rows["K7"] = dict(KERNELS["K7"], max_abs_err=err7, ms=ms7, plain_ms=plain7,
-                      bound_ms=b7, bound_by=by7, library_ms=None)
+                      bound_ms=b7, bound_by=by7, library_ms=None, step_ms=knn_step_ms["K7"],
+                      host_us=host7, **info7)
     result["knn_kernels"] = dict(Cp=Cp, K=K, E=E, in_edges=n_rev, loss=float(loss6),
                                  loss_plain=float(loss_p), worst_row=worst_row)
     del again, de_p, s_p, out_p, de6, s6, out7

@@ -75,6 +75,8 @@ SIGNATURES = {
         "ed3dgs_knn_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         # emb, s, de, rev_ptr, rev_pair, out, Cp, E, K, stream
         "ed3dgs_knn_reverse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # which (0 K6, 1 K7), K, *registers, *shared bytes, *local bytes, *CTAs per SM
+        "ed3dgs_knn_info": [_I, _I, _P, _P, _P, _P],
     },
 }
 

@@ -25,9 +25,10 @@ does not build them; it replays the same decisions and keeps their result:
 
 What the Hopper kernels read instead of the TPU tables: neighbour ranks
 `nbr` [Cp, K], `w` and `coef` [Cp] in rank order, and the reverse adjacency:
-`rev_pair`, the flat ids (i*K + k) of the jside edges sorted stably by
-neighbour rank, with CSR bounds `rev_ptr` [Cp+1] per rank. All of it is
-built once per refresh, by plain PyTorch on the graph's device.
+`rev_pair`, the flat ids (i*K + k) of the jside edges with coef_i w_ik != 0
+(the others add exactly 0 to dL/de_j) sorted stably by neighbour rank, with
+CSR bounds `rev_ptr` [Cp+1] per rank. All of it is built once per refresh,
+by plain PyTorch on the graph's device.
 
 **The kernels** (csrc/knn_loss.cu), on the embedding table permuted to rank
 order:
@@ -36,6 +37,9 @@ order:
 - K7 `knn_reverse` (replaces `_far_kernel` and the in-window half of
   `_main_kernel`): per rank j, dL/de_j = -sum over in-edges s_ik (e_i - e_j),
   added to K6's dL/de_i of the same rank: the whole gradient row.
+The kernels take 32-wide embeddings (a row is split in float4s over the
+lanes), K <= 32 slots and Cp a multiple of 128; their wrappers raise
+ValueError for anything else.
 Each has a plain PyTorch version of the same signature: K6 by gather, K7 by
 a gather over the reverse adjacency and `segment_sum_rows_plain`. A wrapper
 launches its kernel on CUDA tensors and runs the plain version on CPU
@@ -45,6 +49,7 @@ the same inputs are bit-identical.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -56,9 +61,9 @@ BA = 256            # ranks per Morton block
 FB = 1024           # far-list capacity granularity (the TPU far pass's chunk)
 EPS = 1e-20         # sqrt epsilon (train/losses.py)
 BIG = 2147480000    # sort key past every rank
-MAX_E = 32          # the kernels put one embedding dimension on each lane
-MAX_K = 32          # and one neighbour slot on each lane
-ROWS_PER_BLOCK = 8  # warps (rank rows) per CTA of K6 and K7; K6 writes one loss partial each
+KERNEL_E = 32       # the kernels' embedding width: a row is eight float4s
+MAX_K = 32          # neighbour slots the kernels take
+ROWS_PER_BLOCK = 128  # K6's rank rows per CTA (csrc/knn_loss.cu R6; K7's 64 divide it)
 
 
 class KnnGraph(NamedTuple):
@@ -71,7 +76,7 @@ class KnnGraph(NamedTuple):
     w: torch.Tensor         # [Cp, K] float32 effective weights (0 = dropped)
     coef: torch.Tensor      # [Cp] float32 coef in rank order
     rev_ptr: torch.Tensor   # [Cp+1] int32 CSR bounds of each rank's in-edges
-    rev_pair: torch.Tensor  # [P] int32 flat pair ids (i*K+k) of the jside edges, by rank
+    rev_pair: torch.Tensor  # [P] int32 flat pair ids (i*K+k) of the weighted jside edges, by rank
     overflow: torch.Tensor  # [3] int64 dropped counts (spill_a, spill_b, far)
     n_far: torch.Tensor     # [] int64 far pairs the far list had to hold
 
@@ -218,9 +223,14 @@ def prepare_knn_graph(idx: torch.Tensor, w: torch.Tensor, coef: torch.Tensor,
     w_eff[order_f[:FAR][dropped_b & fvalid]] = 0.0
     w_eff = w_eff.reshape(Cp, K)
 
-    # dL/de_j edges: in-window pairs and the far list's pairs
+    # dL/de_j edges: in-window pairs and the far list's pairs, less those
+    # whose s = coef w / v is exactly 0 (a dead or masked row, a dropped or
+    # underflowed weight): each adds exactly 0 to its rank's sum. Dead slots
+    # parked on the far shell tie at equal distances and pick the same few
+    # neighbours, which would otherwise gather thousands of in-edges each.
     jside = ~far.reshape(-1)
     jside[order_f[:FAR][fvalid]] = True
+    jside &= ((w_eff != 0) & (coef_r != 0)[:, None]).reshape(-1)
     rkey = torch.where(jside, nbr.reshape(-1), Cp)
     rev_order = torch.argsort(rkey, stable=True)
     n_rev = int(jside.sum())
@@ -267,6 +277,32 @@ def knn_reverse_plain(emb_r: torch.Tensor, s: torch.Tensor, de: torch.Tensor,
     return de + segment_sum_rows_plain(rows, rev_ptr[:-1], rev_ptr[1:])
 
 
+def _check_kernel_shape(emb_r: torch.Tensor, K: int):
+    """Raise ValueError for a table or slot count the kernels do not take."""
+    Cp, E = emb_r.shape
+    if E != KERNEL_E or not 1 <= K <= MAX_K:
+        raise ValueError(f"the KNN kernels take E = {KERNEL_E} and 1 <= K <= {MAX_K}, "
+                         f"got E={E}, K={K}")
+    if Cp % ROWS_PER_BLOCK:
+        raise ValueError(f"the KNN kernels take Cp a multiple of {ROWS_PER_BLOCK}, got {Cp}")
+    if emb_r.data_ptr() % 16:
+        raise ValueError("emb_r must be 16-byte aligned (the kernels read it as float4)")
+
+
+def kernel_info(kernel: str, K: int) -> dict:
+    """K6's ("knn_rows", whose shared tiles grow with the K slots) or K7's
+    ("knn_reverse") registers per thread, shared memory per CTA, local
+    (spilled) bytes per thread and resident CTAs per SM, as the card reports
+    them."""
+    which = {"knn_rows": 0, "knn_reverse": 1}[kernel]
+    out = [ctypes.c_int(0) for _ in range(4)]
+    err = cuda_lib.lib("knn_loss").ed3dgs_knn_info(which, K,
+                                                   *(ctypes.addressof(v) for v in out))
+    cuda_lib.check_launch(err, "ed3dgs_knn_info")
+    return dict(registers=out[0].value, smem_bytes=out[1].value, spill_bytes=out[2].value,
+                ctas_per_sm=out[3].value)
+
+
 def knn_rows(emb_r: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor, coef: torch.Tensor):
     """K6: (loss, de, s) as `knn_rows_plain`. Launches csrc/knn_loss.cu on
     CUDA tensors; the loss is the sum of per-CTA partials in CTA order."""
@@ -278,14 +314,13 @@ def knn_rows(emb_r: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor, coef: torc
     cuda_lib.check_cuda(coef, "coef", torch.float32, 1)
     Cp, E = emb_r.shape
     K = nbr.shape[1]
-    if E > MAX_E or K > MAX_K:
-        raise ValueError(f"the KNN kernels take E <= {MAX_E} and K <= {MAX_K}, got E={E}, K={K}")
+    _check_kernel_shape(emb_r, K)
     if tuple(w.shape) != (Cp, K) or nbr.shape[0] != Cp or coef.shape[0] != Cp:
         raise ValueError(f"K6 shapes disagree: emb_r {tuple(emb_r.shape)}, nbr "
                          f"{tuple(nbr.shape)}, w {tuple(w.shape)}, coef {tuple(coef.shape)}")
     de = torch.empty_like(emb_r)
     s = torch.empty_like(w)
-    partials = torch.empty(-(-Cp // ROWS_PER_BLOCK), dtype=torch.float32, device=emb_r.device)
+    partials = torch.empty(Cp // ROWS_PER_BLOCK, dtype=torch.float32, device=emb_r.device)
     with torch.cuda.device(emb_r.device):
         err = cuda_lib.lib("knn_loss").ed3dgs_knn_rows(
             emb_r.data_ptr(), nbr.data_ptr(), w.data_ptr(), coef.data_ptr(), de.data_ptr(),
@@ -311,9 +346,12 @@ def knn_reverse(emb_r: torch.Tensor, s: torch.Tensor, de: torch.Tensor,
     cuda_lib.check_cuda(rev_pair, "rev_pair", torch.int32, 1)
     Cp, E = emb_r.shape
     K = s.shape[1]
-    if E > MAX_E or de.shape != emb_r.shape or s.shape[0] != Cp or rev_ptr.shape[0] != Cp + 1:
+    _check_kernel_shape(emb_r, K)
+    if de.shape != emb_r.shape or s.shape[0] != Cp or rev_ptr.shape[0] != Cp + 1:
         raise ValueError(f"K7 shapes disagree: emb_r {tuple(emb_r.shape)}, s {tuple(s.shape)}, "
                          f"de {tuple(de.shape)}, rev_ptr {tuple(rev_ptr.shape)}")
+    if de.data_ptr() % 16:
+        raise ValueError("de must be 16-byte aligned (the kernel reads it as float4)")
     out = torch.empty_like(emb_r)
     with torch.cuda.device(emb_r.device):
         err = cuda_lib.lib("knn_loss").ed3dgs_knn_reverse(

@@ -21,7 +21,9 @@ the same kernel under its own counter, likewise. K6 and K7
 (the KNN regulariser) against their plain versions: the loss within 1e-5
 relative, every row of dL/demb within 1e-5 of that row's largest value (the
 kernel reduces d2 by a shuffle butterfly and the loss by CTA partials; the
-terms are otherwise the same operations), and bit-identical from run to run.
+terms are otherwise the same operations), and bit-identical from run to run,
+also on the smallest table, at a rank with thousands of in-edges and at K = 1
+and 32; the shapes they do not take raise ValueError.
 """
 
 import math
@@ -242,9 +244,10 @@ def test_packed_segment_sum_is_the_k3_kernel(dev):
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
-def knn_graph_case(dev, C, K, spatial, caps, seed=0):
+def knn_graph_case(dev, C, K, spatial, caps, seed=0, hub=False):
     """A KNN graph on the card: neighbours by position (the trainer's kind)
-    or at random (no locality: the far and spill lists fill up)."""
+    or at random (no locality: the far and spill lists fill up); with `hub`,
+    every row's slot 0 points at Gaussian 0."""
     g = torch.Generator(dev).manual_seed(seed)
     pts = torch.rand(C, 3, device=dev, generator=g) * 2 - 1
     if spatial:
@@ -253,6 +256,8 @@ def knn_graph_case(dev, C, K, spatial, caps, seed=0):
     else:
         idx = torch.randint(0, C, (C, K), device=dev, generator=g)
         w = torch.rand(C, K, device=dev, generator=g)
+    if hub:
+        idx[:, 0] = 0
     mask = torch.rand(C, device=dev, generator=g) > 0.1
     w = w * mask[:, None]
     coef = mask.float() / (mask.sum() * K)
@@ -269,6 +274,60 @@ def knn_graph_case(dev, C, K, spatial, caps, seed=0):
 def test_knn_loss_kernels_match_plain(dev, C, K, spatial, caps, overflows):
     graph, emb = knn_graph_case(dev, C, K, spatial, caps)
     assert bool((graph.overflow > 0).any()) == overflows
+    check_knn_kernels(graph, emb, C, K)
+
+
+@pytest.mark.parametrize("case", ["cp1024", "hub", "k1", "k32"])
+def test_knn_loss_kernels_on_edge_cases(dev, case):
+    """The smallest table a graph has (Cp = 1024: 8 K6 CTAs, 16 K7 CTAs), a
+    rank with thousands of in-edges, and the least and most slots the
+    kernels take."""
+    C, K, spatial, hub = {"cp1024": (1000, 20, True, False),
+                          "hub": (3000, 8, False, True),
+                          "k1": (2000, 1, True, False),
+                          "k32": (2000, 32, True, False)}[case]
+    no_drops = dict(spill_a=1 << 12, spill_b=1 << 12)   # clamped to Cp: nothing dropped
+    graph, emb = knn_graph_case(dev, C, K, spatial, no_drops, seed=3, hub=hub)
+    assert int(graph.overflow.sum()) == 0
+    indeg = graph.rev_ptr[1:] - graph.rev_ptr[:-1]
+    if case == "cp1024":
+        assert graph.pi.shape[0] == 1024
+    if case == "hub":       # every weighted row's slot 0: ~0.9 C in-edges
+        assert int(indeg[graph.inv[0]]) > 4 * knn_loss.BA
+    check_knn_kernels(graph, emb, C, K)
+
+
+def test_knn_loss_kernels_refuse_shapes_they_do_not_take(dev):
+    """Tables other than 32 wide, slot counts past 32, a rank count that is
+    not a multiple of the CTA's 128 rows and a table off 16-byte alignment
+    raise ValueError before any launch."""
+    def args(Cp, E, K):
+        return (torch.zeros(Cp, E, device=dev), torch.zeros(Cp, K, dtype=torch.int32, device=dev),
+                torch.zeros(Cp, K, device=dev), torch.zeros(Cp, device=dev))
+    rev_ptr = torch.zeros(1025, dtype=torch.int32, device=dev)
+    rev_pair = torch.zeros(0, dtype=torch.int32, device=dev)
+    before = (knn_loss.knn_rows.launches, knn_loss.knn_reverse.launches)
+    for Cp, E, K in ((1024, 16, 20), (1024, 36, 20), (1024, 31, 20), (1024, 32, 33),
+                     (1000, 32, 20)):
+        emb_r, nbr, w, coef = args(Cp, E, K)
+        with pytest.raises(ValueError):
+            knn_loss.knn_rows(emb_r, nbr, w, coef)
+        with pytest.raises(ValueError):
+            knn_loss.knn_reverse(emb_r, w, emb_r, rev_ptr[:Cp + 1], rev_pair)
+    emb_r, nbr, w, coef = args(1024, 32, 20)
+    shifted = torch.zeros(1024 * 32 + 1, device=dev)[1:].view(1024, 32)
+    with pytest.raises(ValueError):
+        knn_loss.knn_rows(shifted, nbr, w, coef)
+    with pytest.raises(ValueError):
+        knn_loss.knn_reverse(emb_r, w, shifted, rev_ptr, rev_pair)
+    assert (knn_loss.knn_rows.launches, knn_loss.knn_reverse.launches) == before
+
+
+def check_knn_kernels(graph, emb, C, K):
+    """K6 -> K7 against the plain chain on `graph`: the loss within 1e-5
+    relative, every row of dL/demb within 1e-5 of its largest value, two
+    runs bit-identical, one launch each per run, and the autograd Function
+    returns the same gradient."""
     Cp = graph.pi.shape[0]
     emb_r = torch.cat([emb, emb.new_zeros(Cp - C, 32)])[graph.pi].contiguous()
     before = (knn_loss.knn_rows.launches, knn_loss.knn_reverse.launches)

@@ -97,7 +97,7 @@ def check_graph(name):
     np.testing.assert_array_equal(graph.overflow.numpy(), want["overflow"])
     assert int(graph.n_far) == want["n_far"]
     np.testing.assert_array_equal(graph.w.numpy(), want["w"])
-    # the reverse adjacency lists each jside edge once, by neighbour rank
+    # the reverse adjacency lists each weighted jside edge once, by neighbour rank
     Cp, K = graph.nbr.shape
     assert graph.rev_ptr[0] == 0 and graph.rev_ptr[-1] == graph.rev_pair.shape[0]
     nbr_of = graph.nbr.reshape(-1)[graph.rev_pair.long()]
@@ -157,3 +157,38 @@ def test_knn_loss_k_mismatch_raises():
     graph = torch_graph("oracle-50")
     with pytest.raises(ValueError, match="prepared with K=5"):
         tkl.knn_loss_fused(torch.zeros(50, 32), graph, 20)
+
+
+def test_reverse_adjacency_holds_exactly_the_weighted_edges():
+    """With buckets that drop nothing, rev_ptr / rev_pair list exactly the
+    edges with coef_i w_ik != 0, built here directly from nbr, w and coef,
+    each once, by neighbour rank and then pair id; and K7's plain version
+    gives the same gradient, bit for bit, as on the adjacency of every edge
+    (the edges left out add exactly 0)."""
+    rng = np.random.default_rng(7)
+    C, K = 1500, 6
+    pts = rng.uniform(-1, 1, (C, 3)).astype(np.float32)
+    idx = rng.integers(0, C, (C, K))
+    w = rng.uniform(0, 1, (C, K)).astype(np.float32)
+    w[rng.uniform(size=(C, K)) < 0.2] = 0.0
+    mask = rng.uniform(size=C) > 0.15
+    coef = (mask / (mask.sum() * K)).astype(np.float32)
+    graph = tkl.prepare_knn_graph(torch.as_tensor(idx), torch.as_tensor(w),
+                                  torch.as_tensor(coef), torch.as_tensor(pts),
+                                  spill_a=1 << 12, spill_b=1 << 12)
+    assert int(graph.overflow.sum()) == 0
+    Cp = graph.pi.shape[0]
+    nbr = graph.nbr.reshape(-1).long().numpy()
+    weighted = (graph.w.numpy() != 0) & (graph.coef.numpy() != 0)[:, None]
+    want = sorted((int(nbr[p]), p) for p in np.flatnonzero(weighted.reshape(-1)))
+    ptr = graph.rev_ptr.long().numpy()
+    got = [(j, int(p)) for j in range(Cp) for p in graph.rev_pair.numpy()[ptr[j]:ptr[j + 1]]]
+    assert got == want
+
+    emb_r = torch.as_tensor(rng.normal(0, 0.3, (Cp, 32)).astype(np.float32))
+    _, de, s = tkl.knn_rows_plain(emb_r, graph.nbr, graph.w, graph.coef)
+    every = torch.argsort(graph.nbr.reshape(-1).long(), stable=True)
+    every_ptr = torch.searchsorted(graph.nbr.reshape(-1).long()[every], torch.arange(Cp + 1))
+    full = tkl.knn_reverse_plain(emb_r, s, de, every_ptr.to(torch.int32), every.to(torch.int32))
+    kept = tkl.knn_reverse_plain(emb_r, s, de, graph.rev_ptr, graph.rev_pair)
+    assert torch.equal(full, kept)
