@@ -18,7 +18,8 @@ chunk 128):
    memory and resident CTAs per SM);
 2. drives the forward main path: `ed3dgs_torch.render.render` on three
    frames. Every launch count is set to 0 just before and read just after;
-   K1, K4 and K5a must each have risen by one per frame. Profiles one frame;
+   K1, K4 and K5a must each have risen by one per frame. Profiles one frame
+   and counts K4's kernels in it (one: its single pass);
 3. drives the training loop of the JAX package's tools/train.py at the
    config's reg_coef (1.0) and knn_coverage_target (0.95): the 3D filter
    from `compute_3d_filter` over the bench camera and four around it;
@@ -32,19 +33,25 @@ chunk 128):
    depth-normal term live; SSIM on two of them). Every count is set to 0
    just before the five steps: K1-K5b must have risen by steps x batch, K6
    and K7 by exactly one per step, K8 (no production caller) not at all.
-   Prints each step's loss, the step time by CUDA events, and one profiled
+   Prints each step's loss, the step time by CUDA events, the host time to
+   return from each step and the device allocations (cudaMalloc) it made,
+   and one profiled
    step's device busy time, idle share and top device items, and K6's and
-   K7's device time inside it (warm L2). Then
+   K7's device time inside it (warm L2), then profiles the step four
+   times in turns with K3 reading the pair-gradient rows through the
+   inverse pair permutation (as shipped) and with the gather before K3
+   (the unfolded path) and reports the segment_sum stage of each. Then
    `make_densify_step` at the config's gradient threshold (n_cloned,
    n_split, the alive count, its time) or, where nothing reaches it, at the
    99.9th percentile of the same statistics, the filter and KNN refreshes,
    and two more steps, counted as the five were;
 4. holds K2, K3, K5b, K6, K7 and K8 against their plain versions on the
    recorded inputs (K5b bit-exact; K2's live-chunk counts exactly and every
-   row of every tile within K2_REL of its column's largest value; K3 and K8
+   row of every tile within K2_REL of its column's largest value; K3, as
+   the step calls it (through the index) and on the gathered rows, and K8
    within K3_REL of the largest output; the KNN loss within KNN_LOSS_REL
    and every row of dL/demb within KNN_ROW_REL of its largest value), runs
-   the payload gradient (K2 -> un-permute -> K3) and the KNN gradient (K6 ->
+   the payload gradient (K2 -> K3 through the index) and the KNN gradient (K6 ->
    K7) twice each and requires bit-identical results, and times them as in
    1 (K6 and K7 also report registers, shared memory, spilled bytes,
    resident CTAs per SM and their wrappers' host microseconds a call, and
@@ -52,8 +59,9 @@ chunk 128):
 5. compares a 4096-Gaussian cut on the card with the CPU: its bf16
    deformation, its render at 160x110 (float32 activations), one train
    step's loss and gradients at reg_coef 1 (float32 activations, each
-   device building its own KNN cache), one `densify` with the same injected
-   draws, and `create_from_points`.
+   device building its own KNN cache) at the config's 32-d Gaussian
+   embedding and again at 16-d (the KNN kernels run it zero-padded), one
+   `densify` with the same injected draws, and `create_from_points`.
 
 Weights are random, from numpy seeds; so are the training targets. Results go
 to DIR/chip_smoke.json (default smoke_out/ in the checkout), with the
@@ -598,8 +606,17 @@ def main():
     result.update(frame_ms=frame_ms, host_ms_per_frame=host_ms, render_launches=launches,
                   num_pairs=[int(o["num_pairs"]) for o in outs])
     del outs
-    result["profile"] = print_profile("frame", *profile_window(
-        torch, lambda: frame(FRAME_TIMES[1]), os.path.join(out_dir, "profile_frame.txt")))
+    prof_frame = profile_window(torch, lambda: frame(FRAME_TIMES[1]),
+                                os.path.join(out_dir, "profile_frame.txt"))
+    result["profile"] = print_profile("frame", *prof_frame)
+    # K4's kernels in the profiled frame (one call): its single pass, or the
+    # reduce, scan and decode of the three-launch design
+    k4_kernels = sum(n for name, _, n in prof_frame[2]
+                     if any(k in name for k in ("scan_decode", "block_sums")))
+    memsets = sum(n for name, _, n in prof_frame[2] if "memset" in name.lower())
+    print(f"  K4 kernels per call (profiled frame): {k4_kernels}; memsets in the frame "
+          f"{memsets}", flush=True)
+    rows["K4"]["kernels_per_call"] = k4_kernels
 
     # ---- 3. the training loop at the config's reg_coef -----------------------
     setup = train_setup(cfg, rcfg)
@@ -671,7 +688,7 @@ def main():
           f"from {setup.radegs_from_iter}", flush=True)
     seen = {}
     restore = [recorder(seen, rasterize, "rasterize_backward", "K2"),
-               recorder(seen, rasterize, "segment_sum_rows", "K3"),
+               recorder(seen, rasterize, "segment_sum_rows_gathered", "K3"),
                recorder(seen, relayout, "pack_image", "K5b"),
                recorder(seen, rasterize, "sorted_payload_grad", "grad"),
                recorder(seen, knn_loss, "knn_rows", "K6"),
@@ -700,14 +717,18 @@ def main():
         fails unless each kernel rose by its per-step launches."""
         for fn in counters.values():
             fn.launches = 0
-        out, events = [], []
+        out, events, enqueue_ms, mallocs = [], [], [], []
         t_host = time.perf_counter()
         for b in batches:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            n_malloc = torch.cuda.memory_stats().get("num_device_alloc", 0)
+            t0 = time.perf_counter()
             start.record()
             state, taux, metrics = step(state, taux, b, knn_cache)
             end.record()
+            enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+            mallocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0) - n_malloc)
             events.append((start, end))
             out.append(metrics)
         torch.cuda.synchronize()
@@ -728,7 +749,9 @@ def main():
                 fail(f"train step {i} ({what}): the depth-normal or KNN term is not live")
         step_ms = [s.elapsed_time(e) for s, e in events]
         print("  train-step ms (CUDA events): " + ", ".join(f"{x:.3f}" for x in step_ms)
-              + f"; host wall {host_ms:.3f} ms/step", flush=True)
+              + f"; host wall {host_ms:.3f} ms/step; host ms to return from each step "
+              + ", ".join(f"{x:.3f}" for x in enqueue_ms)
+              + f"; new device allocations (cudaMalloc) in each step {mallocs}", flush=True)
         return state, taux, out, step_ms, host_ms, launches
 
     state, taux, losses, step_ms, step_host_ms, train_launches = run_steps(
@@ -760,6 +783,29 @@ def main():
         knn_step_ms[k] = (sum(us for us, _ in hits) / 1e3 / max(1, sum(n for _, n in hits))
                           if hits else None)
     print(f"  K6/K7 device ms per launch inside the profiled step: {knn_step_ms}", flush=True)
+
+    # the un-permute folded into K3 against the unfolded redesign (the
+    # gather, then K3 on the gathered rows): the profiled step in turns, and
+    # the device extent of its segment_sum stage (inverse permutation,
+    # gather where unfolded, K3)
+    def unfolded(src, idx, starts, ends):
+        return segment_sum.segment_sum_rows(src[idx.long()], starts, ends)
+    fold = {"folded": [], "unfolded": []}
+    for what in ("folded", "unfolded", "folded", "unfolded"):
+        if what == "unfolded":
+            rasterize.segment_sum_rows_gathered = unfolded
+        try:
+            f_wall, f_busy, _, f_stages = profile_window(
+                torch, profiled_step, os.path.join(out_dir, f"profile_step_{what}.txt"))
+        finally:
+            rasterize.segment_sum_rows_gathered = segment_sum.segment_sum_rows_gathered
+        stage = f_stages.get("segment_sum", {})
+        fold[what].append(dict(extent_ms=stage.get("extent_ms"), kernel_ms=stage.get("kernel_ms"),
+                               device_busy_ms=f_busy, wall_ms=f_wall))
+    print("  segment_sum stage, device extent / kernel ms / step device busy ms: " + "; ".join(
+        f"{k} " + ", ".join(f"{x['extent_ms']}/{x['kernel_ms']}/{x['device_busy_ms']:.3f}"
+                            for x in v) for k, v in fold.items()), flush=True)
+    result["fold"] = fold
 
     # densify at the config's threshold (tools/train.py:556-567), then the
     # 3D filter and the KNN cache are rebuilt for the new cloud
@@ -888,21 +934,39 @@ def main():
     result["K2_work"] = dict(rows_live=rows_live, rows=total2, bytes=bytes2, ops=ops2, **stats2)
     del dpay, dpay_plain, got2, want2
 
-    (rows3, st3, en3), _ = seen["K3"]
-    out3 = segment_sum.segment_sum_rows(rows3, st3, en3)
-    out3_plain = segment_sum.segment_sum_rows_plain(rows3, st3, en3)
+    # K3 as the main path calls it: the pair-gradient rows read through the
+    # inverse of the pair permutation (the un-permute folded into the sum)
+    (src3, idx3, st3, en3), _ = seen["K3"]
+    out3 = segment_sum.segment_sum_rows_gathered(src3, idx3, st3, en3)
+    out3_plain = segment_sum.segment_sum_rows_gathered_plain(src3, idx3, st3, en3)
     err3 = float((out3 - out3_plain).abs().max())
     scale3 = float(out3_plain.abs().max())
-    print(f"K3 segment_sum_rows: rows {tuple(rows3.shape)} segments {st3.numel()} "
-          f"max_abs_err={err3:.3e} (limit {K3_REL} x {scale3:.3e})", flush=True)
+    print(f"K3 segment_sum_rows_gathered: rows {tuple(src3.shape)} through idx "
+          f"{tuple(idx3.shape)}, segments {st3.numel()} max_abs_err={err3:.3e} "
+          f"(limit {K3_REL} x {scale3:.3e})", flush=True)
     if not err3 <= K3_REL * scale3 or not bool(torch.isfinite(out3).all()):
+        fail("K3 (gathered) disagrees with its plain version")
+    # and K3's own function on the gathered rows, as the unfolded path ran it
+    rows3 = src3[idx3.long()]
+    out3r = segment_sum.segment_sum_rows(rows3, st3, en3)
+    err3r = float((out3r - out3_plain).abs().max())
+    print(f"K3 segment_sum_rows: rows {tuple(rows3.shape)} max_abs_err={err3r:.3e} "
+          f"(limit {K3_REL} x {scale3:.3e})", flush=True)
+    if not err3r <= K3_REL * scale3 or not bool(torch.isfinite(out3r).all()):
         fail("K3 disagrees with its plain version")
-    ms3 = time_ms(torch, lambda: segment_sum.segment_sum_rows(rows3, st3, en3), 50, flush)
-    plain3 = time_ms(torch, lambda: segment_sum.segment_sum_rows_plain(rows3, st3, en3),
-                     20, flush)
+    ms3 = time_ms(torch, lambda: segment_sum.segment_sum_rows_gathered(src3, idx3, st3, en3),
+                  50, flush)
+    plain3 = time_ms(torch, lambda: segment_sum.segment_sum_rows_gathered_plain(
+        src3, idx3, st3, en3), 20, flush)
+    ms3r = time_ms(torch, lambda: segment_sum.segment_sum_rows(rows3, st3, en3), 50, flush)
+    plain3r = time_ms(torch, lambda: segment_sum.segment_sum_rows_plain(rows3, st3, en3),
+                      20, flush)
+    unfolded3 = time_ms(torch, lambda: segment_sum.segment_sum_rows(src3[idx3.long()], st3,
+                                                                     en3), 50, flush)
     summed = int((en3 - st3).sum())
     # the library yardstick: one segment_reduce over the same contiguous
-    # segments (the binning's CSR bounds tile the rows from 0 without gaps)
+    # segments of the gathered rows (the binning's CSR bounds tile the rows
+    # from 0 without gaps)
     contiguous = bool((st3[1:] == en3[:-1]).all()) and int(st3[0]) == 0
     lib3 = None
     if contiguous:
@@ -913,13 +977,32 @@ def main():
               flush=True)
         lib3 = time_ms(torch, lambda: torch.segment_reduce(data3, "sum", lengths=lengths3,
                                                             axis=0), 50, flush)
-    b3, by3 = bound(summed * rows3.shape[1] * 4 + 2 * 4 * st3.numel()
-                    + out3.numel() * 4, summed * rows3.shape[1])
+    F3 = src3.shape[1]
+    out_bytes3 = 2 * 4 * st3.numel() + out3.numel() * 4
+    b3r, by3r = bound(summed * F3 * 4 + out_bytes3, summed * F3)
+    # the gathered call reads the index of every summed row and the whole
+    # 32-byte sectors its rows cover in src
+    used = idx3[int(st3[0]):int(en3[-1])].long()
+    first_sec = used * (F3 * 4) // 32
+    last_sec = (used * (F3 * 4) + F3 * 4 - 1) // 32
+    covered = torch.zeros(int(last_sec.max()) + 1, dtype=torch.bool, device=src3.device)
+    for k in range(int((last_sec - first_sec).max()) + 1):   # a sector counts once
+        sec = first_sec + k
+        covered[sec[sec <= last_sec]] = True
+    n_sec = int(covered.sum())
+    del used, first_sec, last_sec, covered
+    b3, by3 = bound(summed * 4 + n_sec * 32 + out_bytes3, summed * F3)
+    print(f"  K3 gathered {ms3:.5f} ms (bound {b3:.5f}, {n_sec} sectors), K3 on the rows "
+          f"{ms3r:.5f} ms (bound {b3r:.5f}), gather + K3 {unfolded3:.5f} ms; plain "
+          f"{plain3:.4f} / {plain3r:.4f} ms; segment_reduce {lib3}", flush=True)
     rows["K3"] = dict(KERNELS["K3"], max_abs_err=err3, ms=ms3, plain_ms=plain3,
-                      bound_ms=b3, bound_by=by3, library_ms=lib3)
+                      bound_ms=b3, bound_by=by3, library_ms=lib3, rows_ms=ms3r,
+                      rows_plain_ms=plain3r, rows_bound_ms=b3r, rows_max_abs_err=err3r,
+                      gather_then_rows_ms=unfolded3)
+    result["K3_work"] = dict(rows=summed, sectors=n_sec, segments=st3.numel())
 
-    # K8 is the K3 kernel under its own counter: the same inputs, the same
-    # bound and the same library yardstick
+    # K8 is the K3 kernel under its own counter, on K3's own function: the
+    # same inputs, the same bound and the same library yardstick
     out8 = segment_sum.segment_sum_rows_packed(rows3, st3, en3)
     err8 = float((out8 - out3_plain).abs().max())
     print(f"K8 segment_sum_rows_packed (the K3 kernel): max_abs_err={err8:.3e} "
@@ -928,9 +1011,9 @@ def main():
         fail("K8 disagrees with its plain version")
     ms8 = time_ms(torch, lambda: segment_sum.segment_sum_rows_packed(rows3, st3, en3), 50,
                   flush)
-    rows["K8"] = dict(KERNELS["K8"], max_abs_err=err8, ms=ms8, plain_ms=plain3,
-                      bound_ms=b3, bound_by=by3, library_ms=lib3)
-    del out3, out3_plain, out8
+    rows["K8"] = dict(KERNELS["K8"], max_abs_err=err8, ms=ms8, plain_ms=plain3r,
+                      bound_ms=b3r, bound_by=by3r, library_ms=lib3)
+    del out3, out3_plain, out3r, out8, rows3
 
     # K6 -> K7 on the graph and embedding table the warm-up step handed them
     (emb_r, nbr, w_eff, coef), _ = seen["K6"]
@@ -1007,7 +1090,7 @@ def main():
     d_first = rasterize.sorted_payload_grad(gp, gk, gc, gbins, gkw)
     d_again = rasterize.sorted_payload_grad(gp, gk, gc, gbins, gkw)
     det = torch.equal(d_first.view(torch.int32), d_again.view(torch.int32))
-    print(f"payload gradient (K2 -> un-permute -> K3) {tuple(d_first.shape)} run twice: "
+    print(f"payload gradient (K2 -> K3 through the index) {tuple(d_first.shape)} run twice: "
           f"bit-identical={det}", flush=True)
     if not det:
         fail("the payload gradient differs from run to run")
@@ -1061,39 +1144,48 @@ def main():
     if abs(np_cuda - np_cpu) > 0.005 * np_cpu:
         fail("small render: num_pairs disagrees between the card and the CPU")
 
-    ssetup = dataclasses.replace(train_setup(cfg, scfg), hidden=hidden32)
-    sgrads, semb = {}, {}
-    for dev in (DEVICE, "cpu"):
-        sp, sa = gaussians_from_numpy(small, device=dev)
-        sd = init_deform_params(hidden32, seed=0, device=dev)
-        scache = update_knn_cache(sp, sa)
-        sgrads[dev] = make_loss_and_grads(ssetup)(
-            {"gaussians": sp, "deform": sd}, sa,
-            make_batch(torch, scam, B, 0.5, True, 300, dev), scache, TRAIN_ITERATION)
-        semb[dev] = float(sgrads[dev][1]["emb_loss"])
-    loss_c, loss_h = float(sgrads[DEVICE][0]), float(sgrads["cpu"][0])
-    grad_worst = {}
-    for k, g_cpu in sgrads["cpu"][2].items():
-        g_dev = sgrads[DEVICE][2][k].cpu()
-        if not bool(torch.isfinite(g_dev).all()):
-            fail(f"small train step: gradient {k} is not finite on the card")
-        scale = float(g_cpu.abs().max())
-        grad_worst[k] = float((g_dev - g_cpu).abs().max()) / scale if scale else float(
-            g_dev.abs().max())
-    vs_c, vs_h = sgrads[DEVICE][3].cpu(), sgrads["cpu"][3]
-    grad_worst["vs_grad"] = float((vs_c - vs_h).abs().max()) / float(vs_h.abs().max())
-    top = sorted(grad_worst.items(), key=lambda kv: -kv[1])[:6]
-    print(f"small train step {SMALL_N} Gaussians {SMALL_W}x{SMALL_H} (float32, reg_coef "
-          f"{ssetup.reg_coef}): loss cuda={loss_c:.7f} cpu={loss_h:.7f} (limit rel "
-          f"{SMALL_LOSS_REL}), emb_loss cuda={semb[DEVICE]:.7e} cpu={semb['cpu']:.7e}; worst "
-          f"gradient leaves (max|diff| / max|g|, limit {SMALL_GRAD_REL}): "
-          + ", ".join(f"{k} {v:.2e}" for k, v in top), flush=True)
-    result["small_train"] = dict(loss_cuda=loss_c, loss_cpu=loss_h, emb_loss=semb,
-                                 grad_rel=grad_worst)
-    if (abs(loss_c - loss_h) > SMALL_LOSS_REL * abs(loss_h)
-            or abs(semb[DEVICE] - semb["cpu"]) > SMALL_LOSS_REL * abs(semb["cpu"])
-            or semb["cpu"] <= 0 or max(grad_worst.values()) > SMALL_GRAD_REL):
-        fail("small train step: the card's loss or gradients disagree with the CPU's")
+    # one train step at the config's embedding width and one at E = 16,
+    # which the KNN kernels run zero-padded to their 32 columns
+    for emb_dim in (hidden32.gaussian_embedding_dim, 16):
+        shidden = dataclasses.replace(hidden32, gaussian_embedding_dim=emb_dim)
+        sfields = dict(small, embedding=small["embedding"][:, :emb_dim])
+        ssetup = dataclasses.replace(train_setup(cfg, scfg), hidden=shidden)
+        sgrads, semb = {}, {}
+        for dev in (DEVICE, "cpu"):
+            sp, sa = gaussians_from_numpy(sfields, device=dev)
+            sd = init_deform_params(shidden, seed=0, device=dev)
+            scache = update_knn_cache(sp, sa)
+            knn_before = knn_loss.knn_rows.launches
+            sgrads[dev] = make_loss_and_grads(ssetup)(
+                {"gaussians": sp, "deform": sd}, sa,
+                make_batch(torch, scam, B, 0.5, True, 300, dev), scache, TRAIN_ITERATION)
+            semb[dev] = float(sgrads[dev][1]["emb_loss"])
+            if dev == DEVICE and knn_loss.knn_rows.launches == knn_before:
+                fail(f"small train step at E={emb_dim}: the KNN kernels did not run")
+        loss_c, loss_h = float(sgrads[DEVICE][0]), float(sgrads["cpu"][0])
+        grad_worst = {}
+        for k, g_cpu in sgrads["cpu"][2].items():
+            g_dev = sgrads[DEVICE][2][k].cpu()
+            if not bool(torch.isfinite(g_dev).all()):
+                fail(f"small train step at E={emb_dim}: gradient {k} is not finite on the card")
+            scale = float(g_cpu.abs().max())
+            grad_worst[k] = float((g_dev - g_cpu).abs().max()) / scale if scale else float(
+                g_dev.abs().max())
+        vs_c, vs_h = sgrads[DEVICE][3].cpu(), sgrads["cpu"][3]
+        grad_worst["vs_grad"] = float((vs_c - vs_h).abs().max()) / float(vs_h.abs().max())
+        top = sorted(grad_worst.items(), key=lambda kv: -kv[1])[:6]
+        print(f"small train step {SMALL_N} Gaussians {SMALL_W}x{SMALL_H} (float32, reg_coef "
+              f"{ssetup.reg_coef}, E={emb_dim}): loss cuda={loss_c:.7f} cpu={loss_h:.7f} "
+              f"(limit rel {SMALL_LOSS_REL}), emb_loss cuda={semb[DEVICE]:.7e} "
+              f"cpu={semb['cpu']:.7e}; worst gradient leaves (max|diff| / max|g|, limit "
+              f"{SMALL_GRAD_REL}): " + ", ".join(f"{k} {v:.2e}" for k, v in top), flush=True)
+        result[f"small_train_e{emb_dim}"] = dict(loss_cuda=loss_c, loss_cpu=loss_h,
+                                                 emb_loss=semb, grad_rel=grad_worst)
+        if (abs(loss_c - loss_h) > SMALL_LOSS_REL * abs(loss_h)
+                or abs(semb[DEVICE] - semb["cpu"]) > SMALL_LOSS_REL * abs(semb["cpu"])
+                or semb["cpu"] <= 0 or max(grad_worst.values()) > SMALL_GRAD_REL):
+            fail(f"small train step at E={emb_dim}: the card's loss or gradients disagree "
+                 "with the CPU's")
 
     # one densify of the small cut with free capacity and numpy-seeded
     # statistics, the same draws handed to both devices

@@ -13,159 +13,200 @@
 // Bound on the H100: memory. The function reads 2*K int32 and writes K int32
 // (12.6 MB at K = 2^20, ~4 us at 3.35 TB/s); the arithmetic is a few integer
 // ops per slot. The TPU kernel walks the grid in order and carries the scan
-// in SMEM; Hopper's blocks run in no order, so this is a reduce-then-scan in
-// three launches: (1) per-block sums of both streams, (2) one block scans
-// the block sums into exclusive block prefixes, (3) each block rescans its
-// slots, adds its prefix, decodes and writes the keys. The inputs are read
-// twice (the second read mostly hits the 50 MB L2 at these sizes). A
-// decoupled look-back single pass is later work.
-//
-// `total` is read from device memory, so the host never synchronises.
+// in SMEM; Hopper's blocks run in no order, so this is one pass with a
+// decoupled look-back, in one launch:
+//   - a CTA takes the next tile of TILE slots from an atomic counter (so
+//     every tile it may wait on is already running) and reads each input
+//     once, 16 consecutive slots a thread as four 16-byte loads a stream;
+//   - it scans its tile and publishes the tile's two sums (the
+//     aggregates); then every thread of the CTA reads the aggregates of
+//     its share of the preceding tiles at once (one thread a tile: at
+//     K = 2^20 the 256 tiles all run together, so a chained look-back
+//     would wait a round trip for each tile that has not yet published
+//     its prefix) and the CTA adds them. Each published value is one
+//     64-bit word (ready flag << 32 | value) per stream, stored and loaded
+//     whole at gpu scope, so a value is never seen without its flag; no
+//     other data is read through it, so relaxed accesses suffice (release
+//     and acquire measured ~1.5 us slower, scripts/torch_segment_scan_variants.py);
+//   - it adds the prefix, decodes and writes the keys.
+// Sums are int32 additions modulo 2^32, as the plain version's int64 cumsum
+// narrowed to int32, in any grouping: the keys are bit-exact. At K = 2^20
+// the 256 tiles are about one wave of CTAs. `total` is read from device
+// memory, so the host never synchronises. The tile counter and the
+// published words live in a buffer the wrapper keeps zeroed for its device
+// and stream: the CTA that finishes reading last clears them again, so no
+// memset precedes the launch.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ITEMS = 8;                 // consecutive slots per thread
-constexpr int BLOCK = THREADS * ITEMS;   // 2048 slots per block
+constexpr int ITEMS = 16;                // consecutive slots per thread
+constexpr int TILE = THREADS * ITEMS;    // 4096 slots per CTA
 constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned long long READY = 1ull << 32;
 
-__device__ __forceinline__ int warp_inclusive(int x) {
+__device__ __forceinline__ unsigned warp_inclusive(unsigned x) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    const unsigned y = __shfl_up_sync(FULL, x, o);
     if (lane >= o) x += y;
   }
   return x;
 }
 
-// Block-wide exclusive scan of one value per thread, for two streams at once.
-// Every thread of the block must call it.
-__device__ __forceinline__ void block_exclusive2(int a, int b, int& ea, int& eb,
-                                                 int& ta, int& tb) {
-  __shared__ int sa[WARPS], sb[WARPS];
+// Block-wide exclusive scan of one value per thread, for two streams at
+// once, and the block totals. Every thread of the block must call it.
+__device__ __forceinline__ void block_exclusive2(unsigned a, unsigned b, unsigned& ea,
+                                                 unsigned& eb, unsigned& ta, unsigned& tb) {
+  __shared__ unsigned sa[WARPS], sb[WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ia = warp_inclusive(a), ib = warp_inclusive(b);
+  const unsigned ia = warp_inclusive(a), ib = warp_inclusive(b);
   if (lane == 31) { sa[warp] = ia; sb[warp] = ib; }
   __syncthreads();
   if (warp == 0) {
-    int x = lane < WARPS ? sa[lane] : 0;
-    int y = lane < WARPS ? sb[lane] : 0;
+    unsigned x = lane < WARPS ? sa[lane] : 0u;
+    unsigned y = lane < WARPS ? sb[lane] : 0u;
     x = warp_inclusive(x);
     y = warp_inclusive(y);
     if (lane < WARPS) { sa[lane] = x; sb[lane] = y; }
   }
   __syncthreads();
-  ea = (warp ? sa[warp - 1] : 0) + ia - a;
-  eb = (warp ? sb[warp - 1] : 0) + ib - b;
+  ea = (warp ? sa[warp - 1] : 0u) + ia - a;
+  eb = (warp ? sb[warp - 1] : 0u) + ib - b;
   ta = sa[WARPS - 1];
   tb = sb[WARPS - 1];
-  __syncthreads();  // sa/sb may be reused by the next call
 }
 
-// K % 8 == 0 (the wrapper requires K % 128 == 0), so a thread's 8 slots are
-// either all in range or all out, and 16-byte aligned.
-__device__ __forceinline__ bool load8(const int* __restrict__ src, long base, int K,
-                                      int (&x)[ITEMS]) {
+__device__ __forceinline__ unsigned long long load_word(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_word(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+
+// K % 16 == 0 (the wrapper requires K % 128 == 0), so a thread's 16 slots
+// are either all in range or all out, and 16-byte aligned.
+__device__ __forceinline__ bool load16(const int* __restrict__ src, long base, int K,
+                                       unsigned (&x)[ITEMS]) {
   if (base >= K) {
 #pragma unroll
-    for (int i = 0; i < ITEMS; ++i) x[i] = 0;
+    for (int i = 0; i < ITEMS; ++i) x[i] = 0u;
     return false;
   }
-  const int4 lo = *reinterpret_cast<const int4*>(src + base);
-  const int4 hi = *reinterpret_cast<const int4*>(src + base + 4);
-  x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
-  x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+#pragma unroll
+  for (int q = 0; q < ITEMS / 4; ++q) {
+    const int4 v = *reinterpret_cast<const int4*>(src + base + 4 * q);
+    x[4 * q] = v.x; x[4 * q + 1] = v.y; x[4 * q + 2] = v.z; x[4 * q + 3] = v.w;
+  }
   return true;
 }
 
-__global__ void __launch_bounds__(THREADS)
-block_sums(const int* __restrict__ dv, const int* __restrict__ dpk, int K,
-           int* __restrict__ sum_v, int* __restrict__ sum_pk) {
-  const long base = (long)blockIdx.x * BLOCK + (long)threadIdx.x * ITEMS;
-  int a[ITEMS], b[ITEMS];
-  load8(dv, base, K, a);
-  load8(dpk, base, K, b);
-  int sa = 0, sb = 0;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) { sa += a[i]; sb += b[i]; }
-  int ea, eb, ta, tb;
-  block_exclusive2(sa, sb, ea, eb, ta, tb);
-  if (threadIdx.x == 0) { sum_v[blockIdx.x] = ta; sum_pk[blockIdx.x] = tb; }
-}
-
-// One block: block sums -> exclusive block prefixes, in place.
-__global__ void __launch_bounds__(THREADS)
-scan_block_sums(int* __restrict__ sum_v, int* __restrict__ sum_pk, int nblocks) {
-  int carry_v = 0, carry_pk = 0;
-  for (int s = 0; s < nblocks; s += THREADS) {
-    const int i = s + threadIdx.x;
-    const int a = i < nblocks ? sum_v[i] : 0;
-    const int b = i < nblocks ? sum_pk[i] : 0;
-    int ea, eb, ta, tb;
-    block_exclusive2(a, b, ea, eb, ta, tb);
-    if (i < nblocks) { sum_v[i] = carry_v + ea; sum_pk[i] = carry_pk + eb; }
-    carry_v += ta;
-    carry_pk += tb;
-  }
-}
-
+// state: [0] the tile counter and [1] the count of CTAs done reading (low 32
+// bits each); then per tile two words: the aggregates of v and of pk. Zero
+// on entry and left zero.
 __global__ void __launch_bounds__(THREADS)
 scan_decode(const int* __restrict__ dv, const int* __restrict__ dpk,
-            const int* __restrict__ pre_v, const int* __restrict__ pre_pk,
-            const int* __restrict__ total_ptr, int K, int grid_x, int num_tiles,
-            int rank_bits, int b, int* __restrict__ key) {
-  const long base = (long)blockIdx.x * BLOCK + (long)threadIdx.x * ITEMS;
-  int v[ITEMS], pk[ITEMS];
-  const bool in_range = load8(dv, base, K, v);
-  load8(dpk, base, K, pk);
+            const int* __restrict__ total_ptr, int* __restrict__ key,
+            unsigned long long* __restrict__ state, int K, int grid_x, int num_tiles,
+            int rank_bits, int b) {
+  __shared__ int tile_sh;
+  __shared__ unsigned prefix_sh[2];
+  if (threadIdx.x == 0) tile_sh = (int)atomicAdd(reinterpret_cast<unsigned*>(state), 1u);
+  __syncthreads();
+  const int tile = tile_sh;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long base = (long)tile * TILE + (long)threadIdx.x * ITEMS;
+  unsigned v[ITEMS], pk[ITEMS];
+  const bool in_range = load16(dv, base, K, v);
+  load16(dpk, base, K, pk);
 #pragma unroll
   for (int i = 1; i < ITEMS; ++i) { v[i] += v[i - 1]; pk[i] += pk[i - 1]; }
-  int ev, epk, tv, tpk;
+  unsigned ev, epk, tv, tpk;
   block_exclusive2(v[ITEMS - 1], pk[ITEMS - 1], ev, epk, tv, tpk);
+
+  unsigned long long* words = state + 2;
+  if (threadIdx.x == 0) {
+    store_word(words + 2L * tile, READY | tv);
+    store_word(words + 2L * tile + 1, READY | tpk);
+  }
+  // the preceding tiles' aggregates, a tile a thread
+  unsigned pv = 0u, ppk = 0u;
+  for (int t = threadIdx.x; t < tile; t += THREADS) {
+    unsigned long long av, apk;
+    do {
+      av = load_word(words + 2L * t);
+      apk = load_word(words + 2L * t + 1);
+    } while (!((av & READY) && (apk & READY)));
+    pv += (unsigned)av;
+    ppk += (unsigned)apk;
+  }
+  pv = __reduce_add_sync(FULL, pv);
+  ppk = __reduce_add_sync(FULL, ppk);
+  __shared__ unsigned part_v[WARPS], part_pk[WARPS];
+  if (lane == 0) { part_v[warp] = pv; part_pk[warp] = ppk; }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned a = 0u, c = 0u;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) { a += part_v[w]; c += part_pk[w]; }
+    prefix_sh[0] = a;
+    prefix_sh[1] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // every CTA has read what it needs once all have counted themselves
+    // here: the last one clears the state for the next launch
+    __threadfence();
+    unsigned* done = reinterpret_cast<unsigned*>(state + 1);
+    if (atomicAdd(done, 1u) == gridDim.x - 1) {
+      for (long w = 0; w < 2L + 2L * gridDim.x; ++w) state[w] = 0ull;
+    }
+  }
   if (!in_range) return;
-  const int off_v = pre_v[blockIdx.x] + ev;
-  const int off_pk = pre_pk[blockIdx.x] + epk;
+  const unsigned off_v = prefix_sh[0] + ev;
+  const unsigned off_pk = prefix_sh[1] + epk;
   const int total = *total_ptr;
   const int kmask = (1 << b) - 1;
   int out[ITEMS];
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i) {
     const int p = (int)base + i;
-    const int vv = v[i] + off_v;
-    const int pp = pk[i] + off_pk;
+    const int vv = (int)(v[i] + off_v);
+    const int pp = (int)(pk[i] + off_pk);
     const int rank = vv >> b;
     const int k = (p - vv) & kmask;
     const int rw = max(pp & 0x1FF, 1);
     const int q = k / rw;
     const int r = k - q * rw;
-    const int tile = p < total ? (pp >> 9) + q * grid_x + r : num_tiles;
-    out[i] = (tile << rank_bits) | rank;
+    const int tile_id = p < total ? (pp >> 9) + q * grid_x + r : num_tiles;
+    out[i] = (tile_id << rank_bits) | rank;
   }
-  *reinterpret_cast<int4*>(key + base) = make_int4(out[0], out[1], out[2], out[3]);
-  *reinterpret_cast<int4*>(key + base + 4) = make_int4(out[4], out[5], out[6], out[7]);
+#pragma unroll
+  for (int q = 0; q < ITEMS / 4; ++q)
+    *reinterpret_cast<int4*>(key + base + 4 * q) =
+        make_int4(out[4 * q], out[4 * q + 1], out[4 * q + 2], out[4 * q + 3]);
 }
 
 }  // namespace
 
-// scratch: 2 * ceil(K / 2048) int32 (block sums, then block prefixes).
+// state: 8 * (2 + 2 * ceil(K / 4096)) bytes, 8-byte aligned, zero on entry
+// and left zero (ops/binning_scan.py keeps one per device and stream).
 extern "C" int ed3dgs_fused_bin_scans(const int* dv, const int* dpk, const int* total,
-                                      int* key, int* scratch, int K, int grid_x,
+                                      int* key, void* state, int K, int grid_x,
                                       int num_tiles, int rank_bits, int b,
                                       void* stream) {
+  if (K == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nblocks = (K + BLOCK - 1) / BLOCK;
-  int* sum_v = scratch;
-  int* sum_pk = scratch + nblocks;
-  block_sums<<<nblocks, THREADS, 0, s>>>(dv, dpk, K, sum_v, sum_pk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_block_sums<<<1, THREADS, 0, s>>>(sum_v, sum_pk, nblocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_decode<<<nblocks, THREADS, 0, s>>>(dv, dpk, sum_v, sum_pk, total, K, grid_x,
-                                          num_tiles, rank_bits, b, key);
+  const int tiles = (K + TILE - 1) / TILE;
+  scan_decode<<<tiles, THREADS, 0, s>>>(dv, dpk, total, key,
+                                        static_cast<unsigned long long*>(state), K,
+                                        grid_x, num_tiles, rank_bits, b);
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,9 @@ and the decode packs the sort key `tile << rank_bits | rank`, where the tile
 is the k-th of the owner's rect in row-major order, k = (p - v) mod 2^b.
 Slots at or past `total` get tile `num_tiles`.
 
-On a CUDA tensor `fused_bin_scans` launches csrc/binning_scan.cu; on a CPU
-tensor it runs `fused_bin_scans_plain`.
+On a CUDA tensor `fused_bin_scans` launches csrc/binning_scan.cu, one
+single-pass scan with a decoupled look-back; on a CPU tensor it runs
+`fused_bin_scans_plain`.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from . import cuda_lib
 
-SCAN_BLOCK = 2048   # slots per CUDA block (256 threads x 8); see csrc
+SCAN_TILE = 4096   # slots per CTA (256 threads x 16); see csrc
 
 
 def _decode(v, pk, total, *, grid_x, num_tiles, rank_bits, b):
@@ -65,8 +66,10 @@ def fused_bin_scans(dv, dpk, total, *, grid_x: int, num_tiles: int,
     if dpk.shape[0] != K:
         raise ValueError("dv and dpk must have the same length")
     key = torch.empty_like(dv)
-    nblocks = (K + SCAN_BLOCK - 1) // SCAN_BLOCK
-    scratch = torch.empty(2 * nblocks, dtype=torch.int32, device=dv.device)
+    # the tile and done counters, then each tile's two aggregates: zeroed,
+    # and left zeroed by the kernel
+    tiles = (K + SCAN_TILE - 1) // SCAN_TILE
+    scratch = cuda_lib.zeroed("binning_scan", 8 * (2 + 2 * tiles), dv)
     with torch.cuda.device(dv.device):
         err = cuda_lib.lib("binning_scan").ed3dgs_fused_bin_scans(
             dv.data_ptr(), dpk.data_ptr(), total.data_ptr(), key.data_ptr(),

@@ -40,7 +40,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t of its launches (0 = success)
 SIGNATURES = {
     "binning_scan": {
-        # dv, dpk, total, key, scratch, K, grid_x, num_tiles, rank_bits, b, stream
+        # dv, dpk, total, key, state, K, grid_x, num_tiles, rank_bits, b, stream
         "ed3dgs_fused_bin_scans": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "rasterize_forward": {
@@ -63,6 +63,8 @@ SIGNATURES = {
     "segment_sum": {
         # rows, starts, ends, out, S, F, stream
         "ed3dgs_segment_sum": [_P, _P, _P, _P, _I, _I, _P],
+        # src, idx, starts, ends, out, S, F, stream
+        "ed3dgs_segment_sum_gathered": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
     "relayout": {
         # packed, out, gy, gxp, C, stream
@@ -157,3 +159,19 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_ZEROED = {}
+
+
+def zeroed(name: str, nbytes: int, like: torch.Tensor) -> torch.Tensor:
+    """A buffer of at least `nbytes` zero bytes on `like`'s device, kept for
+    its device and current stream: a kernel that takes it must leave it
+    zeroed when it ends, so that the next launch on the stream needs no
+    memset. Calls on other streams get buffers of their own."""
+    key = (name, like.device, stream_of(like))
+    buf = _ZEROED.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.zeros(nbytes, dtype=torch.uint8, device=like.device)
+        _ZEROED[key] = buf
+    return buf

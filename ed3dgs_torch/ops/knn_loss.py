@@ -37,9 +37,13 @@ order:
 - K7 `knn_reverse` (replaces `_far_kernel` and the in-window half of
   `_main_kernel`): per rank j, dL/de_j = -sum over in-edges s_ik (e_i - e_j),
   added to K6's dL/de_i of the same rank: the whole gradient row.
-The kernels take 32-wide embeddings (a row is split in float4s over the
+The kernels take 32-wide tables (a row is split in float4s over the
 lanes), K <= 32 slots and Cp a multiple of 128; their wrappers raise
-ValueError for anything else.
+ValueError for anything else. A narrower embedding (1 <= E < 32) runs on
+them zero-padded to 32 columns, which `_run` builds in its rank-order
+gather (`rank_table`): a zero column adds exactly 0 to every d2, loss term,
+s and gradient, so the kernels compute the E-wide result. A wider one is
+refused on the card.
 Each has a plain PyTorch version of the same signature: K6 by gather, K7 by
 a gather over the reverse adjacency and `segment_sum_rows_plain`. A wrapper
 launches its kernel on CUDA tensors and runs the plain version on CPU
@@ -277,12 +281,25 @@ def knn_reverse_plain(emb_r: torch.Tensor, s: torch.Tensor, de: torch.Tensor,
     return de + segment_sum_rows_plain(rows, rev_ptr[:-1], rev_ptr[1:])
 
 
+def rank_table(emb: torch.Tensor, graph: KnnGraph, width: int) -> torch.Tensor:
+    """emb [C, E] float32 in the graph's rank order, [Cp, width] with
+    width >= E: the pad ranks' rows and the columns past E are zeros."""
+    C, E = emb.shape
+    Cp = graph.pi.shape[0]
+    if width == E:
+        emb_p = torch.cat([emb.to(torch.float32), emb.new_zeros((Cp - C, E), dtype=torch.float32)])
+    else:
+        emb_p = emb.new_zeros((Cp, width), dtype=torch.float32)
+        emb_p[:C, :E] = emb
+    return emb_p[graph.pi].contiguous()
+
+
 def _check_kernel_shape(emb_r: torch.Tensor, K: int):
     """Raise ValueError for a table or slot count the kernels do not take."""
     Cp, E = emb_r.shape
     if E != KERNEL_E or not 1 <= K <= MAX_K:
-        raise ValueError(f"the KNN kernels take E = {KERNEL_E} and 1 <= K <= {MAX_K}, "
-                         f"got E={E}, K={K}")
+        raise ValueError(f"the KNN kernels take E = {KERNEL_E} (narrower embeddings "
+                         f"zero-padded by rank_table) and 1 <= K <= {MAX_K}, got E={E}, K={K}")
     if Cp % ROWS_PER_BLOCK:
         raise ValueError(f"the KNN kernels take Cp a multiple of {ROWS_PER_BLOCK}, got {Cp}")
     if emb_r.data_ptr() % 16:
@@ -372,12 +389,13 @@ def _run(emb: torch.Tensor, graph: KnnGraph, k: int):
             f"knn_loss_fused called with k={k} but the graph was prepared with K={K} "
             "(neighbor slots would be silently dropped or misread)")
     C, E = emb.shape
-    Cp = graph.pi.shape[0]
-    emb_p = torch.cat([emb.to(torch.float32), emb.new_zeros((Cp - C, E), dtype=torch.float32)])
-    emb_r = emb_p[graph.pi].contiguous()
+    # the kernels' width on the card (zero columns past E add exactly 0);
+    # the plain versions on the CPU take the table as it is
+    width = KERNEL_E if emb.is_cuda and E < KERNEL_E else E
+    emb_r = rank_table(emb, graph, width)
     loss, de, s = knn_rows(emb_r, graph.nbr, graph.w, graph.coef)
     demb_r = knn_reverse(emb_r, s, de, graph.rev_ptr, graph.rev_pair)
-    return loss, demb_r[graph.inv[:C]]
+    return loss, demb_r[graph.inv[:C]][:, :E]
 
 
 class _KnnLoss(torch.autograd.Function):

@@ -13,9 +13,9 @@ would make it run-dependent):
     tiles by K5b;
   * `_ExpandRaster`: the pair gather and K1 as one unit. Its backward runs
     K2 (which writes a row for every pair of every tile, zero outside the
-    tile's live chunks), un-permutes the rows to pre-sort order (where each
-    Gaussian's pairs are contiguous) with the inverse of the bijection
-    `pair_perm`, and sums each Gaussian's rows with K3;
+    tile's live chunks), and sums each Gaussian's rows with K3, reading them
+    in pre-sort order (where each Gaussian's pairs are contiguous) through
+    the inverse of the bijection `pair_perm`;
   * `_PermuteRows`: the depth-order permute, whose backward is the
     inverse-permutation gather.
 The port has one backend: the CUDA kernels for CUDA tensors, their plain
@@ -39,7 +39,7 @@ from .binning import bin_rows, build_gaussian_payload, tile_grid
 from .common import RasterOutputs
 from .rasterize_cuda import MAX_CHUNKS, OUT_CHANNELS, rasterize_backward, rasterize_forward
 from .relayout import unpack
-from .segment_sum import segment_sum_rows
+from .segment_sum import segment_sum_rows_gathered
 
 
 @dataclass(frozen=True)
@@ -97,15 +97,16 @@ class _ExpandRaster(torch.autograd.Function):
 
 def sorted_payload_grad(pair_payload, packed, cot, bins, kw) -> torch.Tensor:
     """The gradient of the blend with respect to the depth-sorted payload
-    rows [N, 26]: K2, the un-permute and K3. K2 writes every row of every
-    tile, and the segments K3 sums cover exactly those rows."""
+    rows [N, 26]: K2, then K3 over its rows un-permuted. K2 writes every row
+    of every tile, and the segments K3 sums cover exactly those rows."""
     with record_function("ed3dgs.blend_backward"):
         dpay, _ = rasterize_backward(pair_payload, bins.tile_start, bins.tile_count,
                                      packed, cot.contiguous(), **kw)
     with record_function("ed3dgs.segment_sum"):
-        # pre-sort order: slot pair_perm[r] takes sorted row r
-        g_pre = dpay[_inverse_permutation(bins.pair_perm).long()]
-        return segment_sum_rows(g_pre, bins.seg_starts, bins.seg_ends)
+        # pre-sort order: slot pair_perm[r] takes sorted row r; K3 reads each
+        # slot's row of dpay through the inverse permutation
+        return segment_sum_rows_gathered(dpay, _inverse_permutation(bins.pair_perm),
+                                         bins.seg_starts, bins.seg_ends)
 
 
 def rasterize_rows(payload, depth, valid, rect_min, rect_max, tiles_touched, bg,

@@ -13,10 +13,15 @@ The rows are at most 32 floats wide (the pair payload is 26): the TPU
 kernel's 128-lane rule and its over-read slack rows (`pad_rows`, `SS_CHUNK`)
 are not needed, since the CUDA kernel reads no row outside a segment.
 
-On a CUDA tensor `segment_sum_rows` launches csrc/segment_sum.cu, which sums
-in float64 and rounds once; on a CPU tensor it runs `segment_sum_rows_plain`,
-the difference of float64 prefix sums, which agrees with it to the float32
-rounding.
+On a CUDA tensor `segment_sum_rows` launches csrc/segment_sum.cu once (a warp
+per segment, eight rows in flight; a segment longer than 64 rows summed by
+its CTA's eight warps), which sums in float64 and rounds once; on a CPU
+tensor it runs `segment_sum_rows_plain`, the difference of float64 prefix
+sums, which agrees with it to the float32 rounding.
+
+`segment_sum_rows_gathered(src, idx, starts, ends)` is the same sum over the
+rows `src[idx]`, which the kernel reads through the index instead of a
+gathered copy; it counts on `segment_sum_rows`'s counter (the same kernel).
 
 K8, `segment_sum_rows_packed`, is the TPU's version of the same function for
 rows at most 32 floats wide: it packs four rows into each 128-lane row so
@@ -58,6 +63,29 @@ def segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
 segment_sum_rows.launches = 0
 
 
+def segment_sum_rows_gathered_plain(src: torch.Tensor, idx: torch.Tensor,
+                                    starts: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the gathered entry: the gather, then K3's."""
+    return segment_sum_rows_plain(src[idx.long()], starts, ends)
+
+
+def segment_sum_rows_gathered(src: torch.Tensor, idx: torch.Tensor, starts: torch.Tensor,
+                              ends: torch.Tensor) -> torch.Tensor:
+    """src [Rs, F] float32 (F <= 32), idx [R] int32 row ids in [0, Rs),
+    starts/ends [S] int32 CSR bounds into idx -> [S, F] float32 sums of the
+    rows src[idx[starts[s]:ends[s]]]. On a CUDA tensor the K3 kernel reads
+    each row through the index (counted on `segment_sum_rows`)."""
+    _validate(src, starts, ends)
+    if idx.dim() != 1:
+        raise ValueError(f"idx must be 1-D, got shape {tuple(idx.shape)}")
+    if not src.is_cuda:
+        return segment_sum_rows_gathered_plain(src, idx, starts, ends)
+    cuda_lib.check_cuda(idx, "idx", torch.int32, 1)
+    out = _launch(src, starts, ends, idx)
+    segment_sum_rows.launches += 1
+    return out
+
+
 def segment_sum_rows_packed(rows: torch.Tensor, starts: torch.Tensor,
                             ends: torch.Tensor) -> torch.Tensor:
     """K8: `segment_sum_rows` for narrow rows (F <= 32), with the JAX
@@ -80,15 +108,21 @@ def _validate(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor):
         raise ValueError("starts and ends must be matching 1-D bounds")
 
 
-def _launch(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+def _launch(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+            idx: torch.Tensor = None) -> torch.Tensor:
     cuda_lib.check_cuda(rows, "rows", torch.float32, 2)
     cuda_lib.check_cuda(starts, "starts", torch.int32, 1)
     cuda_lib.check_cuda(ends, "ends", torch.int32, 1)
     S, F = starts.shape[0], rows.shape[1]
     out = torch.empty((S, F), dtype=torch.float32, device=rows.device)
+    lib = cuda_lib.lib("segment_sum")
     with torch.cuda.device(rows.device):
-        err = cuda_lib.lib("segment_sum").ed3dgs_segment_sum(
-            rows.data_ptr(), starts.data_ptr(), ends.data_ptr(), out.data_ptr(), S, F,
-            cuda_lib.stream_of(rows))
+        if idx is None:
+            err = lib.ed3dgs_segment_sum(rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+                                         out.data_ptr(), S, F, cuda_lib.stream_of(rows))
+        else:
+            err = lib.ed3dgs_segment_sum_gathered(
+                rows.data_ptr(), idx.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+                out.data_ptr(), S, F, cuda_lib.stream_of(rows))
     cuda_lib.check_launch(err, "segment_sum_rows")
     return out

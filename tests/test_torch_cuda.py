@@ -6,7 +6,9 @@ repo's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: K4, K5a and K5b bit-exact (integer scans; permutations). K1 at
+Tolerances: K4, K5a and K5b bit-exact (integer scans; permutations); K4 in
+one launch, leaving its zeroed state zeroed, also at K = 2^20 + 128 and 128
+and on signed bin_rows-like deltas. K1 at
 atol 1e-4 plus rtol 1e-4 on every pixel: the kernel sums and multiplies in
 sequence where the plain version uses torch.cumprod and einsum, and the
 expected-coordinate channels divide by the blend weight. Only the median
@@ -15,15 +17,18 @@ channels may differ beyond that, for a pixel whose transmittance sits at the
 exactly, every row of every tile within 1e-4 of its column's largest value
 (the same orders of summation differ), zero where the plain version's is,
 and bit-identical from run to run; K1 and K2 are held so on scenes and on
-synthetic tiles that probe the warps' row skipping (`blend_case`). K3: within
-1e-6 of the largest output (both round an exact-to-float64 sum once); K8,
-the same kernel under its own counter, likewise. K6 and K7
+synthetic tiles that probe the warps' row skipping (`blend_case`). K3 and its
+gathered entry: within 1e-6 of the largest output (both round an
+exact-to-float64 sum once), bit-identical on a rerun, with rows outside
+every segment NaN (never summed), empty segments exactly zero, overlapping
+segments taken; K8, the same kernel under its own counter, likewise. K6 and K7
 (the KNN regulariser) against their plain versions: the loss within 1e-5
 relative, every row of dL/demb within 1e-5 of that row's largest value (the
 kernel reduces d2 by a shuffle butterfly and the loss by CTA partials; the
 terms are otherwise the same operations), and bit-identical from run to run,
 also on the smallest table, at a rank with thousands of in-edges and at K = 1
-and 32; the shapes they do not take raise ValueError.
+and 32, and for tables narrower than 32 (run zero-padded); the shapes they
+do not take raise ValueError.
 """
 
 import math
@@ -34,8 +39,8 @@ import torch
 
 from ed3dgs_torch.core.projection import project_gaussians
 from ed3dgs_torch.data.cameras import look_at_camera
-from ed3dgs_torch.ops import (binning, binning_scan, knn, knn_loss, rasterize_cuda, relayout,
-                              segment_sum)
+from ed3dgs_torch.ops import (binning, binning_scan, cuda_lib, knn, knn_loss, rasterize_cuda,
+                              relayout, segment_sum)
 from ed3dgs_torch.ops.rasterize import RasterConfig, rasterize
 
 pytestmark = pytest.mark.cuda
@@ -108,6 +113,62 @@ def test_binning_scan_kernel_matches_plain(dev, K, total):
     torch.cuda.synchronize()
     assert binning_scan.fused_bin_scans.launches == before + 1
     assert torch.equal(got, binning_scan.fused_bin_scans_plain(dv, dpk, tot, **kw))
+
+
+def bin_deltas(K, seed):
+    """dv, dpk as bin_rows writes them: per Gaussian rank a run of slots
+    (its tiles) with v = rank << b | (start mod 2^b) and pk = tile_base << 9
+    | rect_w, delta-encoded at each run's first slot. The deltas are signed
+    (a later rect may start at a lower tile) and their prefix sums are the
+    int32 words themselves. Returns dv, dpk, the run ends and kw."""
+    rng = np.random.default_rng(seed)
+    grid_x, grid_y, b = 51, 35, 11
+    lengths = rng.integers(0, 40, K // 8)
+    ends = np.cumsum(lengths)
+    keep = ends <= K
+    lengths, ends = lengths[keep], ends[keep]
+    starts = ends - lengths
+    rank = np.arange(len(lengths))
+    rw = rng.integers(1, 8, len(lengths))
+    base = rng.integers(0, grid_x * grid_y - 8 * grid_x, len(lengths))
+    v_g = (rank << b) | (starts & ((1 << b) - 1))
+    pk_g = (base << 9) | rw
+    v = np.zeros(K, np.int64)
+    pk = np.zeros(K, np.int64)
+    live = lengths > 0
+    v[starts[live]] = v_g[live]
+    pk[starts[live]] = pk_g[live]
+    # each word holds until the next run's first slot
+    idx = np.maximum.accumulate(np.where(np.isin(np.arange(K), starts[live]),
+                                         np.arange(K), 0))
+    v, pk = v[idx], pk[idx]
+    dv = np.diff(v, prepend=0).astype(np.int32)
+    dpk = np.diff(pk, prepend=0).astype(np.int32)
+    assert (dpk < 0).any()
+    kw = dict(grid_x=grid_x, num_tiles=grid_x * grid_y, rank_bits=17, b=b)
+    return dv, dpk, int(ends[-1]), kw
+
+
+@pytest.mark.parametrize("K", [1 << 20, (1 << 20) + 128, 128])
+@pytest.mark.parametrize("where", ["zero", "all", "mid-tile"])
+def test_binning_scan_single_pass_is_bit_exact(dev, K, where):
+    """K4's single pass with its decoupled look-back: bit-exact against the
+    plain version on bin_rows-like signed deltas, at K a whole number of
+    4096-slot tiles, with a partial last tile and below one tile, for
+    total 0, K and one in the middle of a tile; one launch a call."""
+    dv, dpk, used, kw = bin_deltas(K, seed=K + len(where))
+    total = {"zero": 0, "all": K, "mid-tile": min(used, K // 2 + 1234 % (K // 2))}[where]
+    dv, dpk = torch.as_tensor(dv, device=dev), torch.as_tensor(dpk, device=dev)
+    tot = torch.tensor(total, dtype=torch.int32, device=dev)
+    before = binning_scan.fused_bin_scans.launches
+    got = binning_scan.fused_bin_scans(dv, dpk, tot, **kw)
+    again = binning_scan.fused_bin_scans(dv, dpk, tot, **kw)
+    torch.cuda.synchronize()
+    assert binning_scan.fused_bin_scans.launches == before + 2
+    want = binning_scan.fused_bin_scans_plain(dv, dpk, tot, **kw)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    # the kernel leaves its tile counter and published words zeroed
+    assert not bool(cuda_lib.zeroed("binning_scan", 0, dv).any())
 
 
 @pytest.mark.parametrize("gy,gx,C", [(35, 51, 24), (3, 11, 5)])
@@ -184,6 +245,102 @@ def test_segment_sum_kernel_matches_plain(dev, S, F):
     assert float(got[torch.as_tensor(lengths == 0, device=dev)].abs().max()) == 0.0
 
 
+CHUNK = 256      # the edge cases put segment bounds on multiples of this many rows
+LONG = 64        # csrc/segment_sum.cu: a longer segment is summed by its CTA's eight warps
+K3_REL = 1e-6
+
+
+def segment_case(case, seed=0):
+    """(lengths, gaps, rows past the last end) of a CSR case for K3."""
+    rng = np.random.default_rng(seed)
+    if case == "long":            # one segment of > 100k rows (>= 3 x CHUNK), among short ones
+        lengths = rng.integers(0, 20, 3000)
+        lengths[1500] = 100_003
+        return lengths, np.zeros_like(lengths), 77
+    if case == "chunk-edges":     # segments starting and ending on multiples of CHUNK
+        lengths = np.array([CHUNK, CHUNK, 0, 3 * CHUNK, 5, CHUNK - 5, 0, 0, CHUNK, 2 * CHUNK])
+        return lengths, np.zeros_like(lengths), 0
+    if case == "long-edges":      # lengths about the CTA-shared threshold, in one CTA and across
+        lengths = np.array([LONG, LONG + 1, LONG - 1, 1, 2 * LONG, 0, LONG + 7, 3,
+                            LONG + 1, LONG + 1, 8 * LONG + 5, 0, 9, LONG, 1000, 2])
+        return lengths, np.zeros_like(lengths), 5
+    if case == "empties":         # empty segments first, last and in runs
+        lengths = rng.integers(1, 30, 2000)
+        lengths[:7] = 0
+        lengths[-9:] = 0
+        lengths[rng.integers(0, 2000, 600)] = 0
+        lengths[800:900] = 0
+        return lengths, np.zeros_like(lengths), 13
+    if case == "gaps":            # rows between segments and past the last end
+        lengths = rng.integers(0, 60, 3000)
+        lengths[100] = 900
+        return lengths, rng.integers(0, 5, 3000), 3 * CHUNK + 17
+    if case == "single":          # S = 1
+        return np.array([5 * CHUNK + 3]), np.array([11]), 0
+    if case == "ragged":          # R not a multiple of the chunk
+        lengths = rng.integers(0, 12, 5000)
+        return lengths, np.zeros_like(lengths), 7
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("gathered", [False, True])
+@pytest.mark.parametrize("F", [1, 3, 26, 32])
+@pytest.mark.parametrize("case", ["long", "chunk-edges", "long-edges", "empties", "gaps",
+                                  "single", "ragged"])
+def test_segment_sum_kernel_on_chunk_cases(dev, case, F, gathered):
+    """K3 (and its gathered entry, through a random permutation) against
+    the plain version within K3_REL of the largest output, bit-identical on
+    a rerun, one launch a call; rows outside every segment hold NaN and must
+    not reach any output, empty segments give exact zeros."""
+    lengths, gaps, past = segment_case(case, seed=F)
+    starts = np.cumsum(gaps + np.concatenate([[0], lengths[:-1]]))
+    ends = (starts + lengths).astype(np.int32)
+    starts = starts.astype(np.int32)
+    R = int(ends[-1]) + past
+    if case == "ragged":
+        assert R % CHUNK
+    rng = np.random.default_rng(F + 100)
+    rows = rng.normal(size=(R, F)).astype(np.float32)
+    covered = np.zeros(R, bool)
+    for a, b in zip(starts, ends):
+        covered[a:b] = True
+    clean = torch.as_tensor(np.where(covered[:, None], rows, 0.0).astype(np.float32), device=dev)
+    poisoned = torch.as_tensor(np.where(covered[:, None], rows, np.nan).astype(np.float32),
+                               device=dev)
+    st, en = torch.as_tensor(starts, device=dev), torch.as_tensor(ends, device=dev)
+    want = segment_sum.segment_sum_rows_plain(clean, st, en)
+    before = segment_sum.segment_sum_rows.launches
+    if gathered:
+        perm = torch.as_tensor(rng.permutation(R).astype(np.int32), device=dev)
+        src = torch.empty_like(poisoned)
+        src[perm.long()] = poisoned                  # src[perm] holds the rows in order
+        def run():
+            return segment_sum.segment_sum_rows_gathered(src, perm, st, en)
+    else:
+        def run():
+            return segment_sum.segment_sum_rows(poisoned, st, en)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert segment_sum.segment_sum_rows.launches == before + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)                   # no atomics: bit-identical
+    assert float((got - want).abs().max()) <= K3_REL * float(want.abs().max())
+    empty = torch.as_tensor(lengths == 0, device=dev)
+    assert bool((got[empty] == 0).all())
+
+
+def test_segment_sum_kernel_takes_overlapping_segments(dev):
+    """Monotone bounds whose segments overlap (each segment is summed on
+    its own): short and long ones, against the plain version."""
+    starts = torch.tensor([0, 10, 40, 60, 300], dtype=torch.int32, device=dev)
+    ends = torch.tensor([30, 50, 600, 600, 700], dtype=torch.int32, device=dev)
+    rows = torch.randn(800, 5, device=dev)
+    got = segment_sum.segment_sum_rows(rows, starts, ends)
+    want = segment_sum.segment_sum_rows_plain(rows, starts, ends)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= K3_REL * float(want.abs().max())
+
+
 @pytest.mark.parametrize("w,h,n,chunk,grow,dead", [
     (48, 40, 300, 32, 1.0, False), (200, 136, 3000, 128, 1.0, False),
     # ~2500 pairs a tile against a cap of 4 * 512: rows past the cap are dead
@@ -244,7 +401,7 @@ def test_packed_segment_sum_is_the_k3_kernel(dev):
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
-def knn_graph_case(dev, C, K, spatial, caps, seed=0, hub=False):
+def knn_graph_case(dev, C, K, spatial, caps, seed=0, hub=False, E=32):
     """A KNN graph on the card: neighbours by position (the trainer's kind)
     or at random (no locality: the far and spill lists fill up); with `hub`,
     every row's slot 0 points at Gaussian 0."""
@@ -262,7 +419,7 @@ def knn_graph_case(dev, C, K, spatial, caps, seed=0, hub=False):
     w = w * mask[:, None]
     coef = mask.float() / (mask.sum() * K)
     graph = knn_loss.prepare_knn_graph(idx, w, coef, pts, pts_valid=mask, **caps)
-    emb = torch.randn(C, 32, device=dev, generator=g) * 0.3
+    emb = torch.randn(C, E, device=dev, generator=g) * 0.3
     return graph, emb
 
 
@@ -298,9 +455,11 @@ def test_knn_loss_kernels_on_edge_cases(dev, case):
 
 
 def test_knn_loss_kernels_refuse_shapes_they_do_not_take(dev):
-    """Tables other than 32 wide, slot counts past 32, a rank count that is
-    not a multiple of the CTA's 128 rows and a table off 16-byte alignment
-    raise ValueError before any launch."""
+    """Tables other than 32 wide (a narrower embedding reaches the kernels
+    zero-padded by rank_table: test_knn_loss_kernels_take_narrow_tables),
+    slot counts past 32, a rank count that is not a multiple of the CTA's
+    128 rows and a table off 16-byte alignment raise ValueError before any
+    launch; so does the loss of an embedding wider than 32."""
     def args(Cp, E, K):
         return (torch.zeros(Cp, E, device=dev), torch.zeros(Cp, K, dtype=torch.int32, device=dev),
                 torch.zeros(Cp, K, device=dev), torch.zeros(Cp, device=dev))
@@ -320,7 +479,22 @@ def test_knn_loss_kernels_refuse_shapes_they_do_not_take(dev):
         knn_loss.knn_rows(shifted, nbr, w, coef)
     with pytest.raises(ValueError):
         knn_loss.knn_reverse(emb_r, w, shifted, rev_ptr, rev_pair)
+    # the trainer's path refuses an embedding wider than 32 on the card
+    graph, emb = knn_graph_case(dev, 1000, 5, True, {}, E=40)
+    with pytest.raises(ValueError):
+        knn_loss.knn_loss_fused(emb, graph, 5)
     assert (knn_loss.knn_rows.launches, knn_loss.knn_reverse.launches) == before
+
+
+@pytest.mark.parametrize("E", [16, 7, 1])
+def test_knn_loss_kernels_take_narrow_tables(dev, E):
+    """An embedding narrower than 32 runs through the 32-wide kernels
+    zero-padded by `rank_table` (as the autograd Function's gather builds
+    it) and matches the plain chain on the E-wide table as
+    check_knn_kernels holds the 32-wide one."""
+    graph, emb = knn_graph_case(dev, 2000, 20, True, dict(spill_a=1 << 12, spill_b=1 << 12),
+                                seed=4, E=E)
+    check_knn_kernels(graph, emb, 2000, 20)
 
 
 def check_knn_kernels(graph, emb, C, K):
@@ -328,8 +502,8 @@ def check_knn_kernels(graph, emb, C, K):
     relative, every row of dL/demb within 1e-5 of its largest value, two
     runs bit-identical, one launch each per run, and the autograd Function
     returns the same gradient."""
-    Cp = graph.pi.shape[0]
-    emb_r = torch.cat([emb, emb.new_zeros(Cp - C, 32)])[graph.pi].contiguous()
+    E = emb.shape[1]
+    emb_r = knn_loss.rank_table(emb, graph, knn_loss.KERNEL_E)   # zero columns past E
     before = (knn_loss.knn_rows.launches, knn_loss.knn_reverse.launches)
     loss, de, s = knn_loss.knn_rows(emb_r, graph.nbr, graph.w, graph.coef)
     out = knn_loss.knn_reverse(emb_r, s, de, graph.rev_ptr, graph.rev_pair)
@@ -339,16 +513,18 @@ def check_knn_kernels(graph, emb, C, K):
     assert (knn_loss.knn_rows.launches, knn_loss.knn_reverse.launches) == (
         before[0] + 2, before[1] + 2)
     assert torch.equal(loss, loss2) and torch.equal(out, out2)        # no atomics
-    loss_p, de_p, s_p = knn_loss.knn_rows_plain(emb_r, graph.nbr, graph.w, graph.coef)
-    out_p = knn_loss.knn_reverse_plain(emb_r, s_p, de_p, graph.rev_ptr, graph.rev_pair)
+    # the plain chain on the E-wide table
+    emb_p = knn_loss.rank_table(emb, graph, E)
+    loss_p, de_p, s_p = knn_loss.knn_rows_plain(emb_p, graph.nbr, graph.w, graph.coef)
+    out_p = knn_loss.knn_reverse_plain(emb_p, s_p, de_p, graph.rev_ptr, graph.rev_pair)
     assert abs(float(loss) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
-    assert torch.isfinite(out).all()
+    assert torch.isfinite(out).all() and bool((out[:, E:] == 0).all())
     row_max = out_p.abs().amax(dim=1)
-    assert bool(((out - out_p).abs().amax(dim=1) <= 1e-5 * row_max).all())
+    assert bool(((out[:, :E] - out_p).abs().amax(dim=1) <= 1e-5 * row_max).all())
     # through the autograd Function: the same gradient
     e = emb.clone().requires_grad_(True)
     (g,) = torch.autograd.grad(knn_loss.knn_loss_fused(e, graph, K), e)
-    assert torch.equal(g, out[graph.inv[:C]])
+    assert torch.equal(g, out[graph.inv[:C], :E])
 
 
 def pair_rows(rng, centers, conics, opacity):

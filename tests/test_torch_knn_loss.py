@@ -32,6 +32,8 @@ CASES = {
     "oracle-50": (50, 5, 32, 50, False, False, {}),
     "oracle-300": (300, 20, 32, 300, False, False, {}),
     "oracle-128-e16": (128, 3, 16, 128, False, False, {}),
+    # a width that is no multiple of 4: the card pads it to the kernels' 32
+    "oracle-200-e7": (200, 4, 7, 200, False, False, {}),
     "oracle-1200-spatial": (1200, 8, 32, 1200, True, False, {}),
     "identity-order": (260, 6, 32, 9, False, True, {}),
 }
@@ -192,3 +194,35 @@ def test_reverse_adjacency_holds_exactly_the_weighted_edges():
     full = tkl.knn_reverse_plain(emb_r, s, de, every_ptr.to(torch.int32), every.to(torch.int32))
     kept = tkl.knn_reverse_plain(emb_r, s, de, graph.rev_ptr, graph.rev_pair)
     assert torch.equal(full, kept)
+
+
+@pytest.mark.parametrize("E", [8, 20, 31])
+def test_zero_padded_table_gives_the_unpadded_chain(E):
+    """The card runs an E-wide table through the 32-wide kernels zero-padded
+    by `rank_table`. On the plain chain (K6 -> K7) the padded table gives
+    the unpadded one's loss, s and dL/de, and exact zeros in the padded
+    columns. Bound: rtol 1e-4 (the plain versions' own bound against JAX):
+    torch.sum over 32 columns may add in another order than over E, the
+    zero columns add exactly 0."""
+    rng = np.random.default_rng(E)
+    C, K = 700, 6
+    pts = torch.as_tensor(rng.uniform(-1, 1, (C, 3)).astype(np.float32))
+    idx = torch.as_tensor(rng.integers(0, C, (C, K)))
+    w = torch.as_tensor(rng.uniform(0, 1, (C, K)).astype(np.float32))
+    mask = rng.uniform(size=C) > 0.2
+    coef = torch.as_tensor((mask / (mask.sum() * K)).astype(np.float32))
+    graph = tkl.prepare_knn_graph(idx, w * torch.as_tensor(mask)[:, None], coef, pts)
+    emb = torch.as_tensor(rng.normal(0, 0.3, (C, E)).astype(np.float32))
+
+    def chain(width):
+        emb_r = tkl.rank_table(emb, graph, width)
+        assert emb_r.shape == (graph.pi.shape[0], width)
+        loss, de, s = tkl.knn_rows_plain(emb_r, graph.nbr, graph.w, graph.coef)
+        return loss, s, tkl.knn_reverse_plain(emb_r, s, de, graph.rev_ptr, graph.rev_pair)
+
+    loss, s, grad = chain(E)
+    loss_p, s_p, grad_p = chain(tkl.KERNEL_E)
+    assert float(loss_p) == pytest.approx(float(loss), rel=1e-4)
+    np.testing.assert_allclose(s_p.numpy(), s.numpy(), rtol=1e-4, atol=0)
+    np.testing.assert_allclose(grad_p[:, :E].numpy(), grad.numpy(), rtol=1e-4, atol=1e-9)
+    assert bool((grad_p[:, E:] == 0).all())

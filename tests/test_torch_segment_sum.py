@@ -1,6 +1,7 @@
-"""The plain versions of kernels K3 and K8 (ed3dgs_torch.ops.segment_sum on
-CPU tensors) against the Pallas segment-sum kernels in interpret mode, on CSR
-bounds with empty segments, gaps and a long segment. Bound: 1e-6 of the
+"""The plain versions of kernels K3 (and its gathered entry) and K8
+(ed3dgs_torch.ops.segment_sum on CPU tensors) against the Pallas segment-sum
+kernels in interpret mode, on CSR bounds with empty segments, gaps and a
+long segment. Bound: 1e-6 of the
 largest output value (the TPU kernels sum float32 rows by HIGHEST-precision
 matmuls, the port differences float64 prefix sums)."""
 
@@ -57,6 +58,25 @@ def test_packed_segment_sum_matches_pallas_interpret(S, F, empty_frac):
                                            jnp.asarray(ends), chunk=64, interpret=True))
     got = segment_sum.segment_sum_rows_packed(torch.as_tensor(rows), torch.as_tensor(starts),
                                               torch.as_tensor(ends))
+    assert got.shape == (S, F)
+    assert np.abs(got.numpy() - want).max() <= REL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("S,F,empty_frac", [(300, 26, 0.3), (64, 7, 0.5)])
+def test_gathered_segment_sum_matches_pallas_interpret(S, F, empty_frac):
+    """The gathered entry (rows read through an index, as the rasterizer's
+    gradient calls it) against the Pallas kernel on the gathered rows, with
+    a random permutation as the index."""
+    R = 16384
+    starts, ends = csr(S + 2, S, R, empty_frac)
+    rng = np.random.default_rng(F + 2)
+    src = rng.normal(size=(R, F)).astype(np.float32)
+    idx = rng.permutation(R).astype(np.int32)
+    padded = jnp.pad(jnp.asarray(src[idx]), ((0, 0), (0, 128 - F)))
+    want = np.asarray(j_segment_sum(padded, jnp.asarray(starts), jnp.asarray(ends),
+                                    interpret=True))[:, :F]
+    got = segment_sum.segment_sum_rows_gathered(torch.as_tensor(src), torch.as_tensor(idx),
+                                                torch.as_tensor(starts), torch.as_tensor(ends))
     assert got.shape == (S, F)
     assert np.abs(got.numpy() - want).max() <= REL * np.abs(want).max()
 
