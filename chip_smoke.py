@@ -61,13 +61,32 @@ chunk 128):
    step's loss and gradients at reg_coef 1 (float32 activations, each
    device building its own KNN cache) at the config's 32-d Gaussian
    embedding and again at 16-d (the KNN kernels run it zero-padded), one
-   `densify` with the same injected draws, and `create_from_points`.
+   `densify` with the same injected draws, and `create_from_points`;
+6. the `cli` phase: `ed3dgs_torch.data.synthetic.generate_scene` on the card
+   (802x550, 4 cameras with cam00 held out, 8 frames, 20,000 points; K1
+   renders the frames) into a temporary directory, then
+   `ed3dgs_torch.tools.train.main` in-process at the full width of
+   configs/nersemble/default.py for 300 iterations (CLI_SET overrides only
+   schedule keys), with a checkpoint at 150, the model saved at 300, a test
+   PSNR every 100 and densify events at 150, 200, 250; every count is set
+   to 0 just before and K1-K7 must each have launched. Then it resumes
+   from the checkpoint for 20 iterations (the state it loads must equal
+   the file's arrays bit for bit) and reloads the saved model through
+   `convert.load_model` (its render must equal the in-memory state's bit
+   for bit). It prints a `cli` JSON line: iterations, wall seconds, median
+   wall ms per iteration against the bare step's ms of phase 3, image
+   decode ms per frame and the stager's wait ms per iteration, the loss
+   and train PSNR of the first and last 100-iteration windows, the test
+   PSNRs, alive points at start and end, densify events, pair-capacity
+   changes and the phase's launches. It fails on a kernel that did not
+   launch, a loss that is not finite, a last window whose train PSNR is
+   not above the first's, or a resumed or reloaded state that differs.
 
 Weights are random, from numpy seeds; so are the training targets. Results go
 to DIR/chip_smoke.json (default smoke_out/ in the checkout), with the
-profiles and nvcc's register report beside it. The last three lines of
-standard output are the card as nvidia-smi names it, the kernels' JSON line
-and the result line. Any failure exits non-zero before the result line.
+profiles and nvcc's register report beside it. The last four lines of
+standard output are the `cli` JSON line, the card as nvidia-smi names it,
+the kernels' JSON line and the result line. Any failure exits non-zero before the result line.
 Needs one CUDA device; refuses to run without one.
 """
 
@@ -154,6 +173,18 @@ SMALL_CAP = 5120
 # the loss within SMALL_LOSS_REL, and every gradient leaf within
 # SMALL_GRAD_REL of that leaf's largest value.
 SMALL_LOSS_REL, SMALL_GRAD_REL = 1e-5, 1e-3
+# The cli phase: `python -m ed3dgs_torch.tools.train` in-process on a
+# generated 802x550 scene (4 cameras, cam00 held out, 8 frames) at the full
+# width of configs/nersemble/default.py. Only schedule keys are overridden:
+# the deformation from iteration 50 (not 5000), densification every 50
+# iterations from 100 to 260 (events at 150, 200, 250), the depth-normal
+# term from iteration 0, and 4..8 temporal embeddings for 8 frames.
+CLI_POINTS, CLI_CAMS, CLI_FRAMES = 20_000, 4, 8
+CLI_ITERS, CLI_CKPT, CLI_RESUME, CLI_TEST_EVERY = 300, 150, 20, 100
+CLI_SET = ["deform_from_iter=50", "densify_from_iter=100", "densify_until_iter=260",
+           "densification_interval=50", "radegs_regularization_from_iter=0",
+           "min_embeddings=4", "max_embeddings=8"]
+CLI_WINDOW = 100             # iterations a loss / PSNR window averages
 
 KERNELS = {
     "K1": dict(name="forward_blend", route="cuda",
@@ -351,8 +382,8 @@ def print_profile(what, wall_ms, busy_ms, items, stages):
 
 def train_setup(cfg, rcfg):
     """The nersemble config's TrainSetup, as the JAX package's tools/train.py
-    builds it (the tongue terms are off in the config; COLMAP supervision
-    is not ported yet)."""
+    builds it (the tongue terms and COLMAP supervision are off in the
+    config)."""
     from ed3dgs_torch.train.trainer import TrainSetup
     model, hidden, opt = cfg.model, cfg.hidden, cfg.opt
     return TrainSetup(
@@ -379,6 +410,143 @@ def make_batch(torch, cam, B, t, use_ssim, seed, device):
             "time": torch.full((B,), t, dtype=torch.float32, device=device),
             "cam_no": torch.zeros((B,), dtype=torch.int64, device=device),
             "use_ssim": use_ssim}
+
+
+def cli_phase(torch, counters, bare_step_ms):
+    """The `cli` phase: generate the scene on the card, train through
+    `ed3dgs_torch.tools.train.main` (CLI_ITERS iterations, a checkpoint at
+    CLI_CKPT, the model saved at the end, a test PSNR every
+    CLI_TEST_EVERY), resume from the checkpoint for CLI_RESUME iterations,
+    and reload the saved model and render it against the in-memory state.
+    Returns the phase's numbers; fails the run on a kernel of K1-K7 that
+    did not launch, a loss that is not finite, a last window whose train
+    PSNR is not above the first's, a resumed state that is not the
+    checkpoint it read, or a reloaded render that is not bit-identical."""
+    import tempfile
+
+    from ed3dgs_torch import convert
+    from ed3dgs_torch.data.synthetic import generate_scene
+    from ed3dgs_torch.ops.rasterize import RasterConfig
+    from ed3dgs_torch.render import RenderSettings, render
+    from ed3dgs_torch.tools import train as train_tool
+
+    for fn in counters.values():
+        fn.launches = 0
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ed3dgs_cli_") as tmp:
+        scene_dir, model_dir = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        generate_scene(scene_dir, n_cams=CLI_CAMS, n_frames=CLI_FRAMES, width=WIDTH,
+                       height=HEIGHT, n_points=CLI_POINTS, seed=0, device=DEVICE)
+        out["scene_s"] = time.perf_counter() - t0
+        argv = ["-s", scene_dir, "-m", model_dir,
+                "--configs", os.path.join(REPO, "configs", "nersemble", "default.py"),
+                "--duration", str(CLI_FRAMES), "--test_every", str(CLI_TEST_EVERY),
+                "--quiet", "--seed", "0", "--device", DEVICE]
+        t0 = time.perf_counter()
+        scene, state, aux, log = train_tool.main(
+            argv + ["--iterations", str(CLI_ITERS), "--checkpoint_iterations", str(CLI_CKPT),
+                    "--set", *CLI_SET])
+        out["train_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {k: counters[k].launches for k in ("K1", "K2", "K3", "K4", "K5a", "K5b",
+                                                      "K6", "K7")}
+
+        # resume from the checkpoint: the state it loads is the file's
+        ckpt = os.path.join(model_dir, f"chkpnt{CLI_CKPT}.npz")
+        loaded = {}
+        orig_load = train_tool.load_checkpoint
+
+        def load_and_keep(*a, **kw):
+            res = orig_load(*a, **kw)
+            loaded["flat"] = convert.checkpoint_arrays(res[0], res[1])
+            loaded["next"] = res[2]
+            return res
+        train_tool.load_checkpoint = load_and_keep
+        try:
+            t0 = time.perf_counter()
+            _, _, _, rlog = train_tool.main(
+                [a.replace(model_dir, model_dir + "_resume") for a in argv]
+                + ["--iterations", str(CLI_CKPT + CLI_RESUME), "--start_checkpoint", ckpt,
+                   "--no_tensorboard", "--set", *CLI_SET])
+            out["resume_s"] = time.perf_counter() - t0
+        finally:
+            train_tool.load_checkpoint = orig_load
+        with np.load(ckpt) as data:
+            saved = {k: data[k] for k in data.files}
+        resume_same = (loaded.get("next") == CLI_CKPT + 1 and set(saved) == set(loaded["flat"])
+                       and all(np.array_equal(saved[k], loaded["flat"][k])
+                               and saved[k].dtype == loaded["flat"][k].dtype for k in saved))
+
+        # reload the saved model with the port's loader; render both
+        cap = state.params["gaussians"].xyz.shape[0]
+        cfg = train_tool.build_config(train_tool.parse_args(
+            argv + ["--iterations", str(CLI_ITERS), "--set", *CLI_SET]))
+        params2, aux2, deform2 = convert.load_model(model_dir, CLI_ITERS, capacity=cap,
+                                                    sh_degree=cfg.model.sh_degree, device=DEVICE)
+        test_cam = scene.test_cameras[0]
+        m = test_cam.matrices()
+        rcfg = RasterConfig(width=m.width, height=m.height, focal_x=m.focal_x, focal_y=m.focal_y,
+                            pair_capacity=PAIR_CAPACITY, chunk=cfg.opt.raster_chunk)
+        f32 = dict(dtype=torch.float32, device=DEVICE)
+        s = RenderSettings(torch.as_tensor(m.world_view, **f32),
+                           torch.as_tensor(m.full_proj, **f32), torch.as_tensor(m.campos, **f32),
+                           torch.tensor(0.5, **f32), torch.zeros((), dtype=torch.int64,
+                                                                   device=DEVICE))
+        bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0, **f32)
+        kw = dict(iteration=CLI_ITERS, sh_degree=cfg.model.sh_degree,
+                  kernel_size=cfg.model.kernel_size, disable_filter3d=cfg.model.disable_filter3D,
+                  num_down_emb_c=cfg.hidden.min_embeddings,
+                  num_down_emb_f=cfg.hidden.min_embeddings)
+        with torch.no_grad():
+            r_mem = render(state.params["gaussians"], aux, state.params["deform"], cfg.hidden, s,
+                           rcfg, bg, **kw)
+            r_disk = render(params2, aux2, deform2, cfg.hidden, s, rcfg, bg, **kw)
+        reload_same = all(torch.equal(r_mem[k], r_disk[k])
+                          for k in ("render", "mask", "expected_depth", "median_depth",
+                                    "expected_coord", "median_coord", "normal"))
+        alive_same = int(aux2.alive.sum()) == int(aux.alive.sum())
+    out["wall_s"] = time.perf_counter() - t_phase
+
+    n = len(log["iter_ms"])
+    first = slice(0, CLI_WINDOW)
+    last = slice(n - CLI_WINDOW, n)
+    mean = lambda xs: float(np.mean(xs))  # noqa: E731
+    decode = log["decode_ms"] + rlog["decode_ms"]
+    waits = log["wait_ms"]
+    out.update(
+        iterations=n, resumed_iterations=len(rlog["iter_ms"]),
+        loop_s=float(np.sum(log["iter_ms"]) / 1e3),
+        median_iter_ms=float(np.median(log["iter_ms"])),
+        bare_step_ms=float(np.median(bare_step_ms)),
+        decode_ms_per_frame=float(np.median(decode)) if decode else None,
+        stager_wait_ms_per_iter=float(np.sum(waits) / n),
+        loss_first=mean(log["loss"][first]), loss_last=mean(log["loss"][last]),
+        psnr_first=mean(log["psnr"][first]), psnr_last=mean(log["psnr"][last]),
+        test_psnr=[(int(i), float(v)) for i, v in log["test_psnr"]],
+        points_start=log["points_start"], points_end=log["points_end"],
+        densify_events=len(log["densify"]), densify=log["densify"],
+        capacity_changes=len(log["capacity"]), capacity=log["capacity"],
+        resume_loss_last=float(rlog["loss"][-1]) if rlog["loss"] else None,
+        resume_same=bool(resume_same), reload_render_identical=bool(reload_same),
+        launches=launches)
+    print("cli: " + ", ".join(f"{k}={v}" for k, v in out.items() if k not in ("densify",)),
+          flush=True)
+    bad = [k for k, v in launches.items() if v == 0]
+    if bad:
+        fail(f"cli: kernels {bad} did not launch during the phase")
+    if not all(math.isfinite(x) for x in log["loss"] + rlog["loss"]):
+        fail("cli: a loss is not finite")
+    if not out["psnr_last"] > out["psnr_first"]:
+        fail(f"cli: train PSNR did not rise ({out['psnr_first']:.3f} -> {out['psnr_last']:.3f})")
+    if len(log["densify"]) < 2 or not log["test_psnr"]:
+        fail("cli: the run needs two densify events and a test PSNR")
+    if not resume_same:
+        fail("cli: the resumed state differs from the checkpoint it read")
+    if not (reload_same and alive_same):
+        fail("cli: the reloaded model does not render bit-identically to the in-memory state")
+    return out
 
 
 def main():
@@ -1225,6 +1393,9 @@ def main():
     result["small_densify"] = dict(n_cloned=int(dh.n_cloned), n_split=int(dh.n_split),
                                    param_rel=dens_err, create_rel=made_err)
 
+    # ---- 6. the training CLI on a scene on disk --------------------------
+    result["cli"] = cli_phase(torch, counters, result["train_step_ms"])
+
     order = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "K8")
     kernel_rows = [dict(rows[k], launches=train_launches[k]) for k in order]
     result["kernels"] = kernel_rows
@@ -1232,6 +1403,11 @@ def main():
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(f"total {result['total_s']:.1f} s", flush=True)
+    cli_keys = ("iterations", "wall_s", "median_iter_ms", "bare_step_ms", "decode_ms_per_frame",
+                "stager_wait_ms_per_iter", "loss_first", "loss_last", "psnr_first", "psnr_last",
+                "test_psnr", "points_start", "points_end", "densify_events", "capacity_changes",
+                "launches")
+    print(json.dumps({"cli": {k: result["cli"][k] for k in cli_keys}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-"""Weights across: the JAX package's parameters and checkpoints -> the port's
-tensors.
+"""Weights across: the JAX package's parameters and checkpoints <-> the
+port's tensors.
 
 The JAX package keeps the Gaussian cloud as `GaussianParams`/`GaussianAux`
 NamedTuples and the deformation network as a nested dict pytree, saved as
@@ -9,7 +9,9 @@ and its whole training state as `chkpnt<N>.npz` (`save_checkpoint`,
 ed3dgs_tpu/tools/train.py:616-623): "params/...", the optax state
 "opt_state/inner_states/<group>/inner_state/0/{count,mu/...,nu/...}" and
 "aux/...". Everything here takes numpy arrays or files, so it needs neither
-JAX nor the JAX package.
+JAX nor the JAX package. `checkpoint_arrays` writes the port's training
+state back in that layout, so either package resumes the other's
+checkpoints.
 """
 
 from __future__ import annotations
@@ -63,16 +65,16 @@ def deform_from_flat(flat: Mapping[str, np.ndarray], device="cuda"):
 
 def load_model(model_dir: str, iteration: int, *, capacity=None, sh_degree: int = 3,
                device="cuda"):
-    """Read a model the JAX package saved (`Scene.save`):
+    """Read a model either package saved (`Scene.save`):
     <model_dir>/point_cloud/iteration_<iteration>/{point_cloud.ply,
     deformation.npz}. Returns (params, aux, deform_params)."""
+    from .data.scene import read_deformation
+
     dev = resolve_device(device)
     it_dir = os.path.join(model_dir, "point_cloud", f"iteration_{iteration}")
     params, aux = gm.load_ply(os.path.join(it_dir, "point_cloud.ply"),
                               capacity=capacity, sh_degree=sh_degree, device=dev)
-    with np.load(os.path.join(it_dir, "deformation.npz")) as data:
-        flat = {k: data[k] for k in data.files}
-    return params, aux, deform_from_flat(flat, device=dev)
+    return params, aux, deform_from_flat(read_deformation(it_dir), device=dev)
 
 
 def load_checkpoint(path: str, device="cuda"):
@@ -99,3 +101,30 @@ def load_checkpoint(path: str, device="cuda"):
                                  tensors(adam + "nu/"))
     aux = gm.GaussianAux(**tensors("aux/"))
     return TrainState(params, opt_state, iteration), aux
+
+
+# optax keeps a second count (scale_by_schedule's) in the groups whose
+# learning rate follows a schedule; both counts rise with every update
+SCHEDULED_GROUPS = ("xyz", "deformation")
+
+
+def checkpoint_arrays(state, aux) -> dict:
+    """The JAX package's `chkpnt<N>.npz` arrays of a port TrainState and
+    GaussianAux: {"iteration": int64, "params/...", the optax state
+    "opt_state/inner_states/<group>/inner_state/0/{count (int32), mu/...,
+    nu/...}" (and ".../inner_state/1/count" for the scheduled groups),
+    "aux/..."}."""
+    from .data.scene import flatten_pytree
+    from .train.optim import flatten_params
+
+    flat = {"iteration": np.asarray(int(state.iteration), np.int64)}
+    flat.update({f"params/{k}": v for k, v in flatten_pytree(flatten_params(state.params)).items()})
+    for g, st in state.opt_state.items():
+        adam = f"opt_state/inner_states/{g}/inner_state/"
+        flat[adam + "0/count"] = np.asarray(st.count, np.int32)
+        flat.update({f"{adam}0/mu/{k}": v for k, v in flatten_pytree(st.mu).items()})
+        flat.update({f"{adam}0/nu/{k}": v for k, v in flatten_pytree(st.nu).items()})
+        if g in SCHEDULED_GROUPS:
+            flat[adam + "1/count"] = np.asarray(st.count, np.int32)
+    flat.update({f"aux/{k}": v for k, v in flatten_pytree(aux._asdict()).items()})
+    return flat

@@ -23,6 +23,10 @@ def fov2focal(fov: float, pixels: int) -> float:
     return pixels / (2.0 * math.tan(fov / 2.0))
 
 
+def focal2fov(focal: float, pixels: int) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
 def world_to_view(R: np.ndarray, t: np.ndarray, translate=(0.0, 0.0, 0.0),
                   scale: float = 1.0) -> np.ndarray:
     """World->view 4x4. `R` is the cam->world rotation (COLMAP loaders), so

@@ -45,6 +45,14 @@
 //     its busiest group: the graph leaves out edges that add exactly 0, so
 //     the dead slots' hub ranks (ops/knn_loss.py) no longer hold a warp.
 //
+// A wider embedding (E = 32 * ns, the wrapper zero-pads any E > 32 to the
+// next multiple of 32) runs in 32-column slabs. K7 is linear in s, so each
+// slab is one more CTA row of the same kernel (blockIdx.y picks the slab).
+// K6 needs each edge's whole d2 before it can form v and s: `knn_rows_wide`
+// first walks a row's slots over every slab for d2, v, the loss term and
+// s (kept in the shared s tile), then forms dL/de_i slab by slab. The
+// E = 32 kernels are unchanged.
+//
 // Every sum has a fixed order and nothing is accumulated by atomics, so two
 // runs on the same inputs are bit-identical. Built with -fmad=false and
 // IEEE sqrtf and division (no fast math), so each row's terms are the plain
@@ -178,6 +186,100 @@ knn_rows(const float* __restrict__ emb, const int* __restrict__ nbr,
   }
 }
 
+// K6 at E = 32 * ns: the same CTA, lanes and tiles as knn_rows, in two
+// passes over each row's slots (the first for d2 over every slab, v, the
+// loss term and s; the second for dL/de_i, one slab at a time)
+__global__ void __launch_bounds__(THREADS, 2)
+knn_rows_wide(const float* __restrict__ emb, const int* __restrict__ nbr,
+              const float* __restrict__ w, const float* __restrict__ coef,
+              float* __restrict__ de, float* __restrict__ s_out,
+              float* __restrict__ partials, int K, int ns) {
+  constexpr int L = L6, V = Q / L, GROUPS = THREADS / L;
+  extern __shared__ int tiles[];
+  __shared__ float row_loss[R6];
+  const int kp = slot_stride(K);
+  int* nbr_t = tiles;
+  float* w_t = reinterpret_cast<float*>(tiles + R6 * kp);
+  float* s_t = w_t + R6 * kp;
+  const long rq = (long)ns * Q;                 // float4 per row
+  const float4* emb4 = reinterpret_cast<const float4*>(emb);
+  const int r0 = blockIdx.x * R6;
+  const long e0 = (long)r0 * K;
+  for (int e = threadIdx.x; e < R6 * K; e += THREADS) {
+    const int at = (e / K) * kp + e % K;
+    nbr_t[at] = nbr[e0 + e];
+    w_t[at] = w[e0 + e];
+  }
+  __syncthreads();
+
+  const int sub = threadIdx.x & (L - 1);
+  for (int rr = threadIdx.x / L; rr < R6; rr += GROUPS) {
+    const int r = r0 + rr;
+    const int* jr = nbr_t + rr * kp;
+    const float* wr = w_t + rr * kp;
+    float* sr = s_t + rr * kp;
+    const float cf = coef[r];
+    const float4* ei = emb4 + r * rq + sub;
+    float lsum = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float4* ej = emb4 + jr[k] * rq + sub;
+      float d2 = 0.f;
+      for (int b = 0; b < ns; ++b) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float4 a = ei[b * Q + L * v], c = ej[b * Q + L * v];
+          const float dx = a.x - c.x, dy = a.y - c.y, dz = a.z - c.z, dw = a.w - c.w;
+          d2 = d2 + dx * dx;
+          d2 = d2 + dy * dy;
+          d2 = d2 + dz * dz;
+          d2 = d2 + dw * dw;
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < L; o <<= 1) d2 += __shfl_xor_sync(FULL, d2, o);
+      const float wk = wr[k];
+      const float vk = sqrtf(d2 * wk + EPS);
+      lsum += cf * vk;
+      if (sub == 0) sr[k] = cf * wk / vk;
+    }
+    __syncwarp();                               // the group's s are in the tile
+    for (int b = 0; b < ns; ++b) {
+      float4 a[V], acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        a[v] = ei[b * Q + L * v];
+        acc[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      for (int k = 0; k < K; ++k) {
+        const float sk = sr[k];
+        const float4* ej = emb4 + jr[k] * rq + sub;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float4 c = ej[b * Q + L * v];
+          acc[v].x += sk * (a[v].x - c.x);
+          acc[v].y += sk * (a[v].y - c.y);
+          acc[v].z += sk * (a[v].z - c.z);
+          acc[v].w += sk * (a[v].w - c.w);
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        reinterpret_cast<float4*>(de)[r * rq + b * Q + sub + L * v] = acc[v];
+    }
+    if (sub == 0) row_loss[rr] = lsum;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < R6 * K; e += THREADS) s_out[e0 + e] = s_t[(e / K) * kp + e % K];
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float p = 0.f;
+#pragma unroll
+    for (int q = 0; q < R6 / 32; ++q) p += row_loss[lane * (R6 / 32) + q];
+    for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(FULL, p, o);
+    if (lane == 0) partials[blockIdx.x] = p;
+  }
+}
+
 // acc += (double)(ns * (ei - ej)), component by component; ns = -s, so each
 // term is the plain version's -(s * (e_i - e_j)) exactly
 __device__ __forceinline__ void add_term(double (&acc)[4], float ns, float4 ei, float4 ej) {
@@ -187,17 +289,22 @@ __device__ __forceinline__ void add_term(double (&acc)[4], float ns, float4 ei, 
   acc[3] += (double)(ns * (ei.w - ej.w));
 }
 
+// WIDE: rows of ns slabs (E = 32 * ns), the slab blockIdx.y; otherwise one
+// 32-wide slab, and the code of the E = 32 kernel
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS, K7_CTAS)
 knn_reverse(const float* __restrict__ emb, const float* __restrict__ s,
             const float* __restrict__ de, const int* __restrict__ rev_ptr,
-            const int* __restrict__ rev_pair, float* __restrict__ out, int K) {
+            const int* __restrict__ rev_pair, float* __restrict__ out, int K, int ns) {
   constexpr int L = L7, GROUPS = THREADS / L, JPG = R7 / GROUPS;
   static_assert(L == Q, "one float4 of a row per lane");
   __shared__ int2 edge[CHUNK];   // a chunk of in-edges: (source rank, bits of -s)
   const float4* emb4 = reinterpret_cast<const float4*>(emb);
   const int r0 = blockIdx.x * R7;
   const int sub = threadIdx.x & (L - 1);
-  auto row = [&](int j) { return emb4[(long)j * Q + sub]; };
+  const long rq = WIDE ? (long)ns * Q : Q;      // float4 per row
+  const int col = (WIDE ? blockIdx.y * Q : 0) + sub;
+  auto row = [&](int j) { return emb4[(long)j * rq + col]; };
 
   // group g owns ranks r0 + g + q * GROUPS; their in-edges are rev_pair
   // [p0[q], p1[q]), all inside the CTA's range [P0, P1)
@@ -257,8 +364,8 @@ knn_reverse(const float* __restrict__ emb, const float* __restrict__ s,
 #pragma unroll
   for (int q = 0; q < JPG; ++q) {
     const long j = r0 + g + q * GROUPS;
-    const float4 d = reinterpret_cast<const float4*>(de)[j * Q + sub];
-    reinterpret_cast<float4*>(out)[j * Q + sub] =
+    const float4 d = reinterpret_cast<const float4*>(de)[j * rq + col];
+    reinterpret_cast<float4*>(out)[j * rq + col] =
         make_float4(d.x + (float)acc[q][0], d.y + (float)acc[q][1], d.z + (float)acc[q][2],
                     d.w + (float)acc[q][3]);
   }
@@ -267,25 +374,30 @@ knn_reverse(const float* __restrict__ emb, const float* __restrict__ s,
 constexpr int MAX_DEVICES = 64;
 int rows_ready[MAX_DEVICES];      // K6's shared-memory limit is raised on device d
 
-// Allow K6 the slot tiles at the largest K (over the 48 KB default) and ask
-// for the largest shared-memory carveout: once per device.
+// Allow both K6 kernels the slot tiles at the largest K (over the 48 KB
+// default) and ask for the largest shared-memory carveout: once per device.
 cudaError_t allow_rows() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < MAX_DEVICES && rows_ready[dev])) return err;
-  err = cudaFuncSetAttribute((const void*)knn_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             rows_smem(MAX_K));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute((const void*)knn_rows,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  const void* rows_kernels[] = {(const void*)knn_rows, (const void*)knn_rows_wide};
+  for (const void* fn : rows_kernels) {
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 rows_smem(MAX_K));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+  }
   if (err == cudaSuccess && dev < MAX_DEVICES) rows_ready[dev] = 1;
   return err;
 }
 
+// E a positive multiple of 32 (ns = E / 32 slabs)
 cudaError_t check_shape(int Cp, int e, int K) {
-  return (e != E || Cp % R6 != 0 || Cp % R7 != 0 || K < 1 || K > MAX_K) ? cudaErrorInvalidValue
-                                                                          : cudaSuccess;
+  return (e < E || e % E != 0 || Cp % R6 != 0 || Cp % R7 != 0 || K < 1 || K > MAX_K)
+             ? cudaErrorInvalidValue
+             : cudaSuccess;
 }
 
 }  // namespace
@@ -297,8 +409,12 @@ extern "C" int ed3dgs_knn_rows(const float* emb, const int* nbr, const float* w,
   cudaError_t err = check_shape(Cp, e, K);
   if (err == cudaSuccess) err = allow_rows();
   if (err != cudaSuccess) return (int)err;
-  knn_rows<<<Cp / R6, THREADS, rows_smem(K), static_cast<cudaStream_t>(stream)>>>(
-      emb, nbr, w, coef, de, s, partials, K);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (e == E)
+    knn_rows<<<Cp / R6, THREADS, rows_smem(K), st>>>(emb, nbr, w, coef, de, s, partials, K);
+  else
+    knn_rows_wide<<<Cp / R6, THREADS, rows_smem(K), st>>>(emb, nbr, w, coef, de, s, partials,
+                                                          K, e / E);
   return (int)cudaGetLastError();
 }
 
@@ -308,17 +424,21 @@ extern "C" int ed3dgs_knn_reverse(const float* emb, const float* s, const float*
   if (Cp == 0) return 0;
   cudaError_t err = check_shape(Cp, e, K);
   if (err != cudaSuccess) return (int)err;
-  knn_reverse<<<Cp / R7, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      emb, s, de, rev_ptr, rev_pair, out, K);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (e == E)
+    knn_reverse<false><<<Cp / R7, THREADS, 0, st>>>(emb, s, de, rev_ptr, rev_pair, out, K, 1);
+  else
+    knn_reverse<true><<<dim3(Cp / R7, e / E), THREADS, 0, st>>>(emb, s, de, rev_ptr, rev_pair,
+                                                               out, K, e / E);
   return (int)cudaGetLastError();
 }
 
-// K6's (which = 0, at K slots) or K7's (which = 1) registers per thread,
+// The E = 32 kernels': K6's (which = 0, at K slots) or K7's (which = 1) registers per thread,
 // shared memory per CTA, local memory per thread (the kernels hold no local
 // arrays, so this is what ptxas spilled) and the CTAs an SM can hold at once.
 extern "C" int ed3dgs_knn_info(int which, int K, int* regs, int* smem, int* local,
                                int* ctas_per_sm) {
-  const void* fn = which == 0 ? (const void*)knn_rows : (const void*)knn_reverse;
+  const void* fn = which == 0 ? (const void*)knn_rows : (const void*)knn_reverse<false>;
   const int dynamic = which == 0 ? rows_smem(K) : 0;
   cudaFuncAttributes attr;
   cudaError_t err = which == 0 ? allow_rows() : cudaSuccess;

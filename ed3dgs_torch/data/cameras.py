@@ -4,14 +4,14 @@ ed3dgs_tpu/data/cameras.py; pure numpy, so the code is the same).
 Mirrors the information content of the reference Camera
 (reference scene/cameras.py:22-140) without the torch module machinery:
 R is the cam->world rotation, T the world->cam translation (COLMAP
-convention), plus per-camera time / id metadata. Lazy image loading comes
-with the dataset readers.
+convention), plus per-camera time / id metadata and the lazily loaded
+image, alpha mask and tongue mask (`image_loader`, data/readers.py).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import NamedTuple
+from dataclasses import dataclass, field
+from typing import Callable, NamedTuple, Optional
 
 import math
 
@@ -53,6 +53,11 @@ class Camera:
     zfar: float = 100.0
     trans: tuple = (0.0, 0.0, 0.0)
     scale: float = 1.0
+    # lazy image/mask loading like reference scene/cameras.py:126-136
+    _image: Optional[np.ndarray] = field(default=None, repr=False)
+    _mask: Optional[np.ndarray] = field(default=None, repr=False)
+    _tongue_mask: Optional[np.ndarray] = field(default=None, repr=False)
+    image_loader: Optional[Callable[["Camera"], tuple]] = field(default=None, repr=False)
 
     def matrices(self) -> CameraMatrices:
         w2v = camera_math.world_to_view(self.R, self.T, self.trans, self.scale)
@@ -75,6 +80,31 @@ class Camera:
             width=self.width,
             height=self.height,
         )
+
+    # --- lazy image access -------------------------------------------------
+    def load_image(self):
+        if self._image is None and self.image_loader is not None:
+            self._image, self._mask, self._tongue_mask = self.image_loader(self)
+        return self._image
+
+    @property
+    def image(self) -> Optional[np.ndarray]:
+        return self.load_image()
+
+    @property
+    def alpha_mask(self) -> Optional[np.ndarray]:
+        self.load_image()
+        return self._mask
+
+    @property
+    def tongue_mask(self) -> Optional[np.ndarray]:
+        self.load_image()
+        return self._tongue_mask
+
+    def release_image(self):
+        self._image = None
+        self._mask = None
+        self._tongue_mask = None
 
 
 def look_at_camera(eye, target, up, fovx, fovy, width, height, **kw) -> Camera:

@@ -118,3 +118,47 @@ def write_ply(path: str, names, arrays, element: str = "vertex"):
             f.write(f"property float {c}\n".encode())
         f.write(b"end_header\n")
         f.write(rec.tobytes())
+
+
+def fetch_point_cloud(path: str):
+    """Input ply -> (points [N,3] f32, colors [N,3] f32 in [0,1], normals [N,3]).
+
+    Matches reference fetchPly (scene/dataset_readers.py:241-248)."""
+    data = read_ply(path)["vertex"]
+    names = data.dtype.names
+    pts = np.stack([data["x"], data["y"], data["z"]], axis=1).astype(np.float32)
+    if "red" in names:
+        scale = 255.0 if data["red"].dtype == np.uint8 else 1.0
+        col = np.stack([data["red"], data["green"], data["blue"]], axis=1).astype(np.float32) / scale
+    else:
+        col = np.ones_like(pts) * 0.5
+    if "nx" in names:
+        nrm = np.stack([data["nx"], data["ny"], data["nz"]], axis=1).astype(np.float32)
+    else:
+        nrm = np.zeros_like(pts)
+    return pts, col, nrm
+
+
+def store_point_cloud(path: str, points: np.ndarray, colors: np.ndarray):
+    """Write an input-style ply with uchar colors (reference storePly,
+    scene/dataset_readers.py:251-265)."""
+    points = np.asarray(points, np.float32)
+    colors8 = np.clip(np.asarray(colors) * 255.0, 0, 255).astype(np.uint8)
+    normals = np.zeros_like(points)
+    dtype = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                      ("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4"),
+                      ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+    rec = np.zeros(len(points), dtype=dtype)
+    for i, c in enumerate(("x", "y", "z")):
+        rec[c] = points[:, i]
+        rec[("nx", "ny", "nz")[i]] = normals[:, i]
+        rec[("red", "green", "blue")[i]] = colors8[:, i]
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        f.write(f"element vertex {len(points)}\n".encode())
+        for c in ("x", "y", "z", "nx", "ny", "nz"):
+            f.write(f"property float {c}\n".encode())
+        for c in ("red", "green", "blue"):
+            f.write(f"property uchar {c}\n".encode())
+        f.write(b"end_header\n")
+        f.write(rec.tobytes())

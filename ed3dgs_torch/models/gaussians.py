@@ -9,6 +9,7 @@ Densification (train/densify.py) fills free slots instead of reallocating.
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -189,6 +190,31 @@ def compute_3d_filter(xyz: torch.Tensor, alive: torch.Tensor, view_mats: torch.T
 
 
 # --- ply checkpoint I/O (scene/gaussian_model.py:231-347) ------------------
+
+def save_ply(path: str, params: GaussianParams, aux: GaussianAux):
+    """Write the alive Gaussians in the reference's attribute layout
+    (channel-major feature flattening), the JAX package's `save_ply` file,
+    so a model loads in either implementation."""
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    alive = host(aux.alive)
+    xyz = host(params.xyz)[alive]
+    n = xyz.shape[0]
+    f_dc = host(params.features_dc)[alive].transpose(0, 2, 1).reshape(n, -1)
+    f_rest = host(params.features_rest)[alive].transpose(0, 2, 1).reshape(n, -1)
+    names = ["x", "y", "z", "nx", "ny", "nz", "f_dc", "f_rest", "opacity",
+             "scale", "rot", "embedding", "tongue_class", "filter_3D"]
+    arrays = [xyz[:, 0], xyz[:, 1], xyz[:, 2],
+              np.zeros(n), np.zeros(n), np.zeros(n),
+              f_dc, f_rest,
+              host(params.opacity)[alive],
+              host(params.scaling)[alive],
+              host(params.rotation)[alive],
+              host(params.embedding)[alive],
+              host(aux.tongue_class)[alive],
+              host(aux.filter_3d)[alive]]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    plyio.write_ply(path, names, arrays)
+
 
 def load_ply(path: str, *, capacity: Optional[int] = None, sh_degree: int = 3,
              device="cuda"):

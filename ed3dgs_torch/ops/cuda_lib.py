@@ -1,7 +1,9 @@
-"""Build and bind the port's CUDA kernels (csrc/*.cu).
+"""Build and bind the port's native libraries: the CUDA kernels (csrc/*.cu)
+and the host PNG unfilter (csrc/png_unfilter.cpp).
 
-Each source is compiled by nvcc for sm_90a into its own shared library with a
-plain C interface and loaded with ctypes, at first use. Nothing is built or
+Each CUDA source is compiled by nvcc for sm_90a, each host source by g++,
+into its own shared library with a plain C interface and loaded with
+ctypes, at first use. Nothing is built or
 loaded when a module is imported, so the CPU tests import every module on a
 machine without nvcc. `build()` starts one nvcc per source, all at once.
 Libraries land in `csrc/build/` (git-ignored), named by a hash of the source,
@@ -14,11 +16,11 @@ include has to be traced.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -33,6 +35,9 @@ BUILD_DIR = CSRC / "build"
 # A kernel that wants fused multiply-adds off its mask path writes fmaf().
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+# the host libraries' flags: no dependencies beyond the C++ standard library
+HOST_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -80,6 +85,10 @@ SIGNATURES = {
         # which (0 K6, 1 K7), K, *registers, *shared bytes, *local bytes, *CTAs per SM
         "ed3dgs_knn_info": [_I, _I, _P, _P, _P, _P],
     },
+    "png_unfilter": {            # host code (csrc/png_unfilter.cpp)
+        # filtered rows, out, height, row bytes, bytes per pixel
+        "ed3dgs_png_unfilter": [_P, _P, _I, _I, _I],
+    },
 }
 
 
@@ -91,46 +100,83 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def host_compiler() -> str:
+    for cand in (os.environ.get("CXX", ""), shutil.which("g++") or "",
+                 shutil.which("c++") or ""):
+        if cand and shutil.which(cand):
+            return cand
+    raise RuntimeError("no C++ compiler found for the host libraries (set CXX or put g++ "
+                       "on PATH)")
+
+
+def _source(name: str) -> Path:
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    src = _source(name)
+    h = hashlib.sha256(src.read_bytes())
+    if src.suffix == ".cu":
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+    else:
+        h.update(" ".join(HOST_FLAGS).encode())
     return BUILD_DIR / f"{name}.{h.hexdigest()[:12]}.so"
+
+
+def _command(name: str, out: Path) -> list:
+    src = _source(name)
+    if src.suffix == ".cu":
+        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [host_compiler(), *HOST_FLAGS, "-o", str(out), str(src)]
 
 
 def build(names=None) -> dict:
     """Compile the named libraries (default: all) that are not built yet, one
-    nvcc process per source, all started together. Returns {name: ptxas
-    report} for the libraries compiled by this call; raises on any failure."""
+    compiler process per source (nvcc for .cu, g++ for .cpp), all started
+    together. Returns {name: compiler report (ptxas's for a kernel)} for the
+    libraries compiled by this call; raises on any failure."""
     names = list(SIGNATURES) if names is None else list(names)
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
     procs = {}
     for n in todo:
-        tmp = _lib_path(n).with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        tmp = _lib_path(n).with_suffix(f".tmp{os.getpid()}.{threading.get_ident()}")
+        procs[n] = (tmp, subprocess.Popen(_command(n, tmp), stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     reports, failed = {}, []
     for n, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"--- {n} (nvcc exit {proc.returncode})\n{out}")
+            failed.append(f"--- {n} (compiler exit {proc.returncode})\n{out}")
             continue
         os.replace(tmp, _lib_path(n))  # atomic: concurrent builds agree
         reports[n] = out
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native library build failed:\n" + "\n".join(failed))
     return reports
 
 
-@functools.cache
+_LIBS: dict = {}
+_LOAD_LOCK = threading.Lock()
+
+
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library `name`, built first if needed."""
+    """The loaded library `name`, built first if needed (thread-safe: the
+    image decode threads may ask for it together)."""
+    handle = _LIBS.get(name)
+    if handle is None:
+        with _LOAD_LOCK:
+            handle = _LIBS.get(name) or _load(name)
+            _LIBS[name] = handle
+    return handle
+
+
+def _load(name: str) -> ctypes.CDLL:
     build([name])
     handle = ctypes.CDLL(str(_lib_path(name)))
     for fn, argtypes in SIGNATURES[name].items():

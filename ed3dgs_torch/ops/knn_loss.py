@@ -37,13 +37,13 @@ order:
 - K7 `knn_reverse` (replaces `_far_kernel` and the in-window half of
   `_main_kernel`): per rank j, dL/de_j = -sum over in-edges s_ik (e_i - e_j),
   added to K6's dL/de_i of the same rank: the whole gradient row.
-The kernels take 32-wide tables (a row is split in float4s over the
-lanes), K <= 32 slots and Cp a multiple of 128; their wrappers raise
-ValueError for anything else. A narrower embedding (1 <= E < 32) runs on
-them zero-padded to 32 columns, which `_run` builds in its rank-order
-gather (`rank_table`): a zero column adds exactly 0 to every d2, loss term,
-s and gradient, so the kernels compute the E-wide result. A wider one is
-refused on the card.
+The kernels take tables a multiple of 32 wide (a row is split in float4s
+over the lanes; a wider row is walked in 32-column slabs), K <= 32 slots
+and Cp a multiple of 128; their wrappers raise ValueError for anything
+else. Any other embedding width runs on them zero-padded to the next
+multiple of 32, which `_run` builds in its rank-order gather
+(`rank_table`): a zero column adds exactly 0 to every d2, loss term, s and
+gradient, so the kernels compute the E-wide result.
 Each has a plain PyTorch version of the same signature: K6 by gather, K7 by
 a gather over the reverse adjacency and `segment_sum_rows_plain`. A wrapper
 launches its kernel on CUDA tensors and runs the plain version on CPU
@@ -65,7 +65,7 @@ BA = 256            # ranks per Morton block
 FB = 1024           # far-list capacity granularity (the TPU far pass's chunk)
 EPS = 1e-20         # sqrt epsilon (train/losses.py)
 BIG = 2147480000    # sort key past every rank
-KERNEL_E = 32       # the kernels' embedding width: a row is eight float4s
+KERNEL_E = 32       # the kernels' slab width (eight float4s); tables are whole slabs
 MAX_K = 32          # neighbour slots the kernels take
 ROWS_PER_BLOCK = 128  # K6's rank rows per CTA (csrc/knn_loss.cu R6; K7's 64 divide it)
 
@@ -294,11 +294,17 @@ def rank_table(emb: torch.Tensor, graph: KnnGraph, width: int) -> torch.Tensor:
     return emb_p[graph.pi].contiguous()
 
 
+def kernel_width(E: int) -> int:
+    """The table width the kernels run an E-wide embedding at: E rounded up
+    to whole 32-column slabs."""
+    return -(-E // KERNEL_E) * KERNEL_E
+
+
 def _check_kernel_shape(emb_r: torch.Tensor, K: int):
     """Raise ValueError for a table or slot count the kernels do not take."""
     Cp, E = emb_r.shape
-    if E != KERNEL_E or not 1 <= K <= MAX_K:
-        raise ValueError(f"the KNN kernels take E = {KERNEL_E} (narrower embeddings "
+    if E < KERNEL_E or E % KERNEL_E or not 1 <= K <= MAX_K:
+        raise ValueError(f"the KNN kernels take E a multiple of {KERNEL_E} (other widths "
                          f"zero-padded by rank_table) and 1 <= K <= {MAX_K}, got E={E}, K={K}")
     if Cp % ROWS_PER_BLOCK:
         raise ValueError(f"the KNN kernels take Cp a multiple of {ROWS_PER_BLOCK}, got {Cp}")
@@ -307,8 +313,8 @@ def _check_kernel_shape(emb_r: torch.Tensor, K: int):
 
 
 def kernel_info(kernel: str, K: int) -> dict:
-    """K6's ("knn_rows", whose shared tiles grow with the K slots) or K7's
-    ("knn_reverse") registers per thread, shared memory per CTA, local
+    """The E = 32 kernels': K6's ("knn_rows", whose shared tiles grow with
+    the K slots) or K7's ("knn_reverse") registers per thread, shared memory per CTA, local
     (spilled) bytes per thread and resident CTAs per SM, as the card reports
     them."""
     which = {"knn_rows": 0, "knn_reverse": 1}[kernel]
@@ -389,9 +395,9 @@ def _run(emb: torch.Tensor, graph: KnnGraph, k: int):
             f"knn_loss_fused called with k={k} but the graph was prepared with K={K} "
             "(neighbor slots would be silently dropped or misread)")
     C, E = emb.shape
-    # the kernels' width on the card (zero columns past E add exactly 0);
-    # the plain versions on the CPU take the table as it is
-    width = KERNEL_E if emb.is_cuda and E < KERNEL_E else E
+    # the kernels' width on the card, whole 32-column slabs (zero columns
+    # past E add exactly 0); the plain versions on the CPU take the table as it is
+    width = kernel_width(E) if emb.is_cuda else E
     emb_r = rank_table(emb, graph, width)
     loss, de, s = knn_rows(emb_r, graph.nbr, graph.w, graph.coef)
     demb_r = knn_reverse(emb_r, s, de, graph.rev_ptr, graph.rev_pair)

@@ -1,0 +1,547 @@
+"""Training CLI (port of ed3dgs_tpu/tools/train.py; the reference train.py).
+
+Usage:
+  python -m ed3dgs_torch.tools.train -s <scene_dir> -m <model_dir> \
+      [--configs cfg.py] [--loader dynerf] [--iterations N] [--device cuda] ...
+
+The same flags and config files as the JAX package's tool, and the same
+files out: `cfg_args`, `training_time.txt`, tfevents scalars,
+`point_cloud/iteration_N/{point_cloud.ply,deformation.npz}` and
+`chkpnt<N>.npz`, which either package loads and resumes. The loop samples
+cameras on the host (train/sampling.py), decodes iteration i+1's images on a
+thread pool while the card runs step i (data/native_staging.py), runs the
+train step (train/trainer.py), moves the pair capacity with the pair demand
+(train/capacity.py), and densifies and refreshes the 3D filter and the KNN
+graph on the reference's cadences (train.py:123-452).
+
+It runs on the card unless `--device cpu` is passed; without a GPU the
+default raises. `--backend` is accepted for the JAX tool's command lines and
+ignored: the port has one backend. `--mesh` and `--comms strip` raise
+NotImplementedError. Densification draws come from a `torch.Generator`
+seeded by `--seed`: the JAX package's `PRNGKey` stream cannot be
+reproduced, so the two tools densify with different noise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from dataclasses import replace
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="ed3dgs_torch trainer")
+    p.add_argument("--source_path", "-s", required=True)
+    p.add_argument("--model_path", "-m", required=True)
+    p.add_argument("--configs", default=None)
+    p.add_argument("--loader", default=None)
+    p.add_argument("--iterations", type=int, default=None)
+    p.add_argument("--duration", type=int, default=None)
+    p.add_argument("--capacity", type=int, default=None,
+                   help="Gaussian capacity (default: max_number_gaussians)")
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--backend", default=None, choices=["auto", "xla", "pallas"],
+                   help="accepted for the JAX tool's command lines and ignored: the port "
+                        "has one backend (the CUDA kernels on the card, their plain "
+                        "versions on the CPU)")
+    p.add_argument("--mesh", default=None, metavar="SPEC",
+                   help="multi-device training: not ported yet (ROADMAP.md, Queue 1 "
+                        "item 10); raises NotImplementedError")
+    p.add_argument("--comms", default="gspmd", choices=["gspmd", "strip"],
+                   help="multi-device rasterizer comms: 'strip' is not ported yet "
+                        "(ROADMAP.md, Queue 1 item 10)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default: the GPU; 'cpu' runs the "
+                        "kernels' plain versions)")
+    p.add_argument("--save_iterations", type=int, nargs="+", default=None)
+    p.add_argument("--checkpoint_iterations", type=int, nargs="+", default=[])
+    p.add_argument("--start_checkpoint", default=None,
+                   help="resume from a chkpnt<N>.npz (params + Adam state)")
+    p.add_argument("--test_every", type=int, default=2000,
+                   help="render a held-out test camera every N iterations and "
+                        "log test/psnr (reference train.py:378-389 evaluates "
+                        "at fixed test_iterations by default); 0 disables")
+    p.add_argument("--no_tensorboard", action="store_true",
+                   help="disable tfevents logging (reference train.py:488-493)")
+    p.add_argument("--profile", type=int, default=0, metavar="N",
+                   help="capture a torch.profiler trace of N steady-state "
+                        "iterations (starting at iteration 20) to "
+                        "<model_path>/profile/trace.json")
+    p.add_argument("--seed", type=int, default=6666)
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
+                   help="config overrides, e.g. --set kernel_size=0.1")
+    return p.parse_args(argv)
+
+
+def build_config(args):
+    from ..config.loader import load_full_config
+
+    overrides = {"source_path": args.source_path, "model_path": args.model_path}
+    for kv in args.set:
+        k, v = kv.split("=", 1)
+        try:
+            v = json.loads(v)
+        except json.JSONDecodeError:
+            pass
+        overrides[k] = v
+    if args.loader:
+        overrides["loader"] = args.loader
+    if args.iterations:
+        overrides["iterations"] = args.iterations
+    if args.batch_size:
+        overrides["batch_size"] = args.batch_size
+    if args.backend:
+        overrides["raster_backend"] = args.backend
+    return load_full_config(args.configs, overrides)
+
+
+class PcdSupervisionLoader:
+    """Host-side per-frame GT cloud sampler for the COLMAP supervision loss
+    (train.py:273-295). Caches decoded clouds; samples `n` points per step
+    for the last batch camera's frame, with the JAX package's draws."""
+
+    def __init__(self, model, seed=0):
+        self.dir = model.colmap_pcd_dir
+        self.pattern = model.colmap_pcd_pattern
+        self.mult = model.colmap_pcd_frame_multiplier
+        self.n = model.colmap_pcd_samples
+        self.seed = seed
+        self._calls = 0
+        self._cache = {}
+
+    def sample(self, frame_no: int):
+        """Returns (points [n,3] float32, valid bool). The RNG is derived per
+        call from (seed, call#, frame), so the stream does not depend on
+        which cloud files exist."""
+        rng = np.random.default_rng((self.seed, self._calls, frame_no))
+        self._calls += 1
+        pts = self._load(frame_no)
+        if pts is None or len(pts) == 0:
+            return np.zeros((self.n, 3), np.float32), False
+        idx = rng.choice(len(pts), self.n, replace=len(pts) < self.n)
+        return pts[idx], True
+
+    def _load(self, frame_no: int):
+        if frame_no in self._cache:
+            return self._cache[frame_no]
+        pts = None
+        if self.dir:
+            path = os.path.join(
+                self.dir, self.pattern.format(frame=frame_no * self.mult))
+            if os.path.exists(path):
+                from ..data.pcd import load_pointcloud_any
+                pts, _ = load_pointcloud_any(path)
+        if len(self._cache) > 256:  # bound host memory
+            self._cache.clear()
+        self._cache[frame_no] = pts
+        return pts
+
+
+def stage_batch(cams, use_ssim, tongue_enabled, device, pcd_loader=None):
+    """The train step's batch for `cams` on `device`: images, camera
+    matrices, times, camera ids, the SSIM gate, the tongue masks with
+    `tongue_enabled`, and with `pcd_loader` the last camera's frame's
+    sampled GT cloud (`pcd_valid` stays a host bool)."""
+    import torch
+
+    mats = [c.matrices() for c in cams]
+    imgs, tongues = [], []
+    for c in cams:
+        img = c.image
+        if img is None:
+            raise FileNotFoundError(f"image missing: {c.image_path}")
+        imgs.append(img)
+        t = c.tongue_mask
+        tongues.append(t if t is not None else np.zeros((1,) + img.shape[1:], np.float32))
+
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(device)
+
+    batch = {
+        "gt_image": dev(np.stack(imgs)),
+        "viewmatrix": dev(np.stack([m.world_view for m in mats])),
+        "projmatrix": dev(np.stack([m.full_proj for m in mats])),
+        "campos": dev(np.stack([m.campos for m in mats])),
+        "time": dev(np.array([c.time for c in cams], np.float32)),
+        "cam_no": dev(np.array([c.cam_no for c in cams], np.int64)),
+        "use_ssim": bool(use_ssim),
+    }
+    if tongue_enabled:
+        batch["tongue_gt"] = dev(np.stack(tongues))
+    if pcd_loader is not None:
+        pts, valid = pcd_loader.sample(cams[-1].frame_no)
+        batch["pcd_points"] = dev(np.asarray(pts, np.float32))
+        batch["pcd_valid"] = bool(valid)
+    return batch
+
+
+def training_report(tb, iteration, metrics, iter_time, total_points, total_tongue):
+    """The reference's per-iteration scalar set (train.py:505-524)."""
+    g = lambda k: float(metrics[k]) if k in metrics else 0.0  # noqa: E731
+    ssim_val = g("ssim")
+    tb.add_scalar("train_loss_patches/l1_loss", g("l1"), iteration)
+    tb.add_scalar("train_loss_patches/normal_loss", g("depth_normal"), iteration)
+    tb.add_scalar("train_loss_patches/total_loss", g("loss"), iteration)
+    tb.add_scalar("train_loss_patches/dssim_loss", (1.0 - ssim_val) / 2.0, iteration)
+    tb.add_scalar("train_loss_patches/temporal_loss", g("tv_loss"), iteration)
+    tb.add_scalar("train_loss_patches/embedding_loss", g("emb_loss"), iteration)
+    tb.add_scalar("train_loss_patches/tongue_embedding_loss", g("tongue_emb"), iteration)
+    tb.add_scalar("train_loss_patches/opacity_mean_loss", g("opacity_mean"), iteration)
+    tb.add_scalar("train_loss_patches/psnr", g("psnr"), iteration)
+    tb.add_scalar("train_loss_patches/colmap_pcd_loss", g("pcd_loss"), iteration)
+    tb.add_scalar("train_loss_patches/tongue_loss", g("tongue_l1"), iteration)
+    tb.add_scalar("train_loss_patches/wo_tongue_rgb_loss", g("wo_tongue_rgb"), iteration)
+    tb.add_scalar("train_loss_patches/tongue_rgb_loss", g("tongue_rgb"), iteration)
+    tb.add_scalar("iter_time", iter_time, iteration)
+    tb.add_scalar("total_points", total_points, iteration)
+    tb.add_scalar("total_tongue_gaussians", total_tongue, iteration)
+
+
+def main(argv=None):
+    """Parse the flags, train, and return run_training's (scene, state,
+    aux, log)."""
+    args = parse_args(argv)
+    cfg = build_config(args)
+    return run_training(cfg, args)
+
+
+def run_training(cfg, args):
+    """Train as the JAX tool does. Returns (scene, state, aux, log): log
+    holds the loop's wall ms, loss and train PSNR per iteration, the test
+    PSNRs, the densify events, the pair-capacity changes, the alive counts
+    at start and end, and the stager's decode and wait ms."""
+    import torch
+
+    from ..data.native_staging import Stager
+    from ..data.scene import Scene
+    from ..device import resolve_device
+    from ..models import gaussians as gm
+    from ..ops.rasterize import RasterConfig
+    from ..render import RenderSettings
+    from ..render import render as render_fn
+    from ..train import losses as L
+    from ..train import trainer
+    from ..train.capacity import CapacityPolicy
+    from ..train.sampling import CameraSampler
+    from ..train.trainer import (TrainSetup, init_train_state, make_densify_step,
+                                 make_train_step)
+
+    if args.mesh or args.comms != "gspmd":
+        raise NotImplementedError(
+            "multi-device training (--mesh, --comms strip) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 10)")
+    device = resolve_device(args.device)
+    t_start = time.time()
+    model, opt, hidden = cfg.model, cfg.opt, cfg.hidden
+    capacity = args.capacity or opt.max_number_gaussians
+
+    os.makedirs(model.model_path, exist_ok=True)
+    with open(os.path.join(model.model_path, "cfg_args"), "w") as f:
+        f.write(repr({"model": vars(model), "opt": vars(opt), "hidden": vars(hidden)}))
+
+    scene = Scene(model, hidden, capacity=capacity, duration=args.duration,
+                  shuffle=False, seed=args.seed, device=device)
+    train_cams = sorted(scene.train_cameras, key=lambda c: (c.cam_no, c.frame_no))
+    cam0 = train_cams[0].matrices()
+
+    rcfg = RasterConfig(width=cam0.width, height=cam0.height,
+                        focal_x=cam0.focal_x, focal_y=cam0.focal_y,
+                        pair_capacity=opt.pair_capacity, chunk=opt.raster_chunk)
+    setup = TrainSetup(
+        raster=rcfg, hidden=hidden, batch_size=opt.batch_size,
+        white_background=model.white_background, kernel_size=model.kernel_size,
+        disable_filter3d=model.disable_filter3D,
+        use_coord_map=model.use_coord_map,
+        tongue_enabled=model.tongue_mask_loss_enabled,
+        lambda_dssim=opt.lambda_dssim, opacity_l1_coef=opt.opacity_l1_coef_fine,
+        reg_coef=opt.reg_coef, coef_tv_temporal=opt.coef_tv_temporal_embedding,
+        lambda_depth_normal=opt.lambda_depth_normal,
+        radegs_from_iter=opt.radegs_regularization_from_iter,
+        num_down_emb=hidden.min_embeddings, sh_degree=model.sh_degree,
+        colmap_supervision=model.colmap_supervision_enabled,
+        deform_from_iter=hidden.deform_from_iter)
+
+    state, optimizer = init_train_state(scene.params, hidden, opt, scene.cameras_extent,
+                                        seed=args.seed)
+    aux = scene.aux
+    first_iter = 1
+    if args.start_checkpoint:
+        state, aux, first_iter = load_checkpoint(args.start_checkpoint, state, aux, device)
+        print(f"resumed from {args.start_checkpoint} at iteration {first_iter}", flush=True)
+
+    step_fn = make_train_step(setup, optimizer)
+    densify_fn = make_densify_step(opt, opt.percent_dense, scene.cameras_extent)
+
+    # camera metadata for sampling / 3D filter
+    cam_ids = sorted({c.cam_no for c in train_cams})
+    cam_index = {c: i for i, c in enumerate(cam_ids)}
+    first_frames = [c for c in train_cams if c.frame_no == 0]
+    centers = np.stack([c.matrices().campos for c in first_frames])
+    by_key = {(c.cam_no, c.frame_no): c for c in train_cams}
+    maxtime = scene.maxtime
+
+    f32 = dict(dtype=torch.float32, device=device)
+    view_mats = torch.as_tensor(np.stack([c.matrices().world_view for c in first_frames]), **f32)
+    focals_x = torch.tensor([c.matrices().focal_x for c in first_frames], **f32)
+    focals_y = torch.tensor([c.matrices().focal_y for c in first_frames], **f32)
+    widths = torch.tensor([float(c.width) for c in first_frames], **f32)
+    heights = torch.tensor([float(c.height) for c in first_frames], **f32)
+
+    def refresh_filter(params, aux):
+        if model.disable_filter3D:
+            return aux._replace(filter_3d=torch.zeros_like(aux.filter_3d))
+        return aux._replace(filter_3d=gm.compute_3d_filter(
+            params.xyz, aux.alive, view_mats, focals_x, focals_y, widths, heights))
+
+    aux = refresh_filter(state.params["gaussians"], aux)
+
+    sampler = CameraSampler(
+        num_cams=len(cam_ids), maxtime=maxtime, camera_centers=centers,
+        batch_size=opt.batch_size, random_until=opt.random_until,
+        num_multiview_ssim=opt.num_multiview_ssim,
+        sequential=model.sampling_sequential_frame_enabled,
+        first_frame_then_sequential=model.sampling_first_frame_then_sequential_enabled,
+        first_frame_change=model.sampling_first_frame_change,
+        is_sample_from_past=model.is_sample_from_past,
+        preference_frames=tuple(model.frame_indices_higher_preference),
+        preference_probability=model.frame_preference_probability,
+        seed=args.seed)
+
+    # adaptive KNN-graph capacity buckets (grow-only, like the pair capacity):
+    # a refresh that drops more edges than the coverage target allows
+    # re-prepares the graph at bigger buckets before training continues
+    knn_caps = dict(trainer.KNN_CAPS_DEFAULT)
+
+    def refresh_knn(params, aux):
+        return trainer.refresh_knn_cache(
+            params, aux, knn_caps, tongue_enabled=model.tongue_mask_loss_enabled,
+            coverage_target=opt.knn_coverage_target, quiet=args.quiet)
+
+    knn_cache = refresh_knn(state.params["gaussians"], aux)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    final_iter = opt.iterations
+    save_iters = set(args.save_iterations or [final_iter])
+    ckpt_iters = set(args.checkpoint_iterations)
+    ema_loss = 0.0
+    log_path = os.path.join(model.model_path, "training_time.txt")
+
+    def pick(c, f):
+        cam = by_key.get((cam_ids[c % len(cam_ids)], int(f) % maxtime))
+        if cam is None:  # sparse frame ids: nearest frame
+            options = [x for x in train_cams if x.cam_no == cam_ids[c % len(cam_ids)]]
+            cam = min(options, key=lambda x: abs(x.frame_no - int(f) % maxtime))
+        return cam
+
+    # decode iteration i+1's batch on worker threads while the card runs
+    # step i (the reference's lazy PIL load stalls the loop instead,
+    # train.py:172)
+    stager = Stager()
+
+    def sample_batch(iteration):
+        cams_idx, frames, use_ssim = sampler.sample(iteration, final_iter)
+        cams = [pick(c, f) for c, f in zip(cams_idx, frames)]
+        for c in cams:
+            stager.submit(c)
+        return cams, use_ssim
+
+    pcd_loader = (PcdSupervisionLoader(model, seed=args.seed)
+                  if model.colmap_supervision_enabled else None)
+
+    tb = None
+    if not args.no_tensorboard:
+        from ..utils.tb_writer import SummaryWriter
+        tb = SummaryWriter(model.model_path)
+
+    # periodic held-out test PSNR (reference train.py:378-389), rendered at
+    # the CURRENT raster config: the pair capacity follows the demand, and an
+    # eval render at a stale one would drop pairs
+    test_cams = list(scene.test_cameras)
+    eval_rng = np.random.default_rng(args.seed)
+    bg = torch.full((3,), 1.0 if model.white_background else 0.0, **f32)
+
+    def eval_test_psnr(iteration):
+        cam = test_cams[eval_rng.integers(len(test_cams))]
+        img = cam.image
+        if img is None:
+            return None
+        m = cam.matrices()
+        with torch.no_grad():
+            s = RenderSettings(torch.as_tensor(m.world_view, **f32),
+                               torch.as_tensor(m.full_proj, **f32),
+                               torch.as_tensor(m.campos, **f32),
+                               torch.tensor(cam.time, **f32),
+                               torch.zeros((), dtype=torch.int64, device=device))
+            out = render_fn(state.params["gaussians"], aux, state.params["deform"], hidden, s,
+                            rcfg, bg, iteration=iteration, sh_degree=model.sh_degree,
+                            kernel_size=model.kernel_size,
+                            disable_filter3d=model.disable_filter3D,
+                            num_down_emb_c=hidden.min_embeddings,
+                            num_down_emb_f=hidden.min_embeddings)["render"]
+        cam.release_image()
+        gt = torch.as_tensor(img, device=device)
+        return float(torch.mean(L.psnr(out[None], gt[None])))
+
+    # adaptive pair capacity (train/capacity.py): the step's pair buffers
+    # follow the reported pair demand
+    cap_policy = CapacityPolicy(capacity=rcfg.pair_capacity)
+    cap_policy.start(first_iter)
+
+    log = {"iter_ms": [], "loss": [], "psnr": [], "test_psnr": [], "densify": [],
+           "capacity": [], "points_start": int(aux.alive.sum())}
+
+    def maybe_resize_capacity(iteration, num_pairs):
+        nonlocal rcfg, setup, step_fn
+        want = cap_policy.observe(iteration, num_pairs)
+        if want is not None:
+            if not args.quiet:
+                print(f"[{iteration}] pair_capacity {rcfg.pair_capacity} -> {want}", flush=True)
+            log["capacity"].append((iteration, rcfg.pair_capacity, want))
+            rcfg = replace(rcfg, pair_capacity=want)
+            setup = replace(setup, raster=rcfg)
+            step_fn = make_train_step(setup, optimizer)
+
+    prof = None
+    pending = sample_batch(first_iter)
+    t_iter = time.time()
+    prof_start = first_iter + 19 if args.profile else -1
+    prof_stop = prof_start + args.profile
+    try:
+        for iteration in range(first_iter, final_iter + 1):
+            t_loop = time.perf_counter()
+            cams, use_ssim = pending
+            for c in cams:
+                stager.fetch_into(c)
+            if iteration < final_iter:
+                pending = sample_batch(iteration + 1)
+            if iteration == prof_start:
+                prof = _start_profile(torch, device)
+            batch = stage_batch(cams, use_ssim, model.tongue_mask_loss_enabled, device,
+                                pcd_loader)
+            state, aux, metrics = step_fn(state, aux, batch, knn_cache)
+            if iteration == prof_stop and prof is not None:
+                _stop_profile(prof, os.path.join(model.model_path, "profile"))
+                prof = None
+
+            l1_items = metrics["l1_items"].cpu().numpy()
+            sampler.record_loss([cam_index.get(c.cam_no, 0) for c in cams],
+                                [c.frame_no for c in cams], l1_items)
+            maybe_resize_capacity(iteration, int(metrics["num_pairs"]))
+            for c in cams:
+                c.release_image()
+
+            if iteration < opt.densify_until_iter and iteration > opt.densify_from_iter \
+                    and iteration % opt.densification_interval == 0:
+                thr = (opt.densify_grad_threshold_fine_init
+                       - iteration * (opt.densify_grad_threshold_fine_init
+                                      - opt.densify_grad_threshold_after)
+                       / opt.densify_until_iter)
+                state, aux, n_c, n_s = densify_fn(state, aux, generator, thr)
+                aux = refresh_filter(state.params["gaussians"], aux)
+                knn_cache = refresh_knn(state.params["gaussians"], aux)
+                log["densify"].append((iteration, int(n_c), int(n_s), int(aux.alive.sum())))
+            elif (iteration % 100 == 0 and iteration > opt.densify_until_iter
+                    and not model.disable_filter3D and iteration < final_iter - 100):
+                aux = refresh_filter(state.params["gaussians"], aux)
+
+            loss = float(metrics["loss"])
+            log["loss"].append(loss)
+            log["psnr"].append(float(metrics["psnr"]))
+            if tb is not None:
+                now = time.time()
+                training_report(
+                    tb, iteration, metrics, now - t_iter, int(aux.alive.sum()),
+                    int((aux.alive & (aux.tongue_class[:, 0] > 0.5)).sum())
+                    if model.tongue_mask_loss_enabled else 0)
+                t_iter = now
+            if args.test_every > 0 and iteration % args.test_every == 0 and test_cams:
+                tp = eval_test_psnr(iteration)
+                if tp is not None:
+                    log["test_psnr"].append((iteration, tp))
+                    if tb is not None:
+                        tb.add_scalar("test/psnr", tp, iteration)
+                    if not args.quiet:
+                        print(f"[{iteration}] test psnr {tp:.2f}", flush=True)
+
+            if not args.quiet and iteration % 100 == 0:
+                ema_loss = 0.4 * loss + 0.6 * ema_loss
+                print(f"[{iteration}/{final_iter}] loss={ema_loss:.5f} "
+                      f"psnr={float(metrics['psnr']):.2f} points={int(aux.alive.sum())}",
+                      flush=True)
+
+            if iteration in save_iters:
+                elapsed = time.time() - t_start
+                with open(log_path, "a") as f:
+                    f.write(f"Iteration {iteration}: {elapsed} seconds "
+                            f"points: {int(aux.alive.sum())}\n")
+                scene.save(iteration, state.params["gaussians"], aux, state.params["deform"])
+            if iteration in ckpt_iters:
+                save_checkpoint(model.model_path, iteration, state, aux)
+            log["iter_ms"].append((time.perf_counter() - t_loop) * 1e3)
+    finally:
+        stager.close()
+        if tb is not None:
+            tb.close()
+        if prof is not None:
+            prof.stop()
+    log.update(points_end=int(aux.alive.sum()), decode_ms=list(stager.decode_ms),
+               wait_ms=list(stager.wait_ms), first_iter=first_iter)
+    return scene, state, aux, log
+
+
+def _start_profile(torch, device):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, out_dir):
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    print(f"profiler trace written to {out_dir}", flush=True)
+
+
+def save_checkpoint(model_path, iteration, state, aux):
+    """Full optimizer checkpoint (reference chkpnt<it>.pth,
+    train.py:450-452), in the JAX package's chkpnt<N>.npz layout."""
+    from ..convert import checkpoint_arrays
+
+    flat = checkpoint_arrays(state, aux)
+    flat["iteration"] = np.asarray(iteration)
+    np.savez(os.path.join(model_path, f"chkpnt{iteration}.npz"), **flat)
+
+
+def load_checkpoint(path, state, aux, device="cuda"):
+    """Restore a chkpnt<N>.npz (written by either package) in place of a
+    freshly built (state, aux): returns (state, aux, the next iteration).
+    Every parameter, moment and aux array of the template must be in the
+    file, at the template's shape."""
+    from ..convert import load_checkpoint as load_arrays
+    from ..train.optim import flatten_params
+
+    new_state, new_aux = load_arrays(path, device=device)
+    want = flatten_params(state.params)
+    got = flatten_params(new_state.params)
+    if set(got) != set(want) or any(got[k].shape != want[k].shape for k in want):
+        raise ValueError(f"{path}: its parameters do not match the model's (capacity or "
+                         "config differs)")
+    if any(getattr(new_aux, k).shape != getattr(aux, k).shape for k in aux._fields):
+        raise ValueError(f"{path}: its aux arrays do not match the model's")
+    return new_state, new_aux, int(new_state.iteration) + 1
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

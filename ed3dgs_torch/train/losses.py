@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.camera_math import depth_to_normal, points_to_normal
+from ..ops.knn import _dot3
 
 
 def l1_loss(pred, gt, keepdim=False):
@@ -115,3 +116,27 @@ def coord_normal_loss(rendered_normal, expected_coord, median_coord, depth_ratio
     err_exp = 1.0 - torch.sum(rendered_normal * n_exp, dim=0)
     err_med = 1.0 - torch.sum(rendered_normal * n_med, dim=0)
     return (1.0 - depth_ratio) * torch.mean(err_exp) + depth_ratio * torch.mean(err_med)
+
+
+def colmap_pcd_loss(pcd_points, gaussian_positions, alive, chunk: int = 500):
+    """COLMAP point-cloud supervision (train.py:273-295,
+    utils/train_utils.py:73-89): for each GT point, the squared distance in
+    millimeters (x1000 per axis) to its nearest deformed Gaussian; mean over
+    points. Dead capacity slots are excluded. Chunked over GT points as the
+    JAX package chunks them, each chunk's distances formed in its order,
+    |p|^2 + (|g|^2 + dead_bump) - 2 p.g, with the arithmetic of its jitted
+    step on the CPU: the squared norms are fused multiply-add chains (as
+    ops/knn.py forms them), the cross term a matmul. The nearest distance
+    is `torch.amin`, whose gradient splits a tie evenly between its entries
+    as `jnp.min`'s does (`torch.min(dim)` would give it all to one)."""
+    g = gaussian_positions * 1000.0                       # [C,3] mm
+    g2 = _dot3(g, g)                                      # [C]
+    # finite: an inf would break the min's gradient
+    dead_bump = torch.where(alive, torch.zeros_like(g2), torch.full_like(g2, 3e38))
+    P = pcd_points.shape[0]
+    if P % chunk:  # colmap_pcd_samples need not divide the default chunk
+        chunk = math.gcd(P, chunk)
+    p = pcd_points.reshape(-1, chunk, 3) * 1000.0         # [n,chunk,3]
+    d = torch.stack([torch.amin(_dot3(pc, pc)[:, None] + (g2 + dead_bump)[None, :]
+                                - 2.0 * pc @ g.T, dim=1) for pc in p])
+    return torch.mean(torch.maximum(d, torch.zeros((), device=d.device)))

@@ -20,9 +20,13 @@ package also pins the far list's memory layout after each refresh
 (`_pin_row_major`); that is an XLA layout choice for the TPU with no
 counterpart here.
 
+With `colmap_supervision`, the step adds 0.01 x the chamfer term of the
+batch's sampled GT cloud (`pcd_points`, `pcd_valid`) to the last camera's
+deformed positions, after `deform_from_iter`.
+
 Not ported yet, and refused with NotImplementedError rather than skipped:
-COLMAP point-cloud supervision, the strip-exchange comms and the vmapped
-batch. ROADMAP.md names the slice that brings each.
+the strip-exchange comms and the vmapped batch. ROADMAP.md names the slice
+that brings each.
 """
 
 from __future__ import annotations
@@ -69,26 +73,25 @@ class TrainSetup:
     radegs_from_iter: int = 15_000
     num_down_emb: int = 30
     sh_degree: int = 3
+    # COLMAP point-cloud supervision (train.py:273-295): chamfer of GT cloud
+    # samples to the deformed Gaussians, active after deform_from_iter
     colmap_supervision: bool = False
+    deform_from_iter: int = 0
     batch_mode: str = "scan"
     comms: str = "gspmd"
 
 
 def check_supported(setup: TrainSetup):
     """Raise for every part of the JAX step the port does not carry yet."""
-    if setup.colmap_supervision:
-        raise NotImplementedError(
-            "COLMAP point-cloud supervision comes with slice 4 of the port, with the host "
-            "point-cloud readers (ROADMAP.md, Queue 1 item 8)")
     if setup.comms != "gspmd":
         raise NotImplementedError(
             f"comms={setup.comms!r}: the strip exchange comes with the multi-device "
-            "slice (ROADMAP.md, Queue 1 item 12)")
+            "slice (ROADMAP.md, Queue 1 item 10)")
     if setup.batch_mode != "scan":
         raise NotImplementedError(
             f"batch_mode={setup.batch_mode!r}: the port renders a batch one camera "
             "after another; the vmapped batch comes with the multi-device slice "
-            "(ROADMAP.md, Queue 1 item 12)")
+            "(ROADMAP.md, Queue 1 item 10)")
 
 
 # --- the KNN graph cache ------------------------------------------------------
@@ -318,6 +321,16 @@ def make_loss_and_grads(setup: TrainSetup):
                                       rc.focal_x, rc.focal_y))
             loss = loss + setup.lambda_depth_normal * dn
 
+        # COLMAP point-cloud supervision on the last batch entry's deformed
+        # positions (train.py:273-295), skipped before deform_from_iter or
+        # when the host found no GT cloud for the frame
+        pcd_loss = zero
+        if (setup.colmap_supervision and iteration > setup.deform_from_iter
+                and bool(batch["pcd_valid"])):
+            pcd_loss = L.colmap_pcd_loss(batch["pcd_points"],
+                                         r_last["deformed_gaussian_positions"], aux.alive)
+            loss = loss + 0.01 * pcd_loss  # closest_distance_coef (train.py:294)
+
         tongue_metrics = {}
         if setup.tongue_enabled:
             tongue_metrics = _tongue_terms(setup, gparams, aux, dparams, batch, knn_cache,
@@ -332,7 +345,7 @@ def make_loss_and_grads(setup: TrainSetup):
             "loss": loss, "l1": l1, "l1_items": l1_items,
             "psnr": torch.mean(L.psnr(image, gt)),
             "ssim": ssim_val, "emb_loss": emb_loss, "tv_loss": tv_loss,
-            "opacity_mean": opa_loss, "depth_normal": dn, "pcd_loss": zero,
+            "opacity_mean": opa_loss, "depth_normal": dn, "pcd_loss": pcd_loss,
             "num_pairs": torch.stack([r["num_pairs"] for r in renders]).amax(),
             "tile_overflow": torch.stack([r["tile_overflow"] for r in renders]).any(),
             "send_overflow": torch.zeros((), dtype=torch.int32, device=image.device),
@@ -363,7 +376,8 @@ def make_train_step(setup: TrainSetup, optimizer):
     schedules) and `knn_cache` from `refresh_knn_cache`. Batch entries
     (leading dim B): gt_image [B,3,H,W], viewmatrix [B,4,4], projmatrix
     [B,4,4], campos [B,3], time [B], cam_no [B], tongue_gt [B,1,H,W] (read
-    with tongue_enabled); use_ssim, a bool (the host-computed periodic SSIM
+    with tongue_enabled), pcd_points [P,3] and pcd_valid, a bool (read with
+    colmap_supervision); use_ssim, a bool (the host-computed periodic SSIM
     gate, train.py:199)."""
     loss_and_grads = make_loss_and_grads(setup)
 

@@ -27,8 +27,10 @@ relative, every row of dL/demb within 1e-5 of that row's largest value (the
 kernel reduces d2 by a shuffle butterfly and the loss by CTA partials; the
 terms are otherwise the same operations), and bit-identical from run to run,
 also on the smallest table, at a rank with thousands of in-edges and at K = 1
-and 32, and for tables narrower than 32 (run zero-padded); the shapes they
-do not take raise ValueError.
+and 32, and for embeddings narrower than 32 or wider (E = 48, 64, 100: run
+zero-padded to whole 32-column slabs); the shapes they do not take raise
+ValueError. The host PNG unfilter (not a kernel, built with g++) against its
+numpy version, byte for byte.
 """
 
 import math
@@ -455,11 +457,12 @@ def test_knn_loss_kernels_on_edge_cases(dev, case):
 
 
 def test_knn_loss_kernels_refuse_shapes_they_do_not_take(dev):
-    """Tables other than 32 wide (a narrower embedding reaches the kernels
-    zero-padded by rank_table: test_knn_loss_kernels_take_narrow_tables),
-    slot counts past 32, a rank count that is not a multiple of the CTA's
-    128 rows and a table off 16-byte alignment raise ValueError before any
-    launch; so does the loss of an embedding wider than 32."""
+    """Tables that are not a multiple of 32 wide (any other embedding
+    reaches the kernels zero-padded by rank_table:
+    test_knn_loss_kernels_take_narrow_tables, _take_wide_tables), slot
+    counts past 32, a rank count that is not a multiple of the CTA's 128
+    rows and a table off 16-byte alignment raise ValueError before any
+    launch."""
     def args(Cp, E, K):
         return (torch.zeros(Cp, E, device=dev), torch.zeros(Cp, K, dtype=torch.int32, device=dev),
                 torch.zeros(Cp, K, device=dev), torch.zeros(Cp, device=dev))
@@ -467,7 +470,7 @@ def test_knn_loss_kernels_refuse_shapes_they_do_not_take(dev):
     rev_pair = torch.zeros(0, dtype=torch.int32, device=dev)
     before = (knn_loss.knn_rows.launches, knn_loss.knn_reverse.launches)
     for Cp, E, K in ((1024, 16, 20), (1024, 36, 20), (1024, 31, 20), (1024, 32, 33),
-                     (1000, 32, 20)):
+                     (1000, 32, 20), (1024, 80, 20), (1000, 64, 20)):
         emb_r, nbr, w, coef = args(Cp, E, K)
         with pytest.raises(ValueError):
             knn_loss.knn_rows(emb_r, nbr, w, coef)
@@ -479,10 +482,6 @@ def test_knn_loss_kernels_refuse_shapes_they_do_not_take(dev):
         knn_loss.knn_rows(shifted, nbr, w, coef)
     with pytest.raises(ValueError):
         knn_loss.knn_reverse(emb_r, w, shifted, rev_ptr, rev_pair)
-    # the trainer's path refuses an embedding wider than 32 on the card
-    graph, emb = knn_graph_case(dev, 1000, 5, True, {}, E=40)
-    with pytest.raises(ValueError):
-        knn_loss.knn_loss_fused(emb, graph, 5)
     assert (knn_loss.knn_rows.launches, knn_loss.knn_reverse.launches) == before
 
 
@@ -497,13 +496,24 @@ def test_knn_loss_kernels_take_narrow_tables(dev, E):
     check_knn_kernels(graph, emb, 2000, 20)
 
 
+@pytest.mark.parametrize("E", [48, 64, 100])
+def test_knn_loss_kernels_take_wide_tables(dev, E):
+    """An embedding wider than 32 runs in 32-column slabs (K6's wide kernel
+    finishes each edge's d2 over every slab before it forms s; K7 sums
+    one slab a CTA row), zero-padded to whole slabs by `rank_table`, and
+    matches the plain chain as check_knn_kernels holds the 32-wide table."""
+    graph, emb = knn_graph_case(dev, 2000, 20, True, dict(spill_a=1 << 12, spill_b=1 << 12),
+                                seed=5, E=E)
+    check_knn_kernels(graph, emb, 2000, 20)
+
+
 def check_knn_kernels(graph, emb, C, K):
     """K6 -> K7 against the plain chain on `graph`: the loss within 1e-5
     relative, every row of dL/demb within 1e-5 of its largest value, two
     runs bit-identical, one launch each per run, and the autograd Function
     returns the same gradient."""
     E = emb.shape[1]
-    emb_r = knn_loss.rank_table(emb, graph, knn_loss.KERNEL_E)   # zero columns past E
+    emb_r = knn_loss.rank_table(emb, graph, knn_loss.kernel_width(E))   # zero columns past E
     before = (knn_loss.knn_rows.launches, knn_loss.knn_reverse.launches)
     loss, de, s = knn_loss.knn_rows(emb_r, graph.nbr, graph.w, graph.coef)
     out = knn_loss.knn_reverse(emb_r, s, de, graph.rev_ptr, graph.rev_pair)
@@ -666,3 +676,19 @@ def test_blend_kernels_on_edge_cases(dev, case):
     assert bool((got[p.abs().amax(dim=1) == 0] == 0).all())
     if case == "cap":
         assert int(counts.max()) > chunk * rasterize_cuda.MAX_CHUNKS
+
+
+def test_png_unfilter_helper_on_the_card_machine(dev):
+    """The host C++ unfilter (csrc/png_unfilter.cpp) builds with the card
+    machine's g++ and equals its numpy version on random filtered streams
+    of every filter type, and a PNG the port encodes decodes to itself."""
+    from ed3dgs_torch.data import image_io
+    rng = np.random.default_rng(0)
+    for h, row_bytes, bpp in ((31, 3 * 57, 3), (12, 4 * 20, 4), (40, 64, 1)):
+        raw = rng.integers(0, 256, (h, row_bytes + 1), dtype=np.uint8)
+        raw[:, 0] = rng.integers(0, 5, h)
+        np.testing.assert_array_equal(image_io.unfilter(raw.tobytes(), h, row_bytes, bpp),
+                                      image_io.unfilter_plain(raw.reshape(-1), h, row_bytes,
+                                                              bpp))
+    img = rng.integers(0, 256, (550, 802, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(image_io.decode_png(image_io.encode_png(img)), img)

@@ -196,13 +196,14 @@ def test_reverse_adjacency_holds_exactly_the_weighted_edges():
     assert torch.equal(full, kept)
 
 
-@pytest.mark.parametrize("E", [8, 20, 31])
+@pytest.mark.parametrize("E", [8, 20, 31, 48, 100])
 def test_zero_padded_table_gives_the_unpadded_chain(E):
-    """The card runs an E-wide table through the 32-wide kernels zero-padded
-    by `rank_table`. On the plain chain (K6 -> K7) the padded table gives
+    """The card runs an E-wide table through the kernels zero-padded by
+    `rank_table` to whole 32-column slabs (32 wide for E < 32, 64 for 48,
+    128 for 100). On the plain chain (K6 -> K7) the padded table gives
     the unpadded one's loss, s and dL/de, and exact zeros in the padded
     columns. Bound: rtol 1e-4 (the plain versions' own bound against JAX):
-    torch.sum over 32 columns may add in another order than over E, the
+    torch.sum over the padded columns may add in another order than over E, the
     zero columns add exactly 0."""
     rng = np.random.default_rng(E)
     C, K = 700, 6
@@ -221,7 +222,7 @@ def test_zero_padded_table_gives_the_unpadded_chain(E):
         return loss, s, tkl.knn_reverse_plain(emb_r, s, de, graph.rev_ptr, graph.rev_pair)
 
     loss, s, grad = chain(E)
-    loss_p, s_p, grad_p = chain(tkl.KERNEL_E)
+    loss_p, s_p, grad_p = chain(tkl.kernel_width(E))
     assert float(loss_p) == pytest.approx(float(loss), rel=1e-4)
     np.testing.assert_allclose(s_p.numpy(), s.numpy(), rtol=1e-4, atol=0)
     np.testing.assert_allclose(grad_p[:, :E].numpy(), grad.numpy(), rtol=1e-4, atol=1e-9)

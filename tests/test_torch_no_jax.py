@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+Pillow, which the card machine lacks), its
 kernel wrappers launch nothing on CPU tensors, and its entry points refuse to
 fall back to the CPU when CUDA is asked for and absent."""
 
@@ -15,6 +16,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["PIL"] = None          # the card machine has no Pillow either
 import ed3dgs_torch
 names = [m.name for m in pkgutil.walk_packages(ed3dgs_torch.__path__, "ed3dgs_torch.")]
 for name in names:
@@ -25,7 +27,11 @@ assert sys.modules["jax"] is None
 for name in ("ed3dgs_torch.train.trainer", "ed3dgs_torch.train.optim",
              "ed3dgs_torch.train.losses", "ed3dgs_torch.train.densify",
              "ed3dgs_torch.ops.segment_sum", "ed3dgs_torch.ops.knn",
-             "ed3dgs_torch.ops.knn_loss"):
+             "ed3dgs_torch.ops.knn_loss", "ed3dgs_torch.tools.train",
+             "ed3dgs_torch.data.image_io", "ed3dgs_torch.data.readers",
+             "ed3dgs_torch.data.scene", "ed3dgs_torch.data.synthetic",
+             "ed3dgs_torch.data.native_staging", "ed3dgs_torch.train.sampling",
+             "ed3dgs_torch.train.capacity", "ed3dgs_torch.utils.tb_writer"):
     assert name in names, name
 print(len(names))
 """
@@ -36,7 +42,7 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 29   # every module of the three slices was imported
+    assert int(out.stdout.split()[-1]) >= 48   # every module of the seven slices was imported
 
 
 def test_chip_smoke_imports_without_jax():

@@ -292,7 +292,6 @@ def test_step_aux_update_matches_jax(f32_steps):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(colmap_supervision=True), "COLMAP"),
     (dict(comms="strip"), "strip"),
     (dict(batch_mode="vmap"), "vmap"),
 ])
