@@ -80,13 +80,38 @@ chunk 128):
    PSNRs, alive points at start and end, densify events, pair-capacity
    changes and the phase's launches. It fails on a kernel that did not
    launch, a loss that is not finite, a last window whose train PSNR is
-   not above the first's, or a resumed or reloaded state that differs.
+   not above the first's, or a resumed or reloaded state that differs;
+7. the `serve` phase, on the `cli` phase's scene and trained model (the
+   saved iteration 300): `ed3dgs_torch.tools.render.main` on the train,
+   test and video splits at 802x550 (the train and video splits cut to
+   SERVE_FRAMES frames, the test split's 8 whole), `tools.metrics.main` on
+   the test renders, `tools.mesh_extract.main` at timestep 0 (the three
+   train views, eight binary steps) and `tools.evaluate_mesh.main` against
+   the scene's own point cloud. Every count is set to 0 just before: K1 and
+   K5a must have launched once per frame and mask rendered, K4 also once
+   per integration. It prints a `serve` JSON line: frames per split, the
+   tool's FPS, the median render ms (after a synchronise) and PNG-save ms
+   a frame, the launches, PSNR/SSIM/LPIPS from results.json, the tetra
+   point count, the Delaunay, SDF and whole extraction seconds, the mesh's
+   vertex and face counts and its distance to the cloud. Then it renders
+   the same test frames through `render()` and scores them in float
+   (`float_test_psnr`), and runs `ops.integrate.integrate_points` on the
+   card and on the CPU on the tetra points of 4096 of the model's
+   Gaussians. It fails on a launch count that differs, a metrics PSNR more
+   than SERVE_PSNR_TOL dB from the float PSNR of the same frames (the tool
+   reads 8-bit PNGs), an empty mesh or one with a vertex that is not
+   finite, or a card integration further than INTEGRATE_TOL from the CPU's.
+   The `cli` phase's last test PSNR is printed beside them, but it scores
+   another function: the trainer renders at its iteration (300: the
+   deformation's annealing at 0.25-0.3 and 4 of 8 temporal embeddings),
+   the tools, as the JAX package's, at iteration 10**9 (all schedules
+   done).
 
 Weights are random, from numpy seeds; so are the training targets. Results go
 to DIR/chip_smoke.json (default smoke_out/ in the checkout), with the
-profiles and nvcc's register report beside it. The last four lines of
-standard output are the `cli` JSON line, the card as nvidia-smi names it,
-the kernels' JSON line and the result line. Any failure exits non-zero before the result line.
+profiles and nvcc's register report beside it. The last five lines of
+standard output are the `cli` and `serve` JSON lines, the card as
+nvidia-smi names it, the kernels' JSON line and the result line. Any failure exits non-zero before the result line.
 Needs one CUDA device; refuses to run without one.
 """
 
@@ -185,6 +210,14 @@ CLI_SET = ["deform_from_iter=50", "densify_from_iter=100", "densify_until_iter=2
            "densification_interval=50", "radegs_regularization_from_iter=0",
            "min_embeddings=4", "max_embeddings=8"]
 CLI_WINDOW = 100             # iterations a loss / PSNR window averages
+# The serve phase: the tools on the cli phase's model. The train (24 views)
+# and video splits are cut to SERVE_FRAMES frames; the test split has 8.
+SERVE_FRAMES = 16
+SERVE_PSNR_TOL = 0.5         # dB between the metrics tool and the cli test PSNR
+# integrate_points on the card against the CPU, on the tetra points of
+# INTEGRATE_N Gaussians of the trained model: every output within
+# INTEGRATE_TOL
+INTEGRATE_N, INTEGRATE_TOL = 4096, 1e-5
 
 KERNELS = {
     "K1": dict(name="forward_blend", route="cuda",
@@ -412,8 +445,8 @@ def make_batch(torch, cam, B, t, use_ssim, seed, device):
             "use_ssim": use_ssim}
 
 
-def cli_phase(torch, counters, bare_step_ms):
-    """The `cli` phase: generate the scene on the card, train through
+def cli_phase(torch, counters, bare_step_ms, tmp):
+    """The `cli` phase, in the directory `tmp`: generate the scene on the card, train through
     `ed3dgs_torch.tools.train.main` (CLI_ITERS iterations, a checkpoint at
     CLI_CKPT, the model saved at the end, a test PSNR every
     CLI_TEST_EVERY), resume from the checkpoint for CLI_RESUME iterations,
@@ -421,9 +454,8 @@ def cli_phase(torch, counters, bare_step_ms):
     Returns the phase's numbers; fails the run on a kernel of K1-K7 that
     did not launch, a loss that is not finite, a last window whose train
     PSNR is not above the first's, a resumed state that is not the
-    checkpoint it read, or a reloaded render that is not bit-identical."""
-    import tempfile
-
+    checkpoint it read, or a reloaded render that is not bit-identical.
+    The scene and the model stay in `tmp` for the serve phase."""
     from ed3dgs_torch import convert
     from ed3dgs_torch.data.synthetic import generate_scene
     from ed3dgs_torch.ops.rasterize import RasterConfig
@@ -434,79 +466,78 @@ def cli_phase(torch, counters, bare_step_ms):
         fn.launches = 0
     out = {}
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="ed3dgs_cli_") as tmp:
-        scene_dir, model_dir = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
+    scene_dir, model_dir = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
+    t0 = time.perf_counter()
+    generate_scene(scene_dir, n_cams=CLI_CAMS, n_frames=CLI_FRAMES, width=WIDTH,
+                   height=HEIGHT, n_points=CLI_POINTS, seed=0, device=DEVICE)
+    out["scene_s"] = time.perf_counter() - t0
+    argv = ["-s", scene_dir, "-m", model_dir,
+            "--configs", os.path.join(REPO, "configs", "nersemble", "default.py"),
+            "--duration", str(CLI_FRAMES), "--test_every", str(CLI_TEST_EVERY),
+            "--quiet", "--seed", "0", "--device", DEVICE]
+    t0 = time.perf_counter()
+    scene, state, aux, log = train_tool.main(
+        argv + ["--iterations", str(CLI_ITERS), "--checkpoint_iterations", str(CLI_CKPT),
+                "--set", *CLI_SET])
+    out["train_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: counters[k].launches for k in ("K1", "K2", "K3", "K4", "K5a", "K5b",
+                                                  "K6", "K7")}
+
+    # resume from the checkpoint: the state it loads is the file's
+    ckpt = os.path.join(model_dir, f"chkpnt{CLI_CKPT}.npz")
+    loaded = {}
+    orig_load = train_tool.load_checkpoint
+
+    def load_and_keep(*a, **kw):
+        res = orig_load(*a, **kw)
+        loaded["flat"] = convert.checkpoint_arrays(res[0], res[1])
+        loaded["next"] = res[2]
+        return res
+    train_tool.load_checkpoint = load_and_keep
+    try:
         t0 = time.perf_counter()
-        generate_scene(scene_dir, n_cams=CLI_CAMS, n_frames=CLI_FRAMES, width=WIDTH,
-                       height=HEIGHT, n_points=CLI_POINTS, seed=0, device=DEVICE)
-        out["scene_s"] = time.perf_counter() - t0
-        argv = ["-s", scene_dir, "-m", model_dir,
-                "--configs", os.path.join(REPO, "configs", "nersemble", "default.py"),
-                "--duration", str(CLI_FRAMES), "--test_every", str(CLI_TEST_EVERY),
-                "--quiet", "--seed", "0", "--device", DEVICE]
-        t0 = time.perf_counter()
-        scene, state, aux, log = train_tool.main(
-            argv + ["--iterations", str(CLI_ITERS), "--checkpoint_iterations", str(CLI_CKPT),
-                    "--set", *CLI_SET])
-        out["train_s"] = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        launches = {k: counters[k].launches for k in ("K1", "K2", "K3", "K4", "K5a", "K5b",
-                                                      "K6", "K7")}
+        _, _, _, rlog = train_tool.main(
+            [a.replace(model_dir, model_dir + "_resume") for a in argv]
+            + ["--iterations", str(CLI_CKPT + CLI_RESUME), "--start_checkpoint", ckpt,
+               "--no_tensorboard", "--set", *CLI_SET])
+        out["resume_s"] = time.perf_counter() - t0
+    finally:
+        train_tool.load_checkpoint = orig_load
+    with np.load(ckpt) as data:
+        saved = {k: data[k] for k in data.files}
+    resume_same = (loaded.get("next") == CLI_CKPT + 1 and set(saved) == set(loaded["flat"])
+                   and all(np.array_equal(saved[k], loaded["flat"][k])
+                           and saved[k].dtype == loaded["flat"][k].dtype for k in saved))
 
-        # resume from the checkpoint: the state it loads is the file's
-        ckpt = os.path.join(model_dir, f"chkpnt{CLI_CKPT}.npz")
-        loaded = {}
-        orig_load = train_tool.load_checkpoint
-
-        def load_and_keep(*a, **kw):
-            res = orig_load(*a, **kw)
-            loaded["flat"] = convert.checkpoint_arrays(res[0], res[1])
-            loaded["next"] = res[2]
-            return res
-        train_tool.load_checkpoint = load_and_keep
-        try:
-            t0 = time.perf_counter()
-            _, _, _, rlog = train_tool.main(
-                [a.replace(model_dir, model_dir + "_resume") for a in argv]
-                + ["--iterations", str(CLI_CKPT + CLI_RESUME), "--start_checkpoint", ckpt,
-                   "--no_tensorboard", "--set", *CLI_SET])
-            out["resume_s"] = time.perf_counter() - t0
-        finally:
-            train_tool.load_checkpoint = orig_load
-        with np.load(ckpt) as data:
-            saved = {k: data[k] for k in data.files}
-        resume_same = (loaded.get("next") == CLI_CKPT + 1 and set(saved) == set(loaded["flat"])
-                       and all(np.array_equal(saved[k], loaded["flat"][k])
-                               and saved[k].dtype == loaded["flat"][k].dtype for k in saved))
-
-        # reload the saved model with the port's loader; render both
-        cap = state.params["gaussians"].xyz.shape[0]
-        cfg = train_tool.build_config(train_tool.parse_args(
-            argv + ["--iterations", str(CLI_ITERS), "--set", *CLI_SET]))
-        params2, aux2, deform2 = convert.load_model(model_dir, CLI_ITERS, capacity=cap,
-                                                    sh_degree=cfg.model.sh_degree, device=DEVICE)
-        test_cam = scene.test_cameras[0]
-        m = test_cam.matrices()
-        rcfg = RasterConfig(width=m.width, height=m.height, focal_x=m.focal_x, focal_y=m.focal_y,
-                            pair_capacity=PAIR_CAPACITY, chunk=cfg.opt.raster_chunk)
-        f32 = dict(dtype=torch.float32, device=DEVICE)
-        s = RenderSettings(torch.as_tensor(m.world_view, **f32),
-                           torch.as_tensor(m.full_proj, **f32), torch.as_tensor(m.campos, **f32),
-                           torch.tensor(0.5, **f32), torch.zeros((), dtype=torch.int64,
-                                                                   device=DEVICE))
-        bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0, **f32)
-        kw = dict(iteration=CLI_ITERS, sh_degree=cfg.model.sh_degree,
-                  kernel_size=cfg.model.kernel_size, disable_filter3d=cfg.model.disable_filter3D,
-                  num_down_emb_c=cfg.hidden.min_embeddings,
-                  num_down_emb_f=cfg.hidden.min_embeddings)
-        with torch.no_grad():
-            r_mem = render(state.params["gaussians"], aux, state.params["deform"], cfg.hidden, s,
-                           rcfg, bg, **kw)
-            r_disk = render(params2, aux2, deform2, cfg.hidden, s, rcfg, bg, **kw)
-        reload_same = all(torch.equal(r_mem[k], r_disk[k])
-                          for k in ("render", "mask", "expected_depth", "median_depth",
-                                    "expected_coord", "median_coord", "normal"))
-        alive_same = int(aux2.alive.sum()) == int(aux.alive.sum())
+    # reload the saved model with the port's loader; render both
+    cap = state.params["gaussians"].xyz.shape[0]
+    cfg = train_tool.build_config(train_tool.parse_args(
+        argv + ["--iterations", str(CLI_ITERS), "--set", *CLI_SET]))
+    params2, aux2, deform2 = convert.load_model(model_dir, CLI_ITERS, capacity=cap,
+                                                sh_degree=cfg.model.sh_degree, device=DEVICE)
+    test_cam = scene.test_cameras[0]
+    m = test_cam.matrices()
+    rcfg = RasterConfig(width=m.width, height=m.height, focal_x=m.focal_x, focal_y=m.focal_y,
+                        pair_capacity=PAIR_CAPACITY, chunk=cfg.opt.raster_chunk)
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    s = RenderSettings(torch.as_tensor(m.world_view, **f32),
+                       torch.as_tensor(m.full_proj, **f32), torch.as_tensor(m.campos, **f32),
+                       torch.tensor(0.5, **f32), torch.zeros((), dtype=torch.int64,
+                                                               device=DEVICE))
+    bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0, **f32)
+    kw = dict(iteration=CLI_ITERS, sh_degree=cfg.model.sh_degree,
+              kernel_size=cfg.model.kernel_size, disable_filter3d=cfg.model.disable_filter3D,
+              num_down_emb_c=cfg.hidden.min_embeddings,
+              num_down_emb_f=cfg.hidden.min_embeddings)
+    with torch.no_grad():
+        r_mem = render(state.params["gaussians"], aux, state.params["deform"], cfg.hidden, s,
+                       rcfg, bg, **kw)
+        r_disk = render(params2, aux2, deform2, cfg.hidden, s, rcfg, bg, **kw)
+    reload_same = all(torch.equal(r_mem[k], r_disk[k])
+                      for k in ("render", "mask", "expected_depth", "median_depth",
+                                "expected_coord", "median_coord", "normal"))
+    alive_same = int(aux2.alive.sum()) == int(aux.alive.sum())
     out["wall_s"] = time.perf_counter() - t_phase
 
     n = len(log["iter_ms"])
@@ -530,9 +561,9 @@ def cli_phase(torch, counters, bare_step_ms):
         capacity_changes=len(log["capacity"]), capacity=log["capacity"],
         resume_loss_last=float(rlog["loss"][-1]) if rlog["loss"] else None,
         resume_same=bool(resume_same), reload_render_identical=bool(reload_same),
-        launches=launches)
-    print("cli: " + ", ".join(f"{k}={v}" for k, v in out.items() if k not in ("densify",)),
-          flush=True)
+        launches=launches, scene_dir=scene_dir, model_dir=model_dir, argv=argv)
+    print("cli: " + ", ".join(f"{k}={v}" for k, v in out.items()
+                              if k not in ("densify", "argv")), flush=True)
     bad = [k for k, v in launches.items() if v == 0]
     if bad:
         fail(f"cli: kernels {bad} did not launch during the phase")
@@ -546,6 +577,169 @@ def cli_phase(torch, counters, bare_step_ms):
         fail("cli: the resumed state differs from the checkpoint it read")
     if not (reload_same and alive_same):
         fail("cli: the reloaded model does not render bit-identically to the in-memory state")
+    return out
+
+
+def serve_phase(torch, counters, cli):
+    """The `serve` phase on the `cli` phase's scene and model: the render,
+    metrics, mesh-extraction and mesh-evaluation tools, then
+    integrate_points on the card against the CPU. Returns the phase's
+    numbers; fails the run on a launch count that differs from the frames,
+    masks and integrations, a metrics PSNR off the cli phase's last test
+    PSNR, an empty or non-finite mesh, or an integration that disagrees."""
+    from ed3dgs_torch.convert import deform_from_flat
+    from ed3dgs_torch.core.projection import project_gaussians
+    from ed3dgs_torch.data.ply import read_mesh_ply
+    from ed3dgs_torch.data.scene import Scene, read_deformation
+    from ed3dgs_torch.mesh.extract import deformed_gaussians
+    from ed3dgs_torch.mesh.tetra import get_tetra_points
+    from ed3dgs_torch.ops.integrate import integrate_points
+    from ed3dgs_torch.ops.rasterize import RasterConfig
+    from ed3dgs_torch.render import RenderSettings, render
+    from ed3dgs_torch.tools import evaluate_mesh, mesh_extract, metrics
+    from ed3dgs_torch.train.losses import psnr
+    from ed3dgs_torch.tools import render as render_tool
+    from ed3dgs_torch.tools import train as train_tool
+
+    scene_dir, model_dir = cli["scene_dir"], cli["model_dir"]
+    config = os.path.join(REPO, "configs", "nersemble", "default.py")
+    argv = ["-m", model_dir, "-s", scene_dir, "--configs", config,
+            "--duration", str(CLI_FRAMES), "--iteration", str(CLI_ITERS), "--device", DEVICE]
+    sets = ["--set", *CLI_SET]
+    out = {}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stats = render_tool.main(argv + ["--max_frames", str(SERVE_FRAMES)] + sets)
+    out["render_s"] = time.perf_counter() - t0
+    frames = {k: v["frames"] for k, v in stats.items()}
+    render_ms = [ms for v in stats.values() for ms in v["render_ms"]]
+    save_ms = [ms for v in stats.values() for ms in v["save_ms"]]
+    out.update(frames=frames, fps={k: v["fps"] for k, v in stats.items()},
+               render_ms_median=float(np.median(render_ms)),
+               save_ms_median=float(np.median(save_ms)))
+
+    t0 = time.perf_counter()
+    scores = metrics.main(["-m", model_dir, "--device", DEVICE])[model_dir]
+    out["metrics_s"] = time.perf_counter() - t0
+    entry = scores[f"ours_{CLI_ITERS}"]
+    cli_psnr = cli["test_psnr"][-1][1]
+    out.update(psnr=entry["PSNR"], ssim=entry["SSIM"], lpips_vgg=entry["LPIPS-vgg"],
+               lpips_alex=entry["LPIPS-alex"], cli_test_psnr=cli_psnr)
+
+    t0 = time.perf_counter()
+    done = mesh_extract.main(argv + ["--start_timestep_index", "0",
+                                     "--end_timestep_index", "1"] + sets)
+    out["mesh_extract_s"] = time.perf_counter() - t0
+    n_verts, n_faces, mstats = done[0]
+    masks = mstats["views"] * mstats["sdf_evaluations"]
+    out.update(tetra_points=mstats["tetra_points"], tets=mstats["tets"],
+               delaunay_s=mstats["delaunay_s"], sdf_s=mstats["sdf_s"],
+               extract_s=mstats["total_s"], vertices=n_verts, faces=n_faces,
+               sdf_evaluations=mstats["sdf_evaluations"], masks=masks)
+    torch.cuda.synchronize()
+    launches = {k: counters[k].launches for k in ("K1", "K4", "K5a")}
+    n_frames = sum(frames.values())
+    expected = {"K1": n_frames + masks, "K4": n_frames + 2 * masks, "K5a": n_frames + masks}
+    out.update(launches=launches, expected_launches=expected)
+
+    verts, faces = read_mesh_ply(os.path.join(model_dir, "meshes", "00000", "recon.ply"))
+    gt_dir = os.path.join(os.path.dirname(model_dir), "gt")
+    os.makedirs(gt_dir, exist_ok=True)
+    os.link(os.path.join(scene_dir, "points3D_downsample.ply"),
+            os.path.join(gt_dir, "00000.ply"))
+    t0 = time.perf_counter()
+    evaluation = evaluate_mesh.main(["-m", model_dir, "--gt_dir", gt_dir, "--device", DEVICE])
+    out["evaluate_s"] = time.perf_counter() - t0
+    out.update(mesh_distance_mm=evaluation["00000"]["mean_distance_mm"],
+               normal_similarity=evaluation["00000"]["normal_similarity"])
+
+    # the float PSNR of the same test frames: render() with the tool's
+    # arguments on the card, scored before any quantisation
+    cfg = train_tool.build_config(train_tool.parse_args(
+        cli["argv"] + ["--iterations", str(CLI_ITERS), "--set", *CLI_SET]))
+    scene = Scene(cfg.model, cfg.hidden, capacity=cfg.opt.max_number_gaussians,
+                  duration=CLI_FRAMES, load_iteration=CLI_ITERS, shuffle=False, device=DEVICE)
+    params, aux = scene.params, scene.aux
+    dparams = deform_from_flat(read_deformation(os.path.join(
+        model_dir, "point_cloud", f"iteration_{CLI_ITERS}")), device=DEVICE)
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0, **f32)
+    test_cams = sorted(scene.test_cameras, key=lambda c: (c.cam_no, c.frame_no))[:SERVE_FRAMES]
+    m = test_cams[0].matrices()
+    rcfg = RasterConfig(width=m.width, height=m.height, focal_x=m.focal_x, focal_y=m.focal_y,
+                        pair_capacity=cfg.opt.pair_capacity, chunk=cfg.opt.raster_chunk)
+    psnrs = []
+    for cam in test_cams:
+        m = cam.matrices()
+        s_ = RenderSettings(torch.as_tensor(m.world_view, **f32),
+                            torch.as_tensor(m.full_proj, **f32), torch.as_tensor(m.campos, **f32),
+                            torch.tensor(cam.time, **f32), None)
+        with torch.no_grad():
+            img = render(params, aux, dparams, cfg.hidden, s_, rcfg, bg, iteration=10 ** 9,
+                         sh_degree=cfg.model.sh_degree, kernel_size=cfg.model.kernel_size,
+                         disable_filter3d=cfg.model.disable_filter3D,
+                         num_down_emb_c=cfg.hidden.min_embeddings,
+                         num_down_emb_f=cfg.hidden.min_embeddings)["render"]
+        gt = torch.as_tensor(cam.image, **f32)
+        cam.release_image()
+        psnrs.append(float(psnr(img[None], gt[None])[0]))
+    float_psnr = float(np.mean(psnrs))
+    out["float_test_psnr"] = float_psnr
+
+    # integrate_points on the card and on the CPU: the tetra points of
+    # INTEGRATE_N of the model's Gaussians, deformed at t = 0 on the card
+    with torch.no_grad():
+        xyz, scales_f, rot_raw, opac_f, shs_f = deformed_gaussians(
+            params, aux, dparams, cfg.hidden, 0.0, cfg.hidden.min_embeddings, CLI_ITERS)
+    keep = torch.nonzero(aux.alive)[:INTEGRATE_N, 0]
+    cut = [t[keep] for t in (xyz, scales_f, rot_raw, opac_f, shs_f)]
+    pts, _ = get_tetra_points(*(t.cpu().numpy() for t in (cut[0], cut[2], cut[1])),
+                              device=DEVICE)
+    m = sorted(scene.train_cameras, key=lambda c: (c.cam_no, c.frame_no))[0].matrices()
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        xyz_d, sc_d, rot_d, op_d, sh_d = (t.to(dev) for t in cut)
+        rot_sq = torch.sum(rot_d * rot_d, dim=-1, keepdim=True)
+        rot_act = rot_d / torch.sqrt(torch.where(rot_sq < 1e-24, torch.ones_like(rot_sq), rot_sq))
+        f32 = dict(dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            proj = project_gaussians(
+                xyz_d, sc_d, rot_act, op_d[:, 0], sh_d,
+                viewmatrix=torch.as_tensor(m.world_view, **f32),
+                projmatrix=torch.as_tensor(m.full_proj, **f32),
+                campos=torch.as_tensor(m.campos, **f32), width=m.width, height=m.height,
+                tan_fovx=m.tan_fovx, tan_fovy=m.tan_fovy, focal_x=m.focal_x,
+                focal_y=m.focal_y, kernel_size=cfg.model.kernel_size,
+                sh_degree=cfg.model.sh_degree, compute_invraycov=True)
+            t0 = time.perf_counter()
+            got[dev] = integrate_points(
+                proj, torch.as_tensor(pts, **f32),
+                viewmatrix=torch.as_tensor(m.world_view, **f32), width=m.width,
+                height=m.height, focal_x=m.focal_x, focal_y=m.focal_y,
+                pair_capacity=cfg.opt.pair_capacity)
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+            out[f"integrate_{'card' if dev == DEVICE else 'cpu'}_s"] = time.perf_counter() - t0
+    diffs = {k: float((getattr(got[DEVICE], k).cpu().float()
+                       - getattr(got["cpu"], k).float()).abs().max())
+             for k in got["cpu"]._fields}
+    beyond = {k: int(((getattr(got[DEVICE], k).cpu().float()
+                       - getattr(got["cpu"], k).float()).abs() > INTEGRATE_TOL).sum())
+              for k in got["cpu"]._fields}
+    out.update(integrate_points=len(pts), integrate_valid=int(got["cpu"].point_valid.sum()),
+               integrate_max_diff=diffs, integrate_beyond_tol=beyond)
+    print("serve: " + ", ".join(f"{k}={v}" for k, v in out.items()), flush=True)
+
+    if launches != expected:
+        fail(f"serve: launches {launches} differ from the frames and masks rendered {expected}")
+    if not abs(entry["PSNR"] - float_psnr) <= SERVE_PSNR_TOL:
+        fail(f"serve: metrics PSNR {entry['PSNR']:.3f} is more than {SERVE_PSNR_TOL} dB from "
+             f"the float PSNR of the same frames, {float_psnr:.3f}")
+    if n_verts == 0 or n_faces == 0 or len(verts) != n_verts or not np.all(np.isfinite(verts)):
+        fail("serve: the mesh is empty or has a vertex that is not finite")
+    if max(diffs.values()) > INTEGRATE_TOL:
+        fail(f"serve: integrate_points on the card differs from the CPU's: {diffs}")
     return out
 
 
@@ -1393,8 +1587,11 @@ def main():
     result["small_densify"] = dict(n_cloned=int(dh.n_cloned), n_split=int(dh.n_split),
                                    param_rel=dens_err, create_rel=made_err)
 
-    # ---- 6. the training CLI on a scene on disk --------------------------
-    result["cli"] = cli_phase(torch, counters, result["train_step_ms"])
+    # ---- 6. the training CLI on a scene on disk, 7. the serving tools ------
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="ed3dgs_cli_") as tmp:
+        result["cli"] = cli_phase(torch, counters, result["train_step_ms"], tmp)
+        result["serve"] = serve_phase(torch, counters, result["cli"])
 
     order = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "K8")
     kernel_rows = [dict(rows[k], launches=train_launches[k]) for k in order]
@@ -1408,6 +1605,12 @@ def main():
                 "test_psnr", "points_start", "points_end", "densify_events", "capacity_changes",
                 "launches")
     print(json.dumps({"cli": {k: result["cli"][k] for k in cli_keys}}), flush=True)
+    serve_keys = ("frames", "fps", "render_ms_median", "save_ms_median", "launches", "psnr",
+                  "ssim", "lpips_vgg", "lpips_alex", "float_test_psnr", "cli_test_psnr",
+                  "tetra_points",
+                  "delaunay_s", "sdf_s", "extract_s", "vertices", "faces",
+                  "mesh_distance_mm", "integrate_max_diff")
+    print(json.dumps({"serve": {k: result["serve"][k] for k in serve_keys}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -45,6 +45,14 @@ class ProjectedGaussians(NamedTuple):
     cov3d: torch.Tensor          # [N, 6] packed world covariance
 
 
+# The integrate path's projection (`compute_invraycov=True`): every field of
+# ProjectedGaussians, then the ray-space inverse covariance [N, 6] and
+# whether the world covariance was well conditioned [N] bool.
+RayProjectedGaussians = NamedTuple("RayProjectedGaussians", [
+    *ProjectedGaussians.__annotations__.items(),
+    ("invraycov", torch.Tensor), ("well_conditioned", torch.Tensor)])
+
+
 def _where0(mask, x):
     return torch.where(mask, x, torch.zeros_like(x))
 
@@ -76,9 +84,15 @@ def project_gaussians(
     colors_precomp: Optional[torch.Tensor] = None,
     mask: Optional[torch.Tensor] = None,
     mean2d_offset: Optional[torch.Tensor] = None,
+    compute_invraycov: bool = False,
 ) -> ProjectedGaussians:
     """Project N Gaussians into one camera. means3d [N,3], scales [N,3]
-    (activated), quats [N,4] (unit), opacities [N], shs [N,K,3]."""
+    (activated), quats [N,4] (unit), opacities [N], shs [N,K,3].
+
+    `compute_invraycov` returns a RayProjectedGaussians instead, with the
+    integrate path's ray-space inverse covariance `invraycov` [N, 6] and
+    `well_conditioned` [N] (whether the world covariance's smallest
+    eigenvalue cleared the pseudo-inverse's threshold; ops/integrate.py)."""
     f32 = torch.float32
     means3d = means3d.to(f32)
     V = viewmatrix.to(f32)
@@ -157,7 +171,7 @@ def project_gaussians(
     tiles = _where0(valid, tiles)
 
     # --- RaDe-GS plane/normal geometry (forward.cu:135-262)
-    sigma_inv, _ = sym3_pseudo_inverse_min(cov3d)
+    sigma_inv, well = sym3_pseudo_inverse_min(cov3d)
     cov_cam_inv = sym3_congruence(R_cw, sigma_inv)
     ones = torch.ones_like(u)
     uvh = torch.stack([u, v, ones], dim=-1)
@@ -209,12 +223,37 @@ def project_gaussians(
     ts_ok = ts2 > 1e-16
     ts = _where0(ts_ok, torch.sqrt(torch.where(ts_ok, ts2, torch.ones_like(ts2))))
 
+    if compute_invraycov:
+        # integrate path (forward.cu:187-234): the 3D inverse covariance in
+        # (pixel-x, pixel-y, ray-depth) space,
+        #   invraycov = S . nJif . Sigma_cam^-1 . nJif^T . S,
+        # with nJif the full inverse ray Jacobian and S = diag(1/fx, 1/fy, 1).
+        # For an ill-conditioned covariance the reference writes an
+        # uninitialised matrix (forward.cu:201-235); as in the JAX package,
+        # the same closed form runs on the pseudo-inverse instead, which is
+        # deterministic, and `well_conditioned` gates the blend.
+        fac = tz * inv_nl
+        nJif = torch.stack([
+            torch.stack([(v2 + 1.0) * fac, -uv * fac, -u * fac], -1),
+            torch.stack([-uv * fac, (u2 + 1.0) * fac, -v * fac], -1),
+            torch.stack([u * tz / l, v * tz / l, tz / l], -1),
+        ], dim=-2)  # [N, 3, 3]
+        xx, xy, xz, yy, yz, zz = cov_cam_inv.unbind(-1)
+        sig = torch.stack([torch.stack([xx, xy, xz], -1), torch.stack([xy, yy, yz], -1),
+                           torch.stack([xz, yz, zz], -1)], dim=-2)
+        icr = torch.einsum("nij,njk,nlk->nil", nJif, sig, nJif)
+        sdiag = torch.tensor([1.0 / focal_x, 1.0 / focal_y, 1.0], dtype=f32,
+                             device=icr.device)
+        icr = icr * sdiag[None, :, None] * sdiag[None, None, :]
+        invraycov = torch.stack([icr[:, 0, 0], icr[:, 0, 1], icr[:, 0, 2],
+                                 icr[:, 1, 1], icr[:, 1, 2], icr[:, 2, 2]], dim=-1)
+
     if colors_precomp is not None:
         rgb = colors_precomp.to(f32)
     else:
         rgb = sh_to_rgb(sh_degree, shs.to(f32), means3d, campos.to(f32))
 
-    return ProjectedGaussians(
+    proj = ProjectedGaussians(
         valid=valid,
         mean2d=mean2d,
         depth=p_view[:, 2],
@@ -232,3 +271,6 @@ def project_gaussians(
         rgb=rgb,
         cov3d=cov3d,
     )
+    if compute_invraycov:
+        return RayProjectedGaussians(*proj, invraycov, well)
+    return proj

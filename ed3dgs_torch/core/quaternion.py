@@ -20,6 +20,12 @@ def quat_rotmat_entries(q: torch.Tensor):
             2.0 * (x * z - r * y), 2.0 * (y * z + r * x), 1.0 - 2.0 * (x * x + y * y))
 
 
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w,x,y,z) [..., 4] -> rotation matrix [..., 3, 3]
+    (reference build_rotation, utils/general_utils.py:81-103)."""
+    return torch.stack(quat_rotmat_entries(q), dim=-1).reshape(q.shape[:-1] + (3, 3))
+
+
 def build_covariance_3d(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
     """World covariance R S^2 R^T, packed [..., 6]; scales [..., 3] activated,
     quats [..., 4] unit."""

@@ -19,6 +19,8 @@ images on a machine without Pillow.
   when shrinking), the same fixed-point coefficients (22 fraction bits)
   and rounding, horizontal pass first, each pass rounded to 8 bits, and
   RGBA / gray+alpha resized premultiplied by alpha as PIL does.
+- `resize_bilinear`: `Image.resize(size, Image.BILINEAR)` through the
+  same fixed-point passes with PIL's triangle filter (support 1).
 - `load_image`: a PNG as PIL's `np.asarray(Image.open(path).resize(...))`
   gives it: [H, W] for gray, [H, W, C] otherwise, uint8.
 """
@@ -164,10 +166,11 @@ def read_png(path: str) -> np.ndarray:
         return decode_png(f.read())
 
 
-# --- Lanczos resize ---------------------------------------------------------
+# --- PIL's resampling: Lanczos and bilinear ---------------------------------
 
 PRECISION_BITS = 32 - 8 - 2        # PIL's fixed-point fraction bits for 8-bit images
 LANCZOS_SUPPORT = 3.0
+BILINEAR_SUPPORT = 1.0
 
 
 def _sinc(x: float) -> float:
@@ -181,14 +184,20 @@ def _lanczos(x: float) -> float:
     return _sinc(x) * _sinc(x / 3.0) if -3.0 <= x < 3.0 else 0.0
 
 
-def _coefficients(in_size: int, out_size: int):
+def _bilinear(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _coefficients(in_size: int, out_size: int, kernel=_lanczos, support=LANCZOS_SUPPORT):
     """PIL's precompute_coeffs + normalize_coeffs_8bpc, in its operation
-    order (scalar libm arithmetic, sequential sums): per output index, the
-    first input index and the integer weights [out_size, ksize] (zeros past
-    each window)."""
+    order (scalar libm arithmetic, sequential sums), for the filter
+    `kernel` of half-width `support`: per output index, the first input
+    index and the integer weights [out_size, ksize] (zeros past each
+    window)."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = LANCZOS_SUPPORT * filterscale
+    support = support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     ss = 1.0 / filterscale
     one = float(1 << PRECISION_BITS)
@@ -198,7 +207,7 @@ def _coefficients(in_size: int, out_size: int):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        k = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        k = [kernel((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         ww = 0.0
         for v in k:
             ww += v
@@ -210,10 +219,10 @@ def _coefficients(in_size: int, out_size: int):
     return xmins, fixed
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int, kernel, support) -> np.ndarray:
     """One 8-bit pass along `axis` of an int64 [H, W, C] image."""
     in_size = img.shape[axis]
-    xmins, k = _coefficients(in_size, out_size)
+    xmins, k = _coefficients(in_size, out_size, kernel, support)
     taps = np.clip(xmins[:, None] + np.arange(k.shape[1])[None, :], 0, in_size - 1)
     src = np.take(img, taps, axis=axis)           # [..., out, ksize, ...]
     if axis == 0:
@@ -241,10 +250,7 @@ def _unpremultiply(img: np.ndarray) -> np.ndarray:
     return np.concatenate([np.where(keep, img[..., :-1], div), a], axis=-1)
 
 
-def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
-    """uint8 [H, W] or [H, W, C] -> [height, width(, C)] as PIL's
-    `Image.resize((width, height), Image.LANCZOS)` gives it; the array
-    itself at the same size."""
+def _resize(img: np.ndarray, width: int, height: int, kernel, support) -> np.ndarray:
     arr = np.asarray(img)
     if arr.shape[0] == height and arr.shape[1] == width:
         return arr
@@ -254,13 +260,28 @@ def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
     if alpha:
         x = _premultiply(x)
     if x.shape[1] != width:
-        x = _resample_axis(x, width, axis=1)
+        x = _resample_axis(x, width, 1, kernel, support)
     if x.shape[0] != height:
-        x = _resample_axis(x, height, axis=0)
+        x = _resample_axis(x, height, 0, kernel, support)
     if alpha:
         x = _unpremultiply(x)
     out = x.astype(np.uint8)
     return out[..., 0] if gray else out
+
+
+def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """uint8 [H, W] or [H, W, C] -> [height, width(, C)] as PIL's
+    `Image.resize((width, height), Image.LANCZOS)` gives it; the array
+    itself at the same size."""
+    return _resize(img, width, height, _lanczos, LANCZOS_SUPPORT)
+
+
+def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """uint8 [H, W] or [H, W, C] -> [height, width(, C)] as PIL's
+    `Image.resize((width, height), Image.BILINEAR)` gives it: the same
+    fixed-point passes with the triangle filter (support 1, stretched by
+    the scale when shrinking)."""
+    return _resize(img, width, height, _bilinear, BILINEAR_SUPPORT)
 
 
 def load_image(path: str, width: int, height: int) -> np.ndarray:

@@ -1,9 +1,10 @@
 """Minimal PLY reader/writer (no external plyfile dependency); the port's
 own copy of ed3dgs_tpu/data/ply.py, pure numpy.
 
-Supports the two layouts the pipeline needs:
+Supports the layouts the pipeline needs:
   * input point clouds (x/y/z [+ red/green/blue uchar or float] [+ normals]),
   * Gaussian checkpoints (all-float32 vertex attributes, binary little endian),
+  * triangle meshes (float vertices [+ uchar colours], uchar-list faces),
 matching the reference's on-disk format (scene/gaussian_model.py:260-347) so
 checkpoints interchange with the CUDA implementation.
 """
@@ -118,6 +119,47 @@ def write_ply(path: str, names, arrays, element: str = "vertex"):
             f.write(f"property float {c}\n".encode())
         f.write(b"end_header\n")
         f.write(rec.tobytes())
+
+
+def write_mesh_ply(path: str, vertices: np.ndarray, faces: np.ndarray,
+                   vertex_colors: np.ndarray = None):
+    """Triangle mesh (binary little endian): float vertices (+ uchar colors)
+    + uchar-list faces."""
+    vertices = np.asarray(vertices, np.float32)
+    faces = np.asarray(faces, np.int32)
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        f.write(f"element vertex {len(vertices)}\n".encode())
+        f.write(b"property float x\nproperty float y\nproperty float z\n")
+        if vertex_colors is not None:
+            f.write(b"property uchar red\nproperty uchar green\nproperty uchar blue\n")
+        f.write(f"element face {len(faces)}\n".encode())
+        f.write(b"property list uchar int vertex_indices\n")
+        f.write(b"end_header\n")
+        if vertex_colors is None:
+            f.write(vertices.astype("<f4").tobytes())
+        else:
+            cols = np.clip(np.asarray(vertex_colors) * 255.0, 0, 255).astype(np.uint8)
+            rec = np.zeros(len(vertices), dtype=np.dtype(
+                [("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                 ("red", "u1"), ("green", "u1"), ("blue", "u1")]))
+            rec["x"], rec["y"], rec["z"] = vertices.T
+            rec["red"], rec["green"], rec["blue"] = cols.T
+            f.write(rec.tobytes())
+        rec = np.zeros(len(faces), dtype=np.dtype([("n", "u1"), ("v", "<i4", 3)]))
+        rec["n"] = 3
+        rec["v"] = faces
+        f.write(rec.tobytes())
+
+
+def read_mesh_ply(path: str):
+    """Triangle mesh -> (vertices [V,3] f32, faces [F,3] i64)."""
+    data = read_ply(path)
+    v = data["vertex"]
+    verts = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
+    faces = np.stack([np.asarray(row["vertex_indices"], np.int64)
+                      for row in data["face"]])
+    return verts, faces
 
 
 def fetch_point_cloud(path: str):

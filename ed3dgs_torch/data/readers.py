@@ -188,9 +188,9 @@ def read_technicolor_scene(path, duration=50, **kw) -> SceneInfo:
 
 
 def read_nerfies_scene(path, duration=None, **kw) -> SceneInfo:
-    raise NotImplementedError(
-        "the nerfies/hypernerf loaders (data/hyper.py, data/nerfies_camera.py) come with the "
-        "next slice of the port (ROADMAP.md, Queue 1)")
+    from .hyper import read_hyper_scene
+    kw.pop("image_loader", None)  # hyper has its own loader
+    return read_hyper_scene(path, duration=duration, **kw)
 
 
 SCENE_READERS = {

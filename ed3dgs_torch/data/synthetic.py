@@ -1,5 +1,5 @@
 """Synthetic on-disk dataset generator (test/demo harness; port of
-ed3dgs_tpu/data/synthetic.py's `generate_scene`).
+ed3dgs_tpu/data/synthetic.py: `generate_scene` and `generate_hyper_scene`).
 
 Writes a complete COLMAP-layout dynamic scene — cameras.bin/images.bin, per-
 camera per-frame PNGs of a known moving Gaussian cloud, and
@@ -8,8 +8,7 @@ package renders the frames with its per-pixel oracle (ops/rasterize_ref.py);
 the port renders the same cloud through its own `project_gaussians` and
 `rasterize` (colours precomputed, kernel size 0, SH 0): the forward blend
 kernel K1 on the card, its plain version on the CPU. The PNGs are written by
-the port's own codec (data/image_io.py). The HyperNeRF-layout generator
-comes with the nerfies loaders.
+the port's own codec (data/image_io.py).
 """
 
 from __future__ import annotations
@@ -90,6 +89,68 @@ def _render_gt(pts, cols, cam_matrices, t, opacity=None, bg=1.0,
     if return_alpha:
         return img, out.alpha.cpu().numpy()[0]
     return img
+
+
+def generate_hyper_scene(root: str, *, n_frames: int = 8, width: int = 64,
+                         height: int = 64, n_points: int = 120,
+                         seed: int = 0, device="cuda") -> str:
+    """Synthetic HyperNeRF-layout monocular scene: scene/metadata/dataset
+    jsons + per-image Nerfies camera jsons + rgb/2x images + init ply. The
+    frames render on `device` (the card unless the caller asks for the
+    CPU)."""
+    import json
+
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    pts, cols, _ = _gt_cloud(n_points, rng)
+    fov = math.radians(55.0)
+    # camera jsons store FULL-resolution intrinsics; images live in rgb/2x
+    full_w, full_h = width * 2, height * 2
+    focal = full_w / (2 * math.tan(fov / 2))
+    fovy = 2 * math.atan(math.tan(fov / 2) * full_h / full_w)
+
+    os.makedirs(os.path.join(root, "camera"), exist_ok=True)
+    os.makedirs(os.path.join(root, "rgb", "2x"), exist_ok=True)
+    ids, meta = [], {}
+    for j in range(n_frames):
+        cid = f"{j:06d}"
+        ids.append(cid)
+        meta[cid] = {"warp_id": j, "appearance_id": j, "camera_id": 0}
+        angle = 0.35 * math.sin(2 * math.pi * j / n_frames)
+        eye = (1.0 * math.sin(angle), 0.05 * j / n_frames, 2.2 - 1.0 * math.cos(angle))
+        cam = look_at_camera(eye, (0, 0, 2.2), (0, -1, 0), fov, fovy,
+                             full_w, full_h)
+        # Nerfies json: orientation = world->cam rotation, position = cam center
+        w2v = cam.matrices().world_view
+        orientation = w2v[:3, :3]
+        position = np.linalg.inv(w2v)[:3, 3]
+        with open(os.path.join(root, "camera", f"{cid}.json"), "w") as f:
+            json.dump({
+                "orientation": orientation.tolist(),
+                "position": position.tolist(),
+                "focal_length": focal,
+                "principal_point": [full_w / 2, full_h / 2],
+                "image_size": [full_w, full_h],
+                "skew": 0.0, "pixel_aspect_ratio": 1.0,
+                "radial_distortion": [0, 0, 0],
+                "tangential_distortion": [0, 0],
+            }, f)
+        small = look_at_camera(eye, (0, 0, 2.2), (0, -1, 0), fov, fovy,
+                               width, height).matrices()
+        img = _render_gt(pts, cols, small, j / n_frames, device=device)
+        image_io.write_png(os.path.join(root, "rgb", "2x", f"{cid}.png"),
+                           (img * 255).astype(np.uint8))
+
+    with open(os.path.join(root, "scene.json"), "w") as f:
+        json.dump({"near": 0.1, "far": 10.0, "scale": 1.0,
+                   "center": [0, 0, 2.2]}, f)
+    with open(os.path.join(root, "metadata.json"), "w") as f:
+        json.dump(meta, f)
+    with open(os.path.join(root, "dataset.json"), "w") as f:
+        json.dump({"ids": ids, "val_ids": [], "train_ids": ids}, f)
+    noisy = pts + rng.normal(0, 0.01, pts.shape).astype(np.float32)
+    store_point_cloud(os.path.join(root, "points3D_downsample.ply"), noisy, cols)
+    return root
 
 
 def generate_scene(root: str, *, n_cams: int = 4, n_frames: int = 6,

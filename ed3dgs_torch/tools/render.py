@@ -1,0 +1,248 @@
+"""Rendering CLI (port of ed3dgs_tpu/tools/render.py; the reference render.py).
+
+Usage:
+  python -m ed3dgs_torch.tools.render -m <model_dir> [-s <scene_dir>] \
+      [--configs cfg.py] [--iteration N] [--skip_train] [--max_frames N] ...
+
+Renders the train/test/video camera sets of a saved model (either
+package's `point_cloud/iteration_N/`): RGB, depth, Phong-shaded normal
+maps, tongue masks and, with `--tongue_renders`, the tongue / no-tongue
+subset renders (render.py:30-121), into
+`<model>/<split>/ours_<iter>/{renders,gt,depth,normal,tongue}`, with an FPS
+line per split and a video of the renders. The PNGs are the JAX tool's,
+quantised as it does (clip to [0, 1], then truncate `x * 255` to uint8),
+and written by the port's own encoder (data/image_io.py).
+
+It runs on the card unless `--device cpu` is passed; without a GPU the
+default raises. `--backend` is accepted for the JAX tool's command lines and
+ignored: the port has one backend. The video goes through imageio, else
+Pillow (an animated GIF); where neither is installed it is skipped with a
+line that says so (the JAX tool raises ImportError there).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="ed3dgs_torch renderer")
+    p.add_argument("--model_path", "-m", required=True)
+    p.add_argument("--source_path", "-s", default=None)
+    p.add_argument("--configs", default=None)
+    p.add_argument("--iteration", type=int, default=-1)
+    p.add_argument("--loader", default=None)
+    p.add_argument("--duration", type=int, default=None)
+    p.add_argument("--skip_train", action="store_true")
+    p.add_argument("--skip_test", action="store_true")
+    p.add_argument("--skip_video", action="store_true")
+    p.add_argument("--tongue_renders", action="store_true")
+    p.add_argument("--backend", default="auto",
+                   help="accepted for the JAX tool's command lines and ignored: the port "
+                        "has one backend")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (default: the GPU; 'cpu' runs the "
+                        "kernels' plain versions)")
+    p.add_argument("--max_frames", type=int, default=0,
+                   help="cap rendered frames per split (0 = all)")
+    p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE")
+    return p.parse_args(argv)
+
+
+def phong_shade(normal_img: np.ndarray) -> np.ndarray:
+    """Phong-shaded normal visualization (reference phong_reflection,
+    render.py:140-179): headlight diffuse+specular on the normal map."""
+    n = normal_img  # [3, H, W], camera space
+    light = np.array([0.0, 0.0, -1.0])
+    ndotl = np.clip(-(n[0] * light[0] + n[1] * light[1] + n[2] * light[2]), 0, 1)
+    ambient, diffuse, spec_pow = 0.1, 0.7, 16
+    spec = np.clip(ndotl, 0, 1) ** spec_pow * 0.2
+    shade = ambient + diffuse * ndotl + spec
+    return np.clip(np.stack([shade] * 3), 0, 1)
+
+
+def save_img(path, chw, clip=True):
+    """[C, H, W] / [H, W] floats -> 8-bit PNG, as the JAX tool quantises:
+    clip to [0, 1], then truncate x * 255."""
+    from ..data.image_io import write_png
+
+    arr = np.asarray(chw)
+    if arr.ndim == 3:
+        arr = arr.transpose(1, 2, 0)
+    if arr.ndim == 3 and arr.shape[2] == 1:
+        arr = arr[..., 0]
+    if clip:
+        arr = np.clip(arr, 0, 1)
+    write_png(path, (arr * 255).astype(np.uint8))
+
+
+def export_video(frame_dir: str, out_path: str, fps: int = 30):
+    """mp4 via imageio if available, else an animated GIF through Pillow;
+    with neither installed, no video and one line that says so."""
+    import glob
+    frames = sorted(glob.glob(os.path.join(frame_dir, "*.png")))
+    if not frames:
+        return
+    try:
+        import imageio.v2 as imageio
+        with imageio.get_writer(out_path, fps=fps) as w:
+            for fpath in frames:
+                w.append_data(imageio.imread(fpath))
+        return
+    except Exception:
+        pass
+    try:
+        from PIL import Image
+    except ImportError:
+        print(f"{out_path}: no video written (neither imageio nor Pillow is installed)",
+              flush=True)
+        return
+    imgs = [Image.open(f) for f in frames]
+    gif = out_path.rsplit(".", 1)[0] + ".gif"
+    imgs[0].save(gif, save_all=True, append_images=imgs[1:],
+                 duration=int(1000 / fps), loop=0)
+
+
+def render_set(out_dir, name, cams, renderer, tongue_renders=False, max_frames=0):
+    """Render and save one split. Each render is timed after a synchronise
+    of its device, so that the FPS line times the render and not the
+    host's enqueue (the JAX tool blocks on the render). Returns the split's
+    frames, FPS (frames after the first), and each frame's render ms and
+    PNG-save ms (host clock)."""
+    import torch
+
+    renders_dir = os.path.join(out_dir, name, "renders")
+    gt_dir = os.path.join(out_dir, name, "gt")
+    extra_dirs = {k: os.path.join(out_dir, name, k)
+                  for k in ("depth", "normal", "tongue")}
+    for d in [renders_dir, gt_dir, *extra_dirs.values()]:
+        os.makedirs(d, exist_ok=True)
+
+    if max_frames:
+        cams = cams[:max_frames]
+    t_total = 0.0
+    render_ms, save_ms = [], []
+    fps = None
+    for i, cam in enumerate(cams):
+        t0 = time.time()
+        out = renderer(cam)
+        if out["render"].is_cuda:
+            torch.cuda.synchronize(out["render"].device)
+        dt = time.time() - t0
+        render_ms.append(dt * 1e3)
+        if i > 0:
+            t_total += dt
+        t1 = time.time()
+        fname = f"{i:05d}.png"
+        save_img(os.path.join(renders_dir, fname), out["render"].cpu().numpy())
+        d = out["expected_depth"].cpu().numpy()[0]
+        dmax = d.max() or 1.0
+        save_img(os.path.join(extra_dirs["depth"], fname), d / dmax)
+        save_img(os.path.join(extra_dirs["normal"], fname),
+                 phong_shade(out["normal"].cpu().numpy()))
+        save_img(os.path.join(extra_dirs["tongue"], fname),
+                 out["tongue_mask"].cpu().numpy()[0])
+        gt = cam.image
+        if gt is not None:
+            save_img(os.path.join(gt_dir, fname), gt)
+        cam.release_image()
+        if tongue_renders:
+            for mode, sub in (("only", "tongue_render"), ("without", "wo_tongue_render")):
+                sub_dir = os.path.join(out_dir, name, sub)
+                os.makedirs(sub_dir, exist_ok=True)
+                save_img(os.path.join(sub_dir, fname),
+                         renderer(cam, tongue_filter=mode)["render"].cpu().numpy())
+        save_ms.append((time.time() - t1) * 1e3)
+    if len(cams) > 1:
+        fps = (len(cams) - 1) / max(t_total, 1e-9)
+        print(f"{name}: {fps:.2f} FPS", flush=True)
+    export_video(renders_dir, os.path.join(out_dir, name, "video.mp4"))
+    return {"frames": len(cams), "fps": fps, "render_ms": render_ms, "save_ms": save_ms}
+
+
+def main(argv=None):
+    """Render the splits the flags ask for; returns {split: render_set's
+    numbers}."""
+    args = parse_args(argv)
+    import torch
+
+    from ..config.loader import load_full_config
+    from ..convert import deform_from_flat
+    from ..data.scene import Scene, read_deformation
+    from ..device import resolve_device
+    from ..ops.rasterize import RasterConfig
+    from ..render import RenderSettings
+    from ..render import render as render_fn
+
+    device = resolve_device(args.device)
+    overrides = {k: v for k, v in {
+        "source_path": args.source_path, "model_path": args.model_path,
+        "loader": args.loader}.items() if v is not None}
+    for kv in args.set:
+        k, v = kv.split("=", 1)
+        try:
+            v = json.loads(v)
+        except json.JSONDecodeError:
+            pass
+        overrides[k] = v
+    cfg = load_full_config(args.configs, overrides)
+    model, hidden, opt = cfg.model, cfg.hidden, cfg.opt
+
+    scene = Scene(model, hidden, capacity=opt.max_number_gaussians,
+                  duration=args.duration, load_iteration=args.iteration,
+                  shuffle=False, device=device)
+    params, aux = scene.params, scene.aux
+    dparams = deform_from_flat(read_deformation(os.path.join(
+        model.model_path, "point_cloud", f"iteration_{scene.loaded_iter}")), device=device)
+
+    cam0 = (scene.test_cameras or scene.train_cameras)[0].matrices()
+    rcfg = RasterConfig(width=cam0.width, height=cam0.height,
+                        focal_x=cam0.focal_x, focal_y=cam0.focal_y,
+                        pair_capacity=opt.pair_capacity, chunk=opt.raster_chunk)
+    f32 = dict(dtype=torch.float32, device=device)
+    bg = torch.full((3,), 1.0 if model.white_background else 0.0, **f32)
+
+    def renderer(cam, tongue_filter=None):
+        m = cam.matrices()
+        s = RenderSettings(torch.as_tensor(m.world_view, **f32),
+                           torch.as_tensor(m.full_proj, **f32),
+                           torch.as_tensor(m.campos, **f32),
+                           torch.tensor(cam.time, **f32), None)
+        with torch.no_grad():
+            return render_fn(params, aux, dparams, hidden, s, rcfg, bg,
+                             iteration=10 ** 9, sh_degree=model.sh_degree,
+                             kernel_size=model.kernel_size,
+                             disable_filter3d=model.disable_filter3D,
+                             num_down_emb_c=hidden.min_embeddings,
+                             num_down_emb_f=hidden.min_embeddings,
+                             tongue_filter=tongue_filter)
+
+    # reference directory layout: <model_path>/<split>/ours_<iter>/{renders,gt}
+    out_dir = model.model_path
+    it = scene.loaded_iter
+    stats = {}
+    if not args.skip_train:
+        stats["train"] = render_set(
+            out_dir, f"train/ours_{it}",
+            sorted(scene.train_cameras, key=lambda c: (c.cam_no, c.frame_no)),
+            renderer, args.tongue_renders, args.max_frames)
+    if not args.skip_test:
+        stats["test"] = render_set(
+            out_dir, f"test/ours_{it}",
+            sorted(scene.test_cameras, key=lambda c: (c.cam_no, c.frame_no)),
+            renderer, args.tongue_renders, args.max_frames)
+    if not args.skip_video and scene.video_cameras:
+        stats["video"] = render_set(out_dir, f"video/ours_{it}", scene.video_cameras,
+                                    renderer, False, args.max_frames)
+    return stats
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

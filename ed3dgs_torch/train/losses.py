@@ -38,14 +38,15 @@ def _gaussian_window_np(window_size: int = 11, sigma: float = 1.5):
 
 def ssim(img1, img2, window_size: int = 11):
     """Gaussian-window SSIM, same constants and padding as the reference
-    (utils/loss_utils.py:43-73). img: [B, C, H, W] or [C, H, W].
+    (utils/loss_utils.py:43-73). img: [B, C, H, W] or [C, H, W]; the window
+    takes the images' dtype.
 
     The grouped convolutions run with cuDNN's TF32 off: TF32 keeps about
     three decimal digits, and cuDNN uses it for float32 by default."""
     if img1.dim() == 3:
         img1, img2 = img1[None], img2[None]
     C = img1.shape[1]
-    w = torch.as_tensor(_gaussian_window_np(window_size), device=img1.device)
+    w = torch.as_tensor(_gaussian_window_np(window_size), dtype=img1.dtype, device=img1.device)
     kernel = w[None, None].expand(C, 1, window_size, window_size).contiguous()
     pad = window_size // 2
 

@@ -30,7 +30,10 @@ also on the smallest table, at a rank with thousands of in-edges and at K = 1
 and 32, and for embeddings narrower than 32 or wider (E = 48, 64, 100: run
 zero-padded to whole 32-column slabs); the shapes they do not take raise
 ValueError. The host PNG unfilter (not a kernel, built with g++) against its
-numpy version, byte for byte.
+numpy version, byte for byte. Beside the kernels, the serving modules that
+run on the card: `integrate_points` (K4 bins its tiles) within 1e-5 of the
+CPU's, the mesh evaluation's float64 closest points within 1e-6, and LPIPS
+at the bound of tests/test_lpips.py.
 """
 
 import math
@@ -692,3 +695,59 @@ def test_png_unfilter_helper_on_the_card_machine(dev):
                                                               bpp))
     img = rng.integers(0, 256, (550, 802, 3), dtype=np.uint8)
     np.testing.assert_array_equal(image_io.decode_png(image_io.encode_png(img)), img)
+
+
+def test_integrate_points_on_card_matches_cpu(dev):
+    """ops/integrate.py (plain PyTorch; K4 bins its tiles on the card) on
+    the card against the CPU: every output within 1e-5, on points on and
+    off screen and a tile cut at max_per_tile."""
+    from ed3dgs_torch.ops.integrate import integrate_points
+    w, h = 96, 72
+    arrays, cam = scene(1500, w, h, seed=6)
+    rng = np.random.default_rng(7)
+    pts = np.concatenate([arrays[0][:500] + rng.normal(0, 0.02, (500, 3)),
+                          np.stack([rng.uniform(-2, 2, 300), rng.uniform(-1.5, 1.5, 300),
+                                    rng.uniform(-1, 4, 300)], 1)]).astype(np.float32)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        means, scales, q, opac, shs, _ = (torch.as_tensor(a, device=d) for a in arrays)
+        proj = project_gaussians(
+            means, scales, q, opac, shs, viewmatrix=torch.as_tensor(cam.world_view, device=d),
+            projmatrix=torch.as_tensor(cam.full_proj, device=d),
+            campos=torch.as_tensor(cam.campos, device=d), width=w, height=h,
+            tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy, focal_x=cam.focal_x,
+            focal_y=cam.focal_y, kernel_size=0.1, sh_degree=3, compute_invraycov=True)
+        outs[d.type] = integrate_points(
+            proj, torch.as_tensor(pts, device=d),
+            viewmatrix=torch.as_tensor(cam.world_view, device=d), width=w, height=h,
+            focal_x=cam.focal_x, focal_y=cam.focal_y, pair_capacity=1 << 15, max_per_tile=256)
+    assert 0 < int(outs["cpu"].point_valid.sum()) < len(pts)
+    for name in outs["cpu"]._fields:
+        a, b = getattr(outs["cuda"], name).cpu().float(), getattr(outs["cpu"], name).float()
+        assert float((a - b).abs().max()) <= 1e-5, name
+
+
+def test_mesh_eval_on_card_matches_cpu(dev):
+    """The closest-point search (float64) on the card against the CPU."""
+    from ed3dgs_torch.mesh.mesh_eval import closest_points_on_mesh
+    rng = np.random.default_rng(8)
+    verts = rng.normal(size=(2000, 3)).astype(np.float32)
+    faces = rng.integers(0, 2000, (9000, 3))
+    pts = rng.normal(size=(1100, 3))
+    got = closest_points_on_mesh(pts, verts, faces, device=dev)
+    want = closest_points_on_mesh(pts, verts, faces, device="cpu")
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got[2], want[2], rtol=0, atol=1e-6)
+
+
+def test_lpips_on_card_matches_cpu(dev):
+    """LPIPS's convolutions (cuDNN, TF32 off) against the CPU's."""
+    from ed3dgs_torch.utils.lpips import LPIPS, random_params
+    rng = np.random.default_rng(9)
+    x = rng.random((2, 3, 96, 80)).astype(np.float32)
+    y = np.clip(x + rng.normal(0, 0.1, x.shape), 0, 1).astype(np.float32)
+    for net in ("alex", "vgg"):
+        model = LPIPS(random_params(net, seed=0), net)
+        want = model(x, y).numpy()
+        got = model.to(dev)(x, y).cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-6)

@@ -165,9 +165,16 @@ def test_scene_readers_match_jax(jax_scenes, loader, resolution):
 
 
 def test_nerfies_readers_name_the_next_slice(tmp_path):
+    """The nerfies/HyperNeRF readers are ported: both names
+    read a HyperNeRF-layout scene (tests/test_torch_hyper.py holds them to
+    the JAX package's)."""
+    from ed3dgs_torch.data.synthetic import generate_hyper_scene
+    root = generate_hyper_scene(str(tmp_path / "hyper"), n_frames=8, width=24, height=16,
+                                n_points=40, device="cpu")
     for name in ("nerfies", "hypernerf"):
-        with pytest.raises(NotImplementedError, match="nerfies"):
-            readers.SCENE_READERS[name](str(tmp_path))
+        info = readers.SCENE_READERS[name](root)
+        assert (len(info.train_cameras), len(info.test_cameras), info.maxtime) == (2, 1, 4)
+        assert info.train_cameras[0].image.shape == (3, 16, 24)
 
 
 def test_rgba_images_load_with_their_alpha(tmp_path):

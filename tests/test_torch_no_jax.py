@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-Pillow, which the card machine lacks), its
+Pillow or imageio, which the card machine lacks), its
 kernel wrappers launch nothing on CPU tensors, and its entry points refuse to
 fall back to the CPU when CUDA is asked for and absent."""
 
@@ -17,6 +17,7 @@ _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["PIL"] = None          # the card machine has no Pillow either
+sys.modules["imageio"] = None      # nor imageio
 import ed3dgs_torch
 names = [m.name for m in pkgutil.walk_packages(ed3dgs_torch.__path__, "ed3dgs_torch.")]
 for name in names:
@@ -31,7 +32,13 @@ for name in ("ed3dgs_torch.train.trainer", "ed3dgs_torch.train.optim",
              "ed3dgs_torch.data.image_io", "ed3dgs_torch.data.readers",
              "ed3dgs_torch.data.scene", "ed3dgs_torch.data.synthetic",
              "ed3dgs_torch.data.native_staging", "ed3dgs_torch.train.sampling",
-             "ed3dgs_torch.train.capacity", "ed3dgs_torch.utils.tb_writer"):
+             "ed3dgs_torch.train.capacity", "ed3dgs_torch.utils.tb_writer",
+             "ed3dgs_torch.tools.render", "ed3dgs_torch.tools.metrics",
+             "ed3dgs_torch.tools.mesh_extract", "ed3dgs_torch.tools.evaluate_mesh",
+             "ed3dgs_torch.utils.lpips", "ed3dgs_torch.data.hyper",
+             "ed3dgs_torch.data.nerfies_camera", "ed3dgs_torch.ops.integrate",
+             "ed3dgs_torch.mesh.extract", "ed3dgs_torch.mesh.tetra",
+             "ed3dgs_torch.mesh.marching_tets", "ed3dgs_torch.mesh.mesh_eval"):
     assert name in names, name
 print(len(names))
 """
@@ -42,7 +49,7 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 48   # every module of the seven slices was imported
+    assert int(out.stdout.split()[-1]) >= 61   # every module of the eight slices was imported
 
 
 def test_chip_smoke_imports_without_jax():
@@ -120,3 +127,24 @@ def test_default_device_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         settings_from_camera(cam)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serving_tools_refuse_the_cpu_unless_asked(tmp_path):
+    """tools.render, .metrics, .mesh_extract and .evaluate_mesh run on the
+    card by default and raise without one; `--device cpu` is the only way
+    onto the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from ed3dgs_torch.data.synthetic import generate_hyper_scene
+    from ed3dgs_torch.tools import evaluate_mesh, mesh_extract, metrics, render
+
+    model = str(tmp_path)
+    for run in (lambda: render.main(["-m", model]),
+                lambda: metrics.main(["-m", model]),
+                lambda: mesh_extract.main(["-m", model]),
+                lambda: evaluate_mesh.main(["-m", model, "--gt_dir", model]),
+                lambda: generate_hyper_scene(str(tmp_path / "hyper"))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()
+    assert metrics.main(["-m", model, "--device", "cpu"]) == {}
+    assert evaluate_mesh.main(["-m", model, "--gt_dir", model, "--device", "cpu"]) == {}
