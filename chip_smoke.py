@@ -105,13 +105,34 @@ chunk 128):
    another function: the trainer renders at its iteration (300: the
    deformation's annealing at 0.25-0.3 and 4 of 8 temporal embeddings),
    the tools, as the JAX package's, at iteration 10**9 (all schedules
-   done).
+   done);
+8. the `offline` phase, on the same scene and model:
+   `tools.mesh_extract_tsdf.main` at timestep 0 (the three train views),
+   sparse at the default voxel of 0.002 and dense at OFFLINE_DENSE_VOXEL,
+   each view's masked depth and colour fused again on the CPU and compared
+   (block keys and rows, the fields, the (voxel, view) projections the two
+   devices put on another pixel, the faces); `tools.gaussians_to_mesh.main`
+   at timesteps 0-1 as configured, then at float32 activations on the card
+   and on the CPU; `tools.mesh_video.render_points` on the serve phase's
+   recon.ply and on recon_tsdf.ply from SPLAT_EYES, card against CPU; the
+   viewer server (`render/network_gui.py` with `tools.viewer.make_handler`)
+   in a thread with a loopback client sending a train camera at 802x550,
+   the same at 1000x562 and an empty request, each reply against
+   `render()` quantised the same way; and the preparation tools
+   (`prepare_data nersemble`, `downsample`, `add-tongue-points`,
+   `prepare_colmap.convert_poses_to_colmap_db`, `nersemble_utils
+   pose-bounds`, `seg-color`, `render-mesh`) on a 2-camera, 2-timestep
+   raw capture of PNG frames it writes. Every count is set to 0 before
+   the TSDF tool and again before the viewer's requests: K1, K4 and K5a
+   must each have launched once per view and per request rendered. It
+   prints an `offline` JSON line; it fails on a launch count that
+   differs, or a comparison past the bounds below.
 
 Weights are random, from numpy seeds; so are the training targets. Results go
 to DIR/chip_smoke.json (default smoke_out/ in the checkout), with the
-profiles and nvcc's register report beside it. The last five lines of
-standard output are the `cli` and `serve` JSON lines, the card as
-nvidia-smi names it, the kernels' JSON line and the result line. Any failure exits non-zero before the result line.
+profiles and nvcc's register report beside it. The last six lines of
+standard output are the `cli`, `serve` and `offline` JSON lines, the card
+as nvidia-smi names it, the kernels' JSON line and the result line. Any failure exits non-zero before the result line.
 Needs one CUDA device; refuses to run without one.
 """
 
@@ -218,6 +239,24 @@ SERVE_PSNR_TOL = 0.5         # dB between the metrics tool and the cli test PSNR
 # INTEGRATE_N Gaussians of the trained model: every output within
 # INTEGRATE_TOL
 INTEGRATE_N, INTEGRATE_TOL = 4096, 1e-5
+# The offline phase, on the cli phase's model: TSDF at the tool's default
+# voxel (sparse) and the dense engine at OFFLINE_DENSE_VOXEL, each card
+# against the CPU on the same masked depths: the fields within
+# TSDF_FIELD_TOL on every voxel whose projected pixel the two devices agree
+# on, at most TSDF_MAX_MOVED of the (voxel, view) projections on another
+# pixel. The Gaussian meshes (float32 activations on both) within
+# GAUSS_MESH_TOL. render_points' frames (the tool's 550x802) differing on at
+# most SPLAT_MAX_DIFFERING of the pixels beyond SPLAT_TOL (the shading's
+# last float bit), from SPLAT_EYES around the scene's centre. The viewer
+# answers VIEWER_SIZES and an empty request.
+OFFLINE_DENSE_VOXEL = 0.01
+TSDF_FIELD_TOL, TSDF_MAX_MOVED = 1e-6, 1e-4
+GAUSS_MESH_TOL = 1e-5
+SPLAT_TOL, SPLAT_MAX_DIFFERING = 1e-6, 1e-3
+SPLAT_EYES = ((0.0, 0.0, 1.2), (0.7, -0.1, 1.6), (-0.7, -0.1, 1.6))
+SPLAT_TARGET, SPLAT_UP, SPLAT_ZOOM = (0.0, 0.0, 2.2), (0.0, -1.0, 0.0), 0.4
+VIEWER_SIZES = ((802, 550), (1000, 562))
+PREP_W, PREP_H = 550, 802    # a NerSemble images-2x frame
 
 KERNELS = {
     "K1": dict(name="forward_blend", route="cuda",
@@ -740,6 +779,340 @@ def serve_phase(torch, counters, cli):
         fail("serve: the mesh is empty or has a vertex that is not finite")
     if max(diffs.values()) > INTEGRATE_TOL:
         fail(f"serve: integrate_points on the card differs from the CPU's: {diffs}")
+    return out
+
+
+def gl_request(world_view, full_proj, w, h, fovx, fovy) -> dict:
+    """The SIBR viewer's request for a camera: the matrices transposed to
+    its column-major GL layout, view columns 1-2 and projection column 1
+    negated (render/network_gui.py undoes both)."""
+    view = np.asarray(world_view, np.float32).T.copy()
+    view[:, 1] *= -1
+    view[:, 2] *= -1
+    proj = np.asarray(full_proj, np.float32).T.copy()
+    proj[:, 1] *= -1
+    return {"resolution_x": w, "resolution_y": h, "fov_x": fovx, "fov_y": fovy,
+            "z_near": 0.01, "z_far": 100.0, "train": False, "keep_alive": True,
+            "scaling_modifier": 1.0, "view_matrix": [float(x) for x in view.reshape(-1)],
+            "view_projection_matrix": [float(x) for x in proj.reshape(-1)]}
+
+
+def write_raw_capture(root, scene_dir):
+    """A raw NerSemble capture in `root`: calibration, 2 cameras x 2
+    timesteps of PREP_W x PREP_H PNG frames (the scene's first images),
+    alpha maps and facer colour masks, written by the port's codec."""
+    from ed3dgs_torch.data.image_io import read_png, resize_bilinear, write_png
+
+    rng = np.random.default_rng(0)
+    cams = ("220700191", "222200037")
+    w2c = {}
+    for i, c in enumerate(cams):
+        m = np.eye(4)
+        m[:3, 3] = [0.1 * i, 0.0, 1.0]
+        w2c[c] = m.tolist()
+    os.makedirs(os.path.join(root, "calibration"))
+    with open(os.path.join(root, "calibration", "camera_params.json"), "w") as f:
+        json.dump({"intrinsics": [[2000.0, 0, 275], [0, 2000.0, 401], [0, 0, 1]],
+                   "world_2_cam": w2c}, f)
+    frames = sorted(os.path.join(d, n) for d, _, ns in os.walk(scene_dir) for n in ns
+                    if n.endswith(".png"))[:4]
+    for ti, ts in enumerate(("frame_00000", "frame_00001")):
+        base = os.path.join(root, "sequences", "EXP-1", "timesteps", ts)
+        for sub in ("images-2x", "alpha_map", "facer_segmentation_masks"):
+            os.makedirs(os.path.join(base, sub))
+        for ci, c in enumerate(cams):
+            img = resize_bilinear(read_png(frames[(2 * ti + ci) % len(frames)])[..., :3],
+                                  PREP_W, PREP_H)
+            write_png(os.path.join(base, "images-2x", f"cam_{c}.png"), img)
+            a = np.zeros((PREP_H, PREP_W), np.uint8)
+            a[PREP_H // 8:PREP_H * 7 // 8, PREP_W // 8:PREP_W * 7 // 8] = 255
+            write_png(os.path.join(base, "alpha_map", f"cam_{c}.png"), a)
+            seg = np.zeros((PREP_H, PREP_W, 3), np.uint8)
+            seg[PREP_H * 5 // 8:PREP_H * 11 // 16, PREP_W * 3 // 8:PREP_W // 2] = (168, 91, 73)
+            seg[rng.integers(0, PREP_H, 50), rng.integers(0, PREP_W, 50)] = (30, 60, 90)
+            write_png(os.path.join(base, "facer_segmentation_masks",
+                                   f"color_segmentation_cam_{c}.png"), seg)
+    return cams
+
+
+def offline_phase(torch, counters, cli):
+    """The `offline` phase on the `cli` phase's scene and model: TSDF mesh
+    extraction (sparse at the default voxel, dense at OFFLINE_DENSE_VOXEL),
+    each fused again on the CPU from the same masked depths and compared;
+    the Gaussian-ellipsoid meshes of timesteps 0-1; the mesh-video
+    splatter on the serve phase's recon.ply and on recon_tsdf.ply, card
+    against CPU; the viewer server answering a loopback client, each reply
+    against `render()`; and the data preparation tools on a raw capture
+    written here. Returns the phase's numbers; fails the run on a launch
+    count that differs from the views and requests rendered, or on any
+    comparison past its bound."""
+    import argparse
+    import contextlib
+    import io
+    import sqlite3
+    import threading
+    import socket
+
+    from ed3dgs_torch.data.image_io import read_png
+    from ed3dgs_torch.data.ply import fetch_point_cloud, read_ply
+    from ed3dgs_torch.mesh import tsdf
+    from ed3dgs_torch.mesh.tsdf_sparse import fuse_volume_sparse
+    from ed3dgs_torch.ops.rasterize import RasterConfig
+    from ed3dgs_torch.render import RenderSettings
+    from ed3dgs_torch.render.network_gui import ViewerServer
+    from ed3dgs_torch.tools import (add_model_flags, gaussians_to_mesh, load_trained,
+                                    mesh_extract_tsdf, mesh_video, nersemble_utils,
+                                    prepare_colmap, prepare_data, render_eval, viewer)
+
+    t_phase = time.perf_counter()
+    scene_dir, model_dir = cli["scene_dir"], cli["model_dir"]
+    tmp = os.path.dirname(model_dir)
+    config = os.path.join(REPO, "configs", "nersemble", "default.py")
+
+    def argv(dev, *extra):
+        return (["-m", model_dir, "-s", scene_dir, "--configs", config, "--duration",
+                 str(CLI_FRAMES), "--iteration", str(CLI_ITERS), "--device", dev]
+                + list(extra) + ["--set", *CLI_SET])
+    sync = torch.cuda.synchronize
+    out, bad = {}, []
+    for fn in counters.values():
+        fn.launches = 0
+
+    # ---- TSDF: the tool on the card, then the same inputs fused on the CPU
+    t0 = time.perf_counter()
+    sp = mesh_extract_tsdf.main(argv(DEVICE, "--engine", "sparse"))
+    out["tsdf_s"] = time.perf_counter() - t0
+    dn = mesh_extract_tsdf.main(argv(DEVICE, "--engine", "dense", "--voxel_size",
+                                     str(OFFLINE_DENSE_VOXEL)))
+    sync()
+    views = sp["views"] + dn["views"]
+    tsdf_launches = {k: counters[k].launches for k in ("K1", "K4", "K5a")}
+    print(f"offline: TSDF on the card: sparse {sp['blocks']} blocks, {sp['faces']} faces, "
+          f"fuse {sp['fuse_s']:.2f} s, extract {sp['extract_s']:.2f} s; dense "
+          f"{dn['voxels']} voxels", flush=True)
+    if tsdf_launches != {k: views for k in tsdf_launches}:
+        bad.append(f"TSDF launches {tsdf_launches}, {views} views rendered")
+
+    def to_cpu(inputs):
+        depths, colors, wvs, focals = inputs
+        return [d.cpu() for d in depths], [c.cpu() for c in colors], wvs, focals
+
+    cpu_in = to_cpu(sp["inputs"])
+    vol = sp["volume"]
+    t0 = time.perf_counter()
+    cvol = fuse_volume_sparse(*cpu_in, voxel_size=vol.voxel_size)
+    cpu_fuse_s = time.perf_counter() - t0
+    cmesh = cvol.extract_surface()
+    same_blocks = torch.equal(vol.block_keys.cpu(), cvol.block_keys)
+    moved, max_diff = -1, float("inf")
+    if same_blocks:
+        # each (voxel, view) projection on both devices: a voxel that one
+        # device projects to another pixel (or another validity) is left out
+        # of the field comparison and counted
+        trunc = 8.0 * vol.voxel_size
+        pts = {"card": vol.voxel_coords().double() * vol.voxel_size,
+               "cpu": cvol.voxel_coords().double() * cvol.voxel_size}
+        agree = torch.ones(pts["cpu"].shape[0], dtype=torch.bool)
+        for d, wv, (fx, fy) in zip(cpu_in[0], cpu_in[2], cpu_in[3]):
+            a = tsdf.project_voxels(pts["card"], d.to(DEVICE), wv, fx, fy, 8.0, trunc)
+            b = tsdf.project_voxels(pts["cpu"], d, wv, fx, fy, 8.0, trunc)
+            differ = (a[0].cpu() != b[0]) | (a[2].cpu() != b[2]) | (a[3].cpu() != b[3])
+            agree &= ~differ
+            moved = max(moved, 0) + int(differ.sum())
+        max_diff = max(float((getattr(vol, k).cpu().reshape(agree.shape[0], -1)[agree]
+                              - getattr(cvol, k).reshape(agree.shape[0], -1)[agree])
+                             .abs().max()) for k in ("tsdf", "weight", "color"))
+    sparse_faces_equal = bool(np.array_equal(sp["mesh"][1], cmesh[1]))
+    print(f"offline: TSDF on the CPU: fuse {cpu_fuse_s:.2f} s, compared in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    projections = len(cpu_in[0]) * vol.n_blocks * vol.block ** 3
+    dcpu = to_cpu(dn["inputs"])
+    dvol = tsdf.fuse_volume(*dcpu, voxel_size=OFFLINE_DENSE_VOXEL)
+    df = tsdf.extract_surface(dvol)[1]
+    dense_diff = (max(float((getattr(dn["volume"], k).cpu() - getattr(dvol, k)).abs().max())
+                      for k in ("tsdf", "weight", "color"))
+                  if dvol.dims == dn["volume"].dims else float("inf"))
+    dense_faces_equal = bool(np.array_equal(dn["mesh"][1], df))
+    out["tsdf"] = dict(
+        views=sp["views"], render_ms_per_view=float(np.median(sp["render_ms"] + dn["render_ms"])),
+        fuse_s=sp["fuse_s"], extract_s=sp["extract_s"], cpu_fuse_s=cpu_fuse_s,
+        blocks=sp["blocks"], voxels=sp["voxels"], vertices=sp["vertices"], faces=sp["faces"],
+        same_blocks=bool(same_blocks), moved_projections=moved, projections=projections,
+        field_max_diff=max_diff, faces_equal=sparse_faces_equal,
+        dense=dict(voxel_size=OFFLINE_DENSE_VOXEL, voxels=dn["voxels"],
+                   vertices=dn["vertices"], faces=dn["faces"], fuse_s=dn["fuse_s"],
+                   extract_s=dn["extract_s"], field_max_diff=dense_diff,
+                   faces_equal=dense_faces_equal),
+        launches=tsdf_launches)
+    if not same_blocks:
+        bad.append("TSDF: the card's blocks differ from the CPU's (keys or row order)")
+    elif moved > TSDF_MAX_MOVED * projections:
+        bad.append(f"TSDF: {moved} of {projections} voxel projections on another pixel")
+    if max_diff > TSDF_FIELD_TOL or dense_diff > TSDF_FIELD_TOL:
+        bad.append(f"TSDF fields differ: sparse {max_diff:.3g}, dense {dense_diff:.3g}")
+    if (moved == 0 and not sparse_faces_equal) or not dense_faces_equal:
+        bad.append("TSDF: the card's faces differ from the CPU's")
+    if sp["faces"] == 0 or dn["faces"] == 0:
+        bad.append("TSDF: an empty mesh")
+
+    # ---- Gaussian-ellipsoid meshes: the tool as configured (bf16), then
+    # card against CPU at float32 activations
+    gdir = os.path.join(model_dir, "gaussian_meshes")
+    t0 = time.perf_counter()
+    g = gaussians_to_mesh.main(argv(DEVICE, "--end_timestep_index", "2"))
+    g_s = time.perf_counter() - t0
+    f32 = ["bf16_activations=false"]
+    verts = {}
+    for dev in (DEVICE, "cpu"):
+        gaussians_to_mesh.main(argv(dev, "--end_timestep_index", "2") + f32)
+        verts[dev] = [np.stack([read_ply(os.path.join(gdir, f"{ts:05d}.ply"))["vertex"][k]
+                                for k in "xyz"], 1) for ts in (0, 1)]
+    same_counts = all(len(a) == len(b) for a, b in zip(verts[DEVICE], verts["cpu"]))
+    g_diff = (max(float(np.abs(a - b).max()) for a, b in zip(verts[DEVICE], verts["cpu"]))
+              if same_counts else float("inf"))
+    out["gaussians_mesh"] = dict(vertices=[g[0][0], g[1][0]], s=[g[0][1], g[1][1]],
+                                 wall_s=g_s, f32_vertex_max_diff=g_diff)
+    if g_diff > GAUSS_MESH_TOL or g[0][0] == 0:
+        bad.append(f"Gaussian meshes: the card's vertices differ from the CPU's by {g_diff:.3g}")
+
+    # ---- the mesh-video splatter, card against CPU
+    frames, differing, pixels, lit, card_ms, cpu_ms = 0, 0, 0, 0, [], []
+    for ply in (os.path.join(model_dir, "meshes", "00000", "recon.ply"), sp["path"]):
+        pts, cn, is_normals = mesh_video._load_colored_points(ply)
+        for eye in SPLAT_EYES:
+            view = (eye, SPLAT_TARGET, SPLAT_UP, SPLAT_ZOOM)
+            sync()
+            t0 = time.perf_counter()
+            a = mesh_video.render_points(pts, cn, *view, shaded=is_normals, device=DEVICE)
+            card_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            b = mesh_video.render_points(pts, cn, *view, shaded=is_normals, device="cpu")
+            cpu_ms.append((time.perf_counter() - t0) * 1e3)
+            frames += 1
+            pixels += a.shape[1] * a.shape[2]
+            differing += int((np.abs(a - b) > SPLAT_TOL).any(0).sum())
+            lit += int((a > 0).any(0).sum())
+    out["mesh_video"] = dict(frames=frames, pixels=pixels, lit_pixels=lit,
+                             differing_pixels=differing,
+                             card_ms_per_frame=float(np.median(card_ms)),
+                             cpu_ms_per_frame=float(np.median(cpu_ms)))
+    if differing > SPLAT_MAX_DIFFERING * pixels or lit == 0:
+        bad.append(f"mesh video: {differing} of {pixels} pixels differ ({lit} lit)")
+
+    # ---- the viewer: a loopback client, replies against render()
+    p = argparse.ArgumentParser()
+    add_model_flags(p)
+    args = p.parse_args(argv(DEVICE))
+    cfg, scene, dparams = load_trained(args, torch.device(DEVICE))
+    cam = sorted(scene.train_cameras, key=lambda c: (c.cam_no, c.frame_no))[0]
+    m = cam.matrices()
+    msgs = [gl_request(m.world_view, m.full_proj, w, h, cam.fovx, cam.fovy)
+            for w, h in VIEWER_SIZES] + [gl_request(m.world_view, m.full_proj, 0, 0, 1.0, 1.0)]
+    handle = viewer.make_handler(cfg, scene, dparams, 0.0)
+    server = ViewerServer("127.0.0.1", 0)
+    port = server.listener.getsockname()[1]
+    for fn in counters.values():
+        fn.launches = 0
+    thread = threading.Thread(target=server.serve_forever, args=(handle,),
+                              kwargs={"verify": "offline", "max_requests": len(msgs)},
+                              daemon=True)
+    thread.start()
+    replies, request_ms = [], []
+    try:
+        client = socket.create_connection(("127.0.0.1", port), timeout=120)
+
+        def recv(n):
+            buf = b""
+            while len(buf) < n:
+                chunk = client.recv(n - len(buf))
+                if not chunk:
+                    raise ConnectionError("the viewer server closed the connection")
+                buf += chunk
+            return buf
+        for msg in msgs:
+            payload = json.dumps(msg).encode()
+            t0 = time.perf_counter()
+            client.sendall(len(payload).to_bytes(4, "little") + payload)
+            img = recv(msg["resolution_x"] * msg["resolution_y"] * 3)
+            verify = recv(int.from_bytes(recv(4), "little"))
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+            replies.append((img, verify))
+        client.close()
+    finally:
+        thread.join(timeout=120)
+        server.close()
+    sync()
+    viewer_launches = {k: counters[k].launches for k in ("K1", "K4", "K5a")}
+    rendered = len(VIEWER_SIZES)
+    if viewer_launches != {k: rendered for k in viewer_launches}:
+        bad.append(f"viewer launches {viewer_launches}, {rendered} requests rendered")
+    f32t = dict(dtype=torch.float32, device=DEVICE)
+    equal = []
+    for (w, h), (img, verify) in zip(VIEWER_SIZES, replies):
+        rcfg = RasterConfig(width=w, height=h, focal_x=w / (2 * np.tan(cam.fovx / 2)),
+                            focal_y=h / (2 * np.tan(cam.fovy / 2)),
+                            pair_capacity=cfg.opt.pair_capacity, chunk=cfg.opt.raster_chunk)
+        s = RenderSettings(torch.as_tensor(m.world_view, **f32t),
+                           torch.as_tensor(m.full_proj, **f32t),
+                           torch.as_tensor(np.linalg.inv(m.world_view)[:3, 3], **f32t),
+                           torch.tensor(0.0, **f32t), None)
+        want = render_eval(cfg, scene, dparams, s, rcfg, torch.ones(3, **f32t))["render"]
+        want = (torch.clamp(want, 0, 1).permute(1, 2, 0) * 255).to(torch.uint8)
+        equal.append(img == want.cpu().numpy().tobytes() and verify == b"offline")
+    empty_ok = len(replies) == len(msgs) and replies[-1] == (b"", b"offline")
+    out["viewer"] = dict(requests=len(replies), sizes=VIEWER_SIZES,
+                         ms_per_request=[float(x) for x in request_ms],
+                         replies_equal=equal, empty_reply_ok=empty_ok,
+                         launches=viewer_launches)
+    if not (all(equal) and len(equal) == rendered and empty_ok):
+        bad.append(f"viewer: replies equal to render() {equal}, empty request ok {empty_ok}")
+
+    # ---- data preparation on a raw capture written here (host)
+    raw, prep = os.path.join(tmp, "raw"), os.path.join(tmp, "prep")
+    t0 = time.perf_counter()
+    cams = write_raw_capture(raw, scene_dir)
+    prep_in_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        prepare_data.main(["nersemble", raw, "EXP-1", prep, "--alpha_mask",
+                           "--width", str(PREP_W), "--height", str(PREP_H)])
+        cloud = os.path.join(prep, "points3D_downsample.ply")
+        prepare_data.main(["downsample", os.path.join(scene_dir, "points3D_downsample.ply"),
+                           cloud, "--max_points", "5000"])
+        n_down = len(fetch_point_cloud(cloud)[0])
+        prepare_data.main(["add-tongue-points", cloud, "--num_points", "500"])
+        colmap = prepare_colmap.convert_poses_to_colmap_db(prep)
+        nersemble_utils.main(["pose-bounds", prep])
+        seg = os.path.join(raw, "sequences", "EXP-1", "timesteps", "frame_00000",
+                           "facer_segmentation_masks", f"color_segmentation_cam_{cams[0]}.png")
+        nersemble_utils.main(["seg-color", seg])
+        nersemble_utils.main(["render-mesh", sp["path"], os.path.join(prep, "views"),
+                              "--device", DEVICE])
+    prep_s = time.perf_counter() - t0
+    pngs = sorted(os.path.join(d, n) for d, _, ns in os.walk(prep) for n in ns
+                  if n.endswith(".png"))
+    decoded = [read_png(f).shape for f in pngs]
+    con = sqlite3.connect(os.path.join(prep, "colmap", "input.db"))
+    rows = {t: con.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0]
+            for t in ("cameras", "images")}
+    con.close()
+    n_cloud = len(fetch_point_cloud(cloud)[0])
+    printed = said.getvalue()
+    out["prep"] = dict(host_s=prep_s, capture_write_s=prep_in_s, pngs=len(pngs),
+                       db_rows=rows, colmap_images=len(colmap), cloud_points=n_cloud,
+                       poses_bounds=list(np.load(os.path.join(prep, "poses_bounds.npy")).shape))
+    want_pngs = 3 * 2 * len(cams) + 3          # images, masks, segmentations; 3 views
+    if (len(pngs) != want_pngs or any(len(sh) < 2 for sh in decoded)
+            or rows != {"cameras": 2, "images": 2} or not n_down <= 5000
+            or n_cloud != n_down + 500
+            or "Camera: 1" not in printed or "[168, 91, 73]" not in printed):
+        bad.append(f"prep: {len(pngs)} PNGs (want {want_pngs}), rows {rows}, "
+                   f"cloud {n_cloud} points")
+
+    out["wall_s"] = time.perf_counter() - t_phase
+    print("offline: " + json.dumps(out), flush=True)
+    if bad:
+        fail("offline: " + "; ".join(bad))
     return out
 
 
@@ -1592,6 +1965,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="ed3dgs_cli_") as tmp:
         result["cli"] = cli_phase(torch, counters, result["train_step_ms"], tmp)
         result["serve"] = serve_phase(torch, counters, result["cli"])
+        result["offline"] = offline_phase(torch, counters, result["cli"])
 
     order = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "K8")
     kernel_rows = [dict(rows[k], launches=train_launches[k]) for k in order]
@@ -1611,6 +1985,7 @@ def main():
                   "delaunay_s", "sdf_s", "extract_s", "vertices", "faces",
                   "mesh_distance_mm", "integrate_max_diff")
     print(json.dumps({"serve": {k: result["serve"][k] for k in serve_keys}}), flush=True)
+    print(json.dumps({"offline": result["offline"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

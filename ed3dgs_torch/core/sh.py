@@ -89,3 +89,8 @@ def sh_to_rgb(deg: int, sh: torch.Tensor, means: torch.Tensor,
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     """Inverse DC mapping (reference utils/sh_utils.py:113)."""
     return (rgb - 0.5) / SH_C0
+
+
+def sh_to_rgb_dc(sh_dc: torch.Tensor) -> torch.Tensor:
+    """DC-only SH to RGB (reference utils/sh_utils.py:116)."""
+    return sh_dc * SH_C0 + 0.5

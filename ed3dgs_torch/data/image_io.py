@@ -288,3 +288,45 @@ def load_image(path: str, width: int, height: int) -> np.ndarray:
     """A PNG as uint8 [H, W] or [H, W, C], resized with Lanczos to
     (width, height) where it differs."""
     return resize_lanczos(read_png(path), width, height)
+
+
+# --- other formats, through packages the card machine may lack ---------------
+
+def _pillow(path: str):
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{path}: only PNG is read and written without a package; "
+                          "this file needs Pillow (pip install pillow)") from e
+    return Image
+
+
+def read_image(path: str) -> np.ndarray:
+    """uint8 [H, W] or [H, W, C] of a PNG (the codec above) or, through
+    Pillow, of any other format Pillow reads (JPEG); without Pillow a
+    non-PNG raises an ImportError that names the file."""
+    if path.lower().endswith(".png"):
+        return read_png(path)
+    return np.asarray(_pillow(path).open(path))
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """A uint8 image to `path`: PNG through the codec above, any other
+    extension (JPEG) through Pillow's `Image.save` defaults."""
+    if path.lower().endswith(".png"):
+        write_png(path, img)
+    else:
+        _pillow(path).fromarray(img).save(path)
+
+
+def to_gray(img: np.ndarray) -> np.ndarray:
+    """PIL's `convert("L")` of a decoded image: gray and gray+alpha keep
+    their gray channel, RGB(A) takes the ITU-R 601-2 luma in PIL's
+    fixed point, (19595 R + 38470 G + 7471 B + 2^15) >> 16."""
+    if img.ndim == 2:
+        return img
+    if img.shape[2] <= 2:
+        return img[..., 0]
+    rgb = img[..., :3].astype(np.int64)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
+             + 0x8000) >> 16).astype(np.uint8)

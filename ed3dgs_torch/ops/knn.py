@@ -14,10 +14,13 @@ JAX package's result:
 - The squared norms and the inner-dimension-3 cross term are fused
   multiply-add chains, each product and sum rounded once to float32, as XLA
   evaluates this dot and this reduction on the CPU. The chains are formed in
-  float64 and rounded to float32 (a product of two float32 values is exact
-  in float64), which gives the fused result except where the float64 sum
-  lands exactly on a float32 rounding midpoint. No matmul is used, so the
-  global TF32 flags cannot move a neighbour.
+  float64 (a product of two float32 values is exact there) and rounded once
+  to float32: where the float64 sum is inexact and lands on a float32
+  rounding midpoint, it first steps towards its exact value (TwoSum), so no
+  second rounding ties the other way. Small inputs (the COLMAP loss's
+  squared norms) take that step on every element and never wait for the
+  device; the large blocks gather their few midpoints first. No matmul is used, so the global TF32
+  flags cannot move a neighbour.
 - Neighbours are taken in (distance, index) order: the k+1 smallest of an
   int64 key that holds the distance's order-preserving bits above the
   index, so equal distances (dead slots parked on a far shell) resolve to
@@ -29,9 +32,47 @@ from __future__ import annotations
 import torch
 
 
+_MID_MASK = (1 << 29) - 1   # float64 mantissa bits below float32's last
+_MID_BITS = 1 << 28         # ... holding exactly half a float32 ulp
+# Up to this many elements every one takes the TwoSum step (a few more
+# elementwise passes, no wait for the device); above it, in the k-NN's large
+# blocks, only the midpoints do, gathered first (one wait a call).
+_DENSE_MAX = 1 << 22
+
+
+def _toward_exact(p: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """s = fl64(p + c) stepped one float64 ulp towards p + c where it is
+    inexact; the exact error comes from TwoSum."""
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    inf = torch.full_like(s, float("inf"))
+    return torch.where(e != 0, torch.nextafter(s, torch.where(e > 0, inf, -inf)), s)
+
+
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 a*b + c rounded once (through float64)."""
-    return (a.double() * b.double() + c.double()).float()
+    """float32 a*b + c rounded once.
+
+    The product of two float32 values is exact in float64; the float64 sum
+    s is not. Where s lies exactly on a float32 rounding midpoint and is
+    inexact, it steps one float64 ulp towards the exact sum, so that the
+    cast rounds as the exact sum does instead of tying to even. The step
+    moves the value only: the gradient is that of a*b + c."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    dense = s.numel() <= _DENSE_MAX
+    with torch.no_grad():
+        sd, pe, ce = s.detach(), p.detach().expand_as(s), c.detach().expand_as(s)
+        mid = (sd.view(torch.int64) & _MID_MASK) == _MID_BITS
+        if not dense:
+            mid = torch.nonzero(mid, as_tuple=True)
+            sd, pe, ce = sd[mid], pe[mid], ce[mid]
+        step = _toward_exact(pe, ce, sd) - sd
+    if dense:
+        return torch.where(mid, s + step, s).float()
+    if len(mid[0]):
+        s = s.index_put(mid, s[mid] + step)
+    return s.float()
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

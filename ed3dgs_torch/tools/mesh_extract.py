@@ -13,54 +13,27 @@ train cameras of that frame (mesh/extract.py). It runs on the card unless
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import sys
+
+from . import add_model_flags, load_trained
 
 
 def main(argv=None):
     """Extract the timesteps the flags ask for; returns {timestep index:
     (vertex count, face count, extract_mesh_at_timestep's stats)}."""
     p = argparse.ArgumentParser()
-    p.add_argument("--model_path", "-m", required=True)
-    p.add_argument("--source_path", "-s", default=None)
-    p.add_argument("--configs", default=None)
-    p.add_argument("--iteration", type=int, default=-1)
-    p.add_argument("--loader", default=None)
-    p.add_argument("--duration", type=int, default=None)
+    add_model_flags(p)
     p.add_argument("--start_timestep_index", type=int, default=0)
     p.add_argument("--end_timestep_index", type=int, default=1)
     p.add_argument("--binary_steps", type=int, default=8)
-    p.add_argument("--device", default="cuda",
-                   help="torch device to extract on (default: the GPU)")
-    p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE")
     args = p.parse_args(argv)
 
-    from ..config.loader import load_full_config
-    from ..convert import deform_from_flat
-    from ..data.scene import Scene, read_deformation
     from ..device import resolve_device
     from ..mesh.extract import export_mesh, extract_mesh_at_timestep
 
-    device = resolve_device(args.device)
-    overrides = {k: v for k, v in {
-        "source_path": args.source_path, "model_path": args.model_path,
-        "loader": args.loader}.items() if v is not None}
-    for kv in args.set:
-        k, v = kv.split("=", 1)
-        try:
-            v = json.loads(v)
-        except json.JSONDecodeError:
-            pass
-        overrides[k] = v
-    cfg = load_full_config(args.configs, overrides)
+    cfg, scene, dparams = load_trained(args, resolve_device(args.device))
     model, hidden, opt = cfg.model, cfg.hidden, cfg.opt
-
-    scene = Scene(model, hidden, capacity=opt.max_number_gaussians,
-                  duration=args.duration, load_iteration=args.iteration,
-                  shuffle=False, device=device)
-    dparams = deform_from_flat(read_deformation(os.path.join(
-        model.model_path, "point_cloud", f"iteration_{scene.loaded_iter}")), device=device)
 
     maxtime = scene.maxtime
     train_cams = sorted(scene.train_cameras, key=lambda c: (c.cam_no, c.frame_no))

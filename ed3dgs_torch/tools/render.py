@@ -23,22 +23,18 @@ line that says so (the JAX tool raises ImportError there).
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import sys
 import time
 
 import numpy as np
 
+from . import add_model_flags, load_trained
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="ed3dgs_torch renderer")
-    p.add_argument("--model_path", "-m", required=True)
-    p.add_argument("--source_path", "-s", default=None)
-    p.add_argument("--configs", default=None)
-    p.add_argument("--iteration", type=int, default=-1)
-    p.add_argument("--loader", default=None)
-    p.add_argument("--duration", type=int, default=None)
+    add_model_flags(p)
     p.add_argument("--skip_train", action="store_true")
     p.add_argument("--skip_test", action="store_true")
     p.add_argument("--skip_video", action="store_true")
@@ -46,12 +42,8 @@ def parse_args(argv=None):
     p.add_argument("--backend", default="auto",
                    help="accepted for the JAX tool's command lines and ignored: the port "
                         "has one backend")
-    p.add_argument("--device", default="cuda",
-                   help="torch device to render on (default: the GPU; 'cpu' runs the "
-                        "kernels' plain versions)")
     p.add_argument("--max_frames", type=int, default=0,
                    help="cap rendered frames per split (0 = all)")
-    p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE")
     return p.parse_args(argv)
 
 
@@ -172,34 +164,15 @@ def main(argv=None):
     args = parse_args(argv)
     import torch
 
-    from ..config.loader import load_full_config
-    from ..convert import deform_from_flat
-    from ..data.scene import Scene, read_deformation
     from ..device import resolve_device
     from ..ops.rasterize import RasterConfig
     from ..render import RenderSettings
     from ..render import render as render_fn
 
     device = resolve_device(args.device)
-    overrides = {k: v for k, v in {
-        "source_path": args.source_path, "model_path": args.model_path,
-        "loader": args.loader}.items() if v is not None}
-    for kv in args.set:
-        k, v = kv.split("=", 1)
-        try:
-            v = json.loads(v)
-        except json.JSONDecodeError:
-            pass
-        overrides[k] = v
-    cfg = load_full_config(args.configs, overrides)
+    cfg, scene, dparams = load_trained(args, device)
     model, hidden, opt = cfg.model, cfg.hidden, cfg.opt
-
-    scene = Scene(model, hidden, capacity=opt.max_number_gaussians,
-                  duration=args.duration, load_iteration=args.iteration,
-                  shuffle=False, device=device)
     params, aux = scene.params, scene.aux
-    dparams = deform_from_flat(read_deformation(os.path.join(
-        model.model_path, "point_cloud", f"iteration_{scene.loaded_iter}")), device=device)
 
     cam0 = (scene.test_cameras or scene.train_cameras)[0].matrices()
     rcfg = RasterConfig(width=cam0.width, height=cam0.height,

@@ -138,6 +138,7 @@ def colmap_pcd_loss(pcd_points, gaussian_positions, alive, chunk: int = 500):
     if P % chunk:  # colmap_pcd_samples need not divide the default chunk
         chunk = math.gcd(P, chunk)
     p = pcd_points.reshape(-1, chunk, 3) * 1000.0         # [n,chunk,3]
-    d = torch.stack([torch.amin(_dot3(pc, pc)[:, None] + (g2 + dead_bump)[None, :]
-                                - 2.0 * pc @ g.T, dim=1) for pc in p])
+    p2 = _dot3(p, p)                                      # [n,chunk]
+    d = torch.stack([torch.amin(pc2[:, None] + (g2 + dead_bump)[None, :]
+                                - 2.0 * pc @ g.T, dim=1) for pc, pc2 in zip(p, p2)])
     return torch.mean(torch.maximum(d, torch.zeros((), device=d.device)))

@@ -32,8 +32,11 @@ zero-padded to whole 32-column slabs); the shapes they do not take raise
 ValueError. The host PNG unfilter (not a kernel, built with g++) against its
 numpy version, byte for byte. Beside the kernels, the serving modules that
 run on the card: `integrate_points` (K4 bins its tiles) within 1e-5 of the
-CPU's, the mesh evaluation's float64 closest points within 1e-6, and LPIPS
-at the bound of tests/test_lpips.py.
+CPU's, the mesh evaluation's float64 closest points within 1e-6, LPIPS
+at the bound of tests/test_lpips.py, and the offline tools' device code:
+TSDF fusion (both engines) within 1e-6 with equal blocks and faces, the
+mesh-video splatter and the Gaussian-ellipsoid mesh, each also
+bit-identical on a rerun.
 """
 
 import math
@@ -751,3 +754,111 @@ def test_lpips_on_card_matches_cpu(dev):
         want = model(x, y).numpy()
         got = model.to(dev)(x, y).cpu().numpy()
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-6)
+
+
+def sphere_depth(w, h, f, center, radius=0.5):
+    """Analytic z-depth of a sphere from a camera at the origin (+z fwd)."""
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    d = np.stack([(xs + 0.5 - w / 2) / f, (ys + 0.5 - h / 2) / f, np.ones((h, w))], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    c = np.asarray(center, float)
+    b = d @ c
+    disc = b ** 2 - (c @ c - radius ** 2)
+    t = b - np.sqrt(np.maximum(disc, 0))
+    return np.where((disc > 0) & (t > 0), t * d[..., 2], 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("engine", ["sparse", "dense"])
+def test_tsdf_fusion_on_card_matches_cpu(dev, engine):
+    """mesh/tsdf*.py on the card against the CPU, two views with colour and
+    one without: the same blocks in the same rows, the fields within 1e-6
+    (each float64 projection product and sum is its own operation on both),
+    faces equal, vertices within 1e-6; bit-identical on a rerun."""
+    from ed3dgs_torch.mesh import tsdf, tsdf_sparse
+    w, h = 160, 120
+    f = w / (2 * math.tan(math.radians(30.0)))
+    wv2 = np.eye(4)
+    wv2[0, 3] = -0.1
+    rng = np.random.default_rng(10)
+    depths = [sphere_depth(w, h, f, (0, 0, 2.0)), sphere_depth(w, h, f, (-0.1, 0, 2.0))]
+    colors = [rng.uniform(0, 1, (h, w, 3)).astype(np.float32), None]
+    if engine == "sparse":
+        fuse, extract = tsdf_sparse.fuse_volume_sparse, tsdf_sparse.SparseTsdfVolume.extract_surface
+    else:
+        fuse, extract = tsdf.fuse_volume, tsdf.extract_surface
+    vols = [fuse([torch.as_tensor(x, device=d) for x in depths],
+                 [None if c is None else torch.as_tensor(c, device=d) for c in colors],
+                 [np.eye(4), wv2], [(f, f)] * 2, voxel_size=0.01)
+            for d in (dev, dev, torch.device("cpu"))]
+    (v1, f1, c1), (v2, f2, c2), (v0, f0, c0) = (extract(v) for v in vols)
+    vol1, vol2, vol0 = vols
+    assert len(f0) > 1000
+    np.testing.assert_array_equal(f1, f0)
+    np.testing.assert_allclose(v1, v0, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(c1, c0, rtol=0, atol=1e-6)
+    assert np.array_equal(v1, v2) and np.array_equal(f1, f2) and np.array_equal(c1, c2)
+    if engine == "sparse":
+        assert torch.equal(vol1.block_keys.cpu(), vol0.block_keys)
+    for k in ("tsdf", "weight", "color"):
+        a, b = getattr(vol1, k).cpu(), getattr(vol0, k)
+        assert float((a - b).abs().max()) <= 1e-6, k
+        assert torch.equal(getattr(vol2, k), getattr(vol1, k)), k
+
+
+def test_render_points_on_card_matches_cpu(dev):
+    """tools/mesh_video.render_points on the card against the CPU: a
+    coloured cloud equal, a shaded one within 1e-6 (`x ** 16`'s last bit);
+    bit-identical on a rerun (the per-pixel winner is a scatter amax)."""
+    from ed3dgs_torch.tools.mesh_video import VIEWS, render_points
+    rng = np.random.default_rng(11)
+    eye, target, up, zoom = VIEWS["central"]
+    pts = (target + rng.normal(0, 0.03, (20000, 3))).astype(np.float32)
+    cols = rng.uniform(0, 1, (20000, 3)).astype(np.float32)
+    normals = rng.normal(size=(20000, 3)).astype(np.float32)
+    for cn, shaded, tol in ((cols, False, 0.0), (normals, True, 1e-6)):
+        a = render_points(pts, cn, eye, target, up, zoom, 120, 160, shaded=shaded, device=dev)
+        b = render_points(pts, cn, eye, target, up, zoom, 120, 160, shaded=shaded, device=dev)
+        c = render_points(pts, cn, eye, target, up, zoom, 120, 160, shaded=shaded,
+                          device="cpu")
+        assert np.array_equal(a, b) and (c > 0).any(0).sum() > 1000
+        np.testing.assert_allclose(a, c, rtol=0, atol=tol)
+
+
+def test_gaussians_to_mesh_on_card_matches_cpu(dev):
+    """mesh/gaussians_viz.gaussians_to_mesh on the card against the CPU:
+    vertices within 1e-6, faces and colours equal; bit-identical on a rerun."""
+    from ed3dgs_torch.mesh.gaussians_viz import gaussians_to_mesh
+    rng = np.random.default_rng(12)
+    n = 5000
+    arrays = (rng.normal(size=(n, 3)), rng.uniform(0.01, 0.1, (n, 3)), rng.normal(size=(n, 4)),
+              rng.uniform(-0.2, 1.2, (n, 3)), rng.uniform(0, 1, n))
+    outs = [gaussians_to_mesh(*(torch.as_tensor(a, dtype=torch.float32, device=d)
+                                for a in arrays), opacity_threshold=0.2)
+            for d in (dev, dev, torch.device("cpu"))]
+    assert all(np.array_equal(a, b) for a, b in zip(outs[0], outs[1]))
+    np.testing.assert_allclose(outs[0][0], outs[2][0], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(outs[0][1], outs[2][1])
+    np.testing.assert_array_equal(outs[0][2], outs[2][2])
+
+
+@pytest.mark.parametrize("dense_max", [1 << 22, 0])
+def test_dot3_at_midpoints_on_card_matches_cpu(dev, dense_max, monkeypatch):
+    """ops/knn._dot3 on rows whose chains step at a float32 midpoint, both
+    of `_fma`'s paths (every element; midpoints gathered): values and the
+    gradient of sum(a . a) + sum(a . b) equal to the CPU's bit for bit. The
+    COLMAP loss takes this gradient on the card's PyTorch too."""
+    monkeypatch.setattr(knn, "_DENSE_MAX", dense_max)
+    rng = np.random.default_rng(5)
+    n = 4096
+    a = np.stack([2.0 ** -rng.integers(14, 20, n), rng.integers(2049, 2896, n) * 2 + 1,
+                  rng.normal(size=n)], 1).astype(np.float32)
+    b = rng.normal(size=(n, 3)).astype(np.float32)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        ta = torch.as_tensor(a, device=d).requires_grad_()
+        tb = torch.as_tensor(b, device=d).requires_grad_()
+        sq, ab = knn._dot3(ta, ta), knn._dot3(ta, tb)
+        (sq.sum() + ab.sum()).backward()
+        outs.append([x.detach().cpu().numpy() for x in (sq, ab, ta.grad, tb.grad)])
+    for x, y in zip(*outs):
+        np.testing.assert_array_equal(x.view(np.int32), y.view(np.int32))

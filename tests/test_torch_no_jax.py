@@ -1,5 +1,5 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-Pillow or imageio, which the card machine lacks), its
+Pillow, imageio or OpenCV, which the card machine lacks), its
 kernel wrappers launch nothing on CPU tensors, and its entry points refuse to
 fall back to the CPU when CUDA is asked for and absent."""
 
@@ -18,6 +18,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["PIL"] = None          # the card machine has no Pillow either
 sys.modules["imageio"] = None      # nor imageio
+sys.modules["cv2"] = None          # nor OpenCV
 import ed3dgs_torch
 names = [m.name for m in pkgutil.walk_packages(ed3dgs_torch.__path__, "ed3dgs_torch.")]
 for name in names:
@@ -38,7 +39,13 @@ for name in ("ed3dgs_torch.train.trainer", "ed3dgs_torch.train.optim",
              "ed3dgs_torch.utils.lpips", "ed3dgs_torch.data.hyper",
              "ed3dgs_torch.data.nerfies_camera", "ed3dgs_torch.ops.integrate",
              "ed3dgs_torch.mesh.extract", "ed3dgs_torch.mesh.tetra",
-             "ed3dgs_torch.mesh.marching_tets", "ed3dgs_torch.mesh.mesh_eval"):
+             "ed3dgs_torch.mesh.marching_tets", "ed3dgs_torch.mesh.mesh_eval",
+             "ed3dgs_torch.mesh.tsdf", "ed3dgs_torch.mesh.tsdf_sparse",
+             "ed3dgs_torch.mesh.gaussians_viz", "ed3dgs_torch.render.network_gui",
+             "ed3dgs_torch.tools.mesh_extract_tsdf", "ed3dgs_torch.tools.gaussians_to_mesh",
+             "ed3dgs_torch.tools.mesh_video", "ed3dgs_torch.tools.viewer",
+             "ed3dgs_torch.tools.prepare_data", "ed3dgs_torch.tools.prepare_colmap",
+             "ed3dgs_torch.tools.prepare_radegs", "ed3dgs_torch.tools.nersemble_utils"):
     assert name in names, name
 print(len(names))
 """
@@ -49,7 +56,7 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 61   # every module of the eight slices was imported
+    assert int(out.stdout.split()[-1]) >= 73   # every module of the nine slices was imported
 
 
 def test_chip_smoke_imports_without_jax():
@@ -148,3 +155,26 @@ def test_serving_tools_refuse_the_cpu_unless_asked(tmp_path):
             run()
     assert metrics.main(["-m", model, "--device", "cpu"]) == {}
     assert evaluate_mesh.main(["-m", model, "--gt_dir", model, "--device", "cpu"]) == {}
+
+
+def test_offline_tools_refuse_the_cpu_unless_asked(tmp_path):
+    """The TSDF, Gaussian-mesh, mesh-video, viewer and render-mesh tools run
+    on the card by default and raise without one; `--device cpu` is the
+    only way onto the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from ed3dgs_torch.tools import (gaussians_to_mesh, mesh_extract_tsdf, mesh_video,
+                                    nersemble_utils, viewer)
+
+    model = str(tmp_path)
+    (tmp_path / "timestep_0").mkdir()
+    from ed3dgs_torch.data.ply import store_point_cloud
+    store_point_cloud(str(tmp_path / "mesh.ply"), np.zeros((3, 3)), np.zeros((3, 3)))
+    for run in (lambda: mesh_extract_tsdf.main(["-m", model]),
+                lambda: gaussians_to_mesh.main(["-m", model]),
+                lambda: viewer.main(["-m", model, "--port", "0"]),
+                lambda: mesh_video.main([model]),
+                lambda: nersemble_utils.main(["render-mesh", str(tmp_path / "mesh.ply")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()
+    assert mesh_video.main([model, "--device", "cpu"]) == []
