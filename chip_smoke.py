@@ -126,13 +126,32 @@ chunk 128):
    the TSDF tool and again before the viewer's requests: K1, K4 and K5a
    must each have launched once per view and per request rendered. It
    prints an `offline` JSON line; it fails on a launch count that
-   differs, or a comparison past the bounds below.
+   differs, or a comparison past the bounds below;
+9. the `multi` phase (ed3dgs_torch/parallel/): two ranks that share
+   cuda:0 in one gloo world (`spawn_world`), from the train phase's state
+   after its densify: (a) `render(mesh=...)` of one frame over a gauss
+   pair (the strip exchange) against `render()` in one process; (b) three
+   steps at data=1 x gauss=2 with the strip exchange, batch 1; (c) three
+   steps at data=2 x gauss=1, gspmd, batch 2: each rank's gathered state
+   after the first step held to the single-process step from the same
+   state, and every step's loss and PSNR to the single-process run's;
+   (d) `python -m torch.distributed.run --nproc_per_node 2 -m
+   ed3dgs_torch.tools.train --mesh data=1,gauss=2 --comms strip
+   --share_device --dist_backend gloo` for MULTI_CLI_ITERS iterations on
+   the cli phase's scene, its checkpoint reloaded and rendered in one
+   process (a test PSNR). Each sub-phase sets every count to 0 just before
+   it and reads it just after: each rank must launch exactly the kernels a
+   step needs (K1-K7). It prints each rank's launches, the collectives'
+   bytes a step by kind, the steps' host ms on the shared card (a cost,
+   not a scaling measurement) and a `multi` JSON line; the kernels line's
+   launches add the ranks' to the train path's.
 
 Weights are random, from numpy seeds; so are the training targets. Results go
 to DIR/chip_smoke.json (default smoke_out/ in the checkout), with the
-profiles and nvcc's register report beside it. The last six lines of
-standard output are the `cli`, `serve` and `offline` JSON lines, the card
-as nvidia-smi names it, the kernels' JSON line and the result line. Any failure exits non-zero before the result line.
+profiles and nvcc's register report beside it. The last seven lines of
+standard output are the `cli`, `serve`, `offline` and `multi` JSON lines,
+the card as nvidia-smi names it, the kernels' JSON line and the result
+line. Any failure exits non-zero before the result line.
 Needs one CUDA device; refuses to run without one.
 """
 
@@ -257,6 +276,27 @@ SPLAT_EYES = ((0.0, 0.0, 1.2), (0.7, -0.1, 1.6), (-0.7, -0.1, 1.6))
 SPLAT_TARGET, SPLAT_UP, SPLAT_ZOOM = (0.0, 0.0, 2.2), (0.0, -1.0, 0.0), 0.4
 VIEWER_SIZES = ((802, 550), (1000, 562))
 PREP_W, PREP_H = 550, 802    # a NerSemble images-2x frame
+
+# The multi phase: two ranks on cuda:0 in one gloo world (NCCL refuses two
+# ranks on one card) at the train phase's width and state: (a) one frame of
+# render(mesh=gauss 2) against render() on one process, every channel within
+# MULTI_ATOL + MULTI_RTOL*|value| (tests/test_tile_sharded.py:74); (b)
+# MULTI_STEPS steps at data=1 x gauss=2 with the strip exchange, batch 1,
+# and (c) MULTI_STEPS steps at data=2 x gauss=1, gspmd, batch 2: the state
+# after the first step held to the single-process step from the same state
+# at tests/test_parallel.py:70-79's bounds (that test holds one step), and
+# every step's loss and PSNR to the single-process run's; (d) tools.train under
+# torch.distributed.run on two ranks (--mesh data=1,gauss=2 --comms strip
+# --share_device) for MULTI_CLI_ITERS iterations on the cli phase's scene,
+# its checkpoint reloaded and rendered in one process. The world must finish
+# within MULTI_DEADLINE s, the torchrun within MULTI_CLI_DEADLINE s.
+MULTI_ATOL, MULTI_RTOL = 2e-5, 1e-4
+MULTI_STEPS = 3
+MULTI_LOSS_REL, MULTI_PSNR_REL = 2e-4, 2e-3
+MULTI_XYZ_ATOL, MULTI_WEIGHT_ATOL, MULTI_DENOM_ATOL = 5e-5, 5e-6, 1e-6
+MULTI_DEADLINE, MULTI_CLI_DEADLINE = 240.0, 300.0
+MULTI_CLI_ITERS = 30
+MULTI_EYE2 = (0.15, 0.05, 0.0)   # the second view of (c)'s batch of two
 
 KERNELS = {
     "K1": dict(name="forward_blend", route="cuda",
@@ -1116,6 +1156,329 @@ def offline_phase(torch, counters, cli):
     return out
 
 
+def multi_batches(torch, cam, cam2, device):
+    """(b)'s batches of one view and (c)'s of two, numpy-seeded targets; SSIM
+    on the first step of each."""
+    one = [make_batch(torch, cam, 1, 0.2 + 0.1 * i, i == 0, 700 + i, device)
+           for i in range(MULTI_STEPS)]
+    two = []
+    for i in range(MULTI_STEPS):
+        a = make_batch(torch, cam, 1, 0.25 + 0.1 * i, i == 0, 800 + i, device)
+        b = make_batch(torch, cam2, 1, 0.3 + 0.1 * i, i == 0, 900 + i, device)
+        two.append({k: a[k] if k == "use_ssim" else torch.cat([a[k], b[k]]) for k in a})
+    return one, two
+
+
+def multi_numbers(torch, state, aux, metrics) -> dict:
+    """The state after the first step (xyz, the temporal table, denom) and
+    every step's loss and PSNR."""
+    return {"xyz": state.params["gaussians"].xyz.detach().cpu().numpy(),
+            "weight": state.params["deform"]["weight"].detach().cpu().numpy(),
+            "denom": aux.denom.cpu().numpy(),
+            "loss": [float(m["loss"]) for m in metrics],
+            "psnr": [float(m["psnr"]) for m in metrics]}
+
+
+def multi_rank(rank, world, path):
+    """One rank of the multi phase's world (every rank on cuda:0): (a) the
+    strip render of one frame and the single-process render of it; (b) the
+    strip-exchange steps at data=1 x gauss=2; (c) the gspmd steps at data=2
+    x gauss=1. Returns, per sub-phase, its kernel launches (every count set
+    to 0 just before it), its collectives by kind, its host ms a step (on
+    the shared card) and its numbers."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from dataclasses import replace
+
+    from ed3dgs_torch.ops import binning_scan, knn_loss, rasterize_cuda, relayout, segment_sum
+    from ed3dgs_torch.parallel import comm
+    from ed3dgs_torch.parallel.mesh import Mesh
+    from ed3dgs_torch.parallel.sharded import (gather_train_state, make_sharded_train_step,
+                                               shard_batch, shard_train_state)
+    from ed3dgs_torch.render import render, settings_from_camera
+    from ed3dgs_torch.train.optim import build_optimizer
+
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    device, (width, height) = blob["device"], blob["size"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    blob = torch.load(path, map_location=device, weights_only=False)
+    state, aux, cache, setup = blob["state"], blob["aux"], blob["cache"], blob["setup"]
+    optimizer = build_optimizer(blob["opt"], blob["extent"])
+    counters = {"K1": rasterize_cuda.rasterize_forward, "K2": rasterize_cuda.rasterize_backward,
+                "K3": segment_sum.segment_sum_rows, "K4": binning_scan.fused_bin_scans,
+                "K5a": relayout.unpack_image, "K5b": relayout.pack_image,
+                "K6": knn_loss.knn_rows, "K7": knn_loss.knn_reverse,
+                "K8": segment_sum.segment_sum_rows_packed}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+        comm.ledger.reset()
+
+    def read():
+        return ({k: fn.launches for k, fn in counters.items()}, comm.ledger.summary())
+
+    out = {}
+    cam = bench_camera(width, height)
+    cam2 = bench_camera(width, height, eye=MULTI_EYE2)
+    one, two = multi_batches(torch, cam, cam2, device)
+    # (a) one frame, the gauss pair together
+    mesh = Mesh(1, 2)
+    gparams, deform = state.params["gaussians"], state.params["deform"]
+    local, laux = shard_train_state(mesh, state, aux)
+    bg = torch.full((3,), 1.0 if setup.white_background else 0.0, device=device)
+    kw = dict(iteration=10 ** 9, sh_degree=setup.sh_degree, kernel_size=setup.kernel_size,
+              disable_filter3d=setup.disable_filter3d, num_down_emb_c=setup.num_down_emb,
+              num_down_emb_f=setup.num_down_emb)
+    frame = settings_from_camera(cam, time=0.3, device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    with torch.no_grad():
+        reset()
+        strip = render(local.params["gaussians"], laux, deform, setup.hidden, frame, setup.raster,
+                       bg, mesh=mesh, **kw)
+        sync()
+        launches, ledger = read()
+        single = render(gparams, aux, deform, setup.hidden, frame, setup.raster, bg, **kw)
+    keys = ("render", "mask", "expected_coord", "median_coord", "expected_depth",
+            "median_depth", "normal", "tongue_mask")
+    worst = {k: float(((strip[k] - single[k]).abs()
+                       - MULTI_RTOL * single[k].abs()).max()) for k in keys}
+    out["a"] = dict(launches=launches, ledger=ledger, excess=worst,
+                    send_overflow=int(strip["send_overflow"]),
+                    capacity=max(64, 2 * laux.alive.shape[0]),
+                    num_pairs=(int(strip["num_pairs"]), int(single["num_pairs"])))
+    del strip, single
+
+    def run(mesh, setup_m, batches):
+        st, ax = shard_train_state(mesh, state, aux)
+        step = make_sharded_train_step(setup_m, optimizer, mesh)
+        reset()
+        metrics, ms, first = [], [], None
+        for b in batches:
+            sync()
+            t0 = time.perf_counter()
+            st, ax, m = step(st, ax, shard_batch(mesh, b), cache)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
+            if first is None:
+                first = (st, ax)
+        launches, ledger = read()
+        nums = multi_numbers(torch, *gather_train_state(mesh, *first), metrics)
+        return dict(launches=launches, ledger=ledger, step_ms=ms,
+                    send_overflow=[int(m["send_overflow"]) for m in metrics], **nums)
+
+    out["b"] = run(Mesh(1, 2), replace(setup, comms="strip"), one)
+    out["c"] = run(Mesh(2, 1), replace(setup, batch_size=2), two)
+    return out
+
+
+def run_group(cmd, env, cwd, deadline):
+    """Run cmd in its own process group; kill the whole group past
+    `deadline` s. Returns (exit code or None on the deadline, stdout+stderr)."""
+    proc = subprocess.Popen(cmd, env=env, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=deadline)
+        return proc.returncode, text
+    except subprocess.TimeoutExpired:
+        import signal
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        return None, text
+
+
+def multi_phase(torch, snap, cli, tmp):
+    """The `multi` phase (see MULTI_*): two ranks sharing cuda:0 in one gloo
+    world, at the train phase's width, from the state `snap` holds; then
+    tools.train on two ranks under torch.distributed.run on the cli phase's
+    scene. Returns the phase's numbers; fails on a rank that fails or misses
+    its deadline, a comparison past its bound, or a rank that launched none
+    of K1-K7."""
+    from dataclasses import replace
+
+    from ed3dgs_torch import convert
+    from ed3dgs_torch.ops.rasterize import RasterConfig
+    from ed3dgs_torch.parallel.multihost import spawn_world
+    from ed3dgs_torch.render import RenderSettings, render
+    from ed3dgs_torch.tools import train as train_tool
+    from ed3dgs_torch.train import losses as L
+    from ed3dgs_torch.train.trainer import make_train_step
+
+    t_phase = time.perf_counter()
+    out = {}
+    state, aux, cache, setup = snap["state"], snap["aux"], snap["cache"], snap["setup"]
+    path = os.path.join(tmp, "multi_state.pt")
+    torch.save(dict({k: snap[k] for k in ("state", "aux", "cache", "setup", "opt", "extent")},
+                    device=DEVICE, size=(WIDTH, HEIGHT)), path)
+    # the single-process references from the same state
+    cam = bench_camera(WIDTH, HEIGHT)
+    one, two = multi_batches(torch, cam, bench_camera(WIDTH, HEIGHT, eye=MULTI_EYE2), DEVICE)
+    refs = {}
+    with torch.enable_grad():
+        for key, setup_r, batches in (("b", setup, one), ("c", replace(setup, batch_size=2),
+                                                          two)):
+            step = make_train_step(setup_r, snap["optimizer"])
+            st, ax, metrics, first = state, aux, [], None
+            for b in batches:
+                st, ax, m = step(st, ax, b, cache)
+                metrics.append(m)
+                first = first or (st, ax)
+            refs[key] = multi_numbers(torch, *first, metrics)
+    del st, ax, metrics, first
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_world(multi_rank, 2, backend="gloo", args=(path,),
+                            deadline_s=MULTI_DEADLINE, timeout_s=120.0)
+    except RuntimeError as e:
+        fail(f"multi: {e}")
+    out["world_s"] = time.perf_counter() - t0
+    os.remove(path)
+
+    core = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7")
+    # launches a step: (b) one camera a rank, K4 twice (the strip bin and
+    # the pack's bin) and K3 twice (the blend's and the pack's backward),
+    # K6/K7 on both ranks (data rank 0); (c) one camera a rank, K6/K7 on
+    # data rank 0 only
+    want_b = {k: MULTI_STEPS * (2 if k in ("K3", "K4") else 1) for k in core}
+    totals = {k: 0 for k in KERNELS}
+    for r, res in enumerate(ranks):
+        for sub in ("a", "b", "c"):
+            for k, n in res[sub]["launches"].items():
+                totals[k] += n
+        print(f"multi: rank {r} launches (a) {res['a']['launches']} (b) "
+              f"{res['b']['launches']} (c) {res['c']['launches']}", flush=True)
+        want_c = {k: MULTI_STEPS * (1 if k not in ("K6", "K7") or r == 0 else 0) for k in core}
+        if any(res["a"]["launches"][k] != 1 for k in ("K1", "K5a")) or \
+                res["a"]["launches"]["K4"] != 2:
+            fail(f"multi (a): rank {r} launches {res['a']['launches']}")
+        if {k: res["b"]["launches"][k] for k in core} != want_b:
+            fail(f"multi (b): rank {r} launches {res['b']['launches']}, want {want_b}")
+        if {k: res["c"]["launches"][k] for k in core} != want_c:
+            fail(f"multi (c): rank {r} launches {res['c']['launches']}, want {want_c}")
+        if any(sum(res[s]["launches"][k] for s in "abc") == 0 for k in core):
+            fail(f"multi: rank {r} launched none of some kernel of K1-K7")
+    out["launches"] = totals
+
+    # (a) the strip render against one process
+    for r, res in enumerate(ranks):
+        a = res["a"]
+        print(f"multi (a): rank {r} render(mesh=gauss 2) vs render(): worst |diff| - "
+              f"rtol*|value| by output {a['excess']} (limit {MULTI_ATOL}); send_overflow "
+              f"{a['send_overflow']} of capacity {a['capacity']}; num_pairs "
+              f"{a['num_pairs']}; collectives {a['ledger']}", flush=True)
+        if max(a["excess"].values()) > MULTI_ATOL or a["send_overflow"] > a["capacity"]:
+            fail(f"multi (a): rank {r}'s strip render misses the single-process render")
+        if a["num_pairs"][0] != a["num_pairs"][1]:
+            fail(f"multi (a): rank {r} reports another pair demand {a['num_pairs']}")
+    out["a"] = {r: dict(excess=res["a"]["excess"], send_overflow=res["a"]["send_overflow"])
+                for r, res in enumerate(ranks)}
+
+    # (b), (c): each rank's gathered state against the single-process steps
+    for sub, what in (("b", "data=1 x gauss=2, strip, batch 1"),
+                      ("c", "data=2 x gauss=1, gspmd, batch 2")):
+        ref = refs[sub]
+        rows = []
+        for r, res in enumerate(ranks):
+            x = res[sub]
+            err = dict(
+                loss=max(abs(a - b) / abs(b) for a, b in zip(x["loss"], ref["loss"])),
+                psnr=max(abs(a - b) / abs(b) for a, b in zip(x["psnr"], ref["psnr"])),
+                xyz=float(np.abs(x["xyz"] - ref["xyz"]).max()),
+                weight=float(np.abs(x["weight"] - ref["weight"]).max()),
+                denom=float(np.abs(x["denom"] - ref["denom"]).max()))
+            per_step = {kind: {tag: e["bytes"] / MULTI_STEPS for tag, e in tags.items()}
+                        for kind, tags in x["ledger"].items()}
+            print(f"multi ({sub}) {what}: rank {r} losses {x['loss']} (single "
+                  f"{ref['loss']}); errors {err} (limits loss {MULTI_LOSS_REL} psnr "
+                  f"{MULTI_PSNR_REL} xyz {MULTI_XYZ_ATOL} weight {MULTI_WEIGHT_ATOL} denom "
+                  f"{MULTI_DENOM_ATOL}); step ms on the shared card (host clock, both ranks "
+                  f"on one H100; cost, not scaling) {[round(v, 3) for v in x['step_ms']]}; "
+                  f"collective bytes a step by kind and tag {per_step}", flush=True)
+            if (err["loss"] > MULTI_LOSS_REL or err["psnr"] > MULTI_PSNR_REL
+                    or err["xyz"] > MULTI_XYZ_ATOL or err["weight"] > MULTI_WEIGHT_ATOL
+                    or err["denom"] > MULTI_DENOM_ATOL
+                    or not all(math.isfinite(v) for v in x["loss"])):
+                fail(f"multi ({sub}): rank {r} misses the single-process steps")
+            rows.append(dict(errors=err, step_ms=x["step_ms"], bytes_per_step=per_step,
+                             send_overflow=x["send_overflow"]))
+        out[sub] = rows
+
+    # (d) the training tool on two ranks sharing the card
+    scene_dir = cli["scene_dir"]
+    model_dir = os.path.join(tmp, "model_multi")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", "-m", "ed3dgs_torch.tools.train", "-s", scene_dir, "-m", model_dir,
+           "--configs", os.path.join(REPO, "configs", "nersemble", "default.py"),
+           "--duration", str(CLI_FRAMES), "--iterations", str(MULTI_CLI_ITERS),
+           "--test_every", str(MULTI_CLI_ITERS), "--checkpoint_iterations",
+           str(MULTI_CLI_ITERS), "--seed", "0", "--device", DEVICE, "--mesh",
+           "data=1,gauss=2", "--comms", "strip", "--dist_backend", "gloo",
+           *(["--share_device"] if DEVICE == "cuda" else []), "--set", *CLI_SET]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    code, text = run_group(cmd, env, REPO, MULTI_CLI_DEADLINE)
+    out["cli_s"] = time.perf_counter() - t0
+    with open(os.path.join(tmp, "multi_cli.log"), "w") as f:
+        f.write(text)
+    tail = "\n".join(text.splitlines()[-12:])
+    print(f"multi (d): torch.distributed.run of tools.train, 2 ranks on cuda:0, "
+          f"{MULTI_CLI_ITERS} iterations: exit {code} in {out['cli_s']:.1f} s; its last "
+          f"lines:\n{tail}", flush=True)
+    if code != 0:
+        fail("multi (d): the two-rank training run failed or missed its deadline")
+    ckpt = os.path.join(model_dir, f"chkpnt{MULTI_CLI_ITERS}.npz")
+    cstate, caux = convert.load_checkpoint(ckpt, device=DEVICE)
+    cfg = train_tool.build_config(train_tool.parse_args(
+        ["-s", scene_dir, "-m", model_dir, "--configs",
+         os.path.join(REPO, "configs", "nersemble", "default.py"), "--set", *CLI_SET]))
+    rows = caux.alive.shape[0]
+    test_cam = [c for c in _scene_cameras(scene_dir, cfg, rows) if c.image is not None][0]
+    m = test_cam.matrices()
+    rcfg = RasterConfig(width=m.width, height=m.height, focal_x=m.focal_x, focal_y=m.focal_y,
+                        pair_capacity=PAIR_CAPACITY, chunk=cfg.opt.raster_chunk)
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    s = RenderSettings(torch.as_tensor(m.world_view, **f32), torch.as_tensor(m.full_proj, **f32),
+                       torch.as_tensor(m.campos, **f32), torch.tensor(test_cam.time, **f32),
+                       torch.zeros((), dtype=torch.int64, device=DEVICE))
+    bg = torch.full((3,), 1.0 if cfg.model.white_background else 0.0, **f32)
+    with torch.no_grad():
+        img = render(cstate.params["gaussians"], caux, cstate.params["deform"], cfg.hidden, s,
+                     rcfg, bg, iteration=MULTI_CLI_ITERS, sh_degree=cfg.model.sh_degree,
+                     kernel_size=cfg.model.kernel_size,
+                     disable_filter3d=cfg.model.disable_filter3D,
+                     num_down_emb_c=cfg.hidden.min_embeddings,
+                     num_down_emb_f=cfg.hidden.min_embeddings)["render"]
+        psnr = float(torch.mean(L.psnr(img[None], torch.as_tensor(test_cam.image,
+                                                                  device=DEVICE)[None])))
+    print(f"multi (d): checkpoint {os.path.basename(ckpt)} reloaded in one process ({rows} rows, "
+          f"{int(caux.alive.sum())} alive, iteration {int(cstate.iteration)}); test PSNR "
+          f"{psnr:.3f} dB on {os.path.basename(str(test_cam.image_path))}", flush=True)
+    if not math.isfinite(psnr) or int(cstate.iteration) != MULTI_CLI_ITERS:
+        fail("multi (d): the reloaded checkpoint does not render")
+    out["cli"] = dict(seconds=out["cli_s"], test_psnr=psnr, alive=int(caux.alive.sum()),
+                      rows=rows)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"multi: phase {out['wall_s']:.1f} s (world {out['world_s']:.1f} s, torchrun "
+          f"{out['cli_s']:.1f} s)", flush=True)
+    return out
+
+
+def _scene_cameras(scene_dir, cfg, capacity):
+    """The test cameras of the cli phase's scene, read as tools.train reads them."""
+    from ed3dgs_torch.data.scene import Scene
+    scene = Scene(cfg.model, cfg.hidden, capacity=capacity, duration=CLI_FRAMES, shuffle=False,
+                  seed=0, device=DEVICE)
+    return list(scene.test_cameras)
+
+
 def main():
     import argparse
 
@@ -1601,6 +1964,9 @@ def main():
                              knn_refresh=knn_info2, steps_after_ms=step_ms2,
                              steps_after_host_ms=host_ms2, launches_after=launches2)
     del losses2, more
+    # the multi phase starts from this state (after densify and the refreshes)
+    snap = dict(state=state, aux=taux, cache=knn_cache, setup=setup, optimizer=optimizer,
+                opt=opt, extent=extent)
 
     # ---- 4. the gradient kernels against their plain versions --------------
     # (the recorded inputs include the forward's saved output, which carries
@@ -1966,9 +2332,14 @@ def main():
         result["cli"] = cli_phase(torch, counters, result["train_step_ms"], tmp)
         result["serve"] = serve_phase(torch, counters, result["cli"])
         result["offline"] = offline_phase(torch, counters, result["cli"])
+        # ---- 9. two ranks sharing the card ---------------------------------
+        result["multi"] = multi_phase(torch, snap, result["cli"], tmp)
+    del snap
 
     order = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "K8")
-    kernel_rows = [dict(rows[k], launches=train_launches[k]) for k in order]
+    # the main path's launches: the train run's and the multi phase's ranks'
+    kernel_rows = [dict(rows[k], launches=train_launches[k] + result["multi"]["launches"][k])
+                   for k in order]
     result["kernels"] = kernel_rows
     result["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -1986,6 +2357,7 @@ def main():
                   "mesh_distance_mm", "integrate_max_diff")
     print(json.dumps({"serve": {k: result["serve"][k] for k in serve_keys}}), flush=True)
     print(json.dumps({"offline": result["offline"]}), flush=True)
+    print(json.dumps({"multi": {"card": card, **result["multi"]}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -128,3 +128,50 @@ def checkpoint_arrays(state, aux) -> dict:
             flat[adam + "1/count"] = np.asarray(st.count, np.int32)
     flat.update({f"aux/{k}": v for k, v in flatten_pytree(aux._asdict()).items()})
     return flat
+
+
+# --- the Gaussian rows of a whole training state -----------------------------
+
+def map_state_rows(state, aux, fn):
+    """(state, aux) with `fn` applied to every tensor whose leading axis is
+    the Gaussian capacity: the cloud's parameters, their Adam moments and
+    every aux array. The deformation network and its moments, and the
+    update counts, are kept as they are."""
+    from .models.gaussians import GaussianParams
+    from .train.optim import TrainState
+
+    def rows(d):
+        return {p: fn(t) if p.startswith("gaussians/") else t for p, t in d.items()}
+
+    params = dict(state.params)
+    params["gaussians"] = GaussianParams(*(fn(t) for t in state.params["gaussians"]))
+    opt_state = {g: st._replace(mu=rows(st.mu), nu=rows(st.nu))
+                 for g, st in state.opt_state.items()}
+    return (TrainState(params, opt_state, state.iteration),
+            type(aux)(*(fn(t) for t in aux)))
+
+
+def shard_state(state, aux, index: int, count: int):
+    """Rank `index` of `count`'s rows of (state, aux): rows [index * C /
+    count, (index + 1) * C / count) of every capacity-leading tensor (C a
+    multiple of count), the rest whole."""
+    C = aux.alive.shape[0]
+    if C % count:
+        raise ValueError(f"capacity {C} does not split into {count} equal shards")
+    per = C // count
+    return map_state_rows(state, aux, lambda t: t[index * per:(index + 1) * per])
+
+
+def unshard_state(shards):
+    """The whole (state, aux) from the list of every shard's (state, aux),
+    in shard order: the inverse of shard_state, so a sharded run's
+    checkpoint is the file a single-process run writes."""
+    merged = iter([torch.cat(ts) for ts in zip(*(_rows_in_order(s, a) for s, a in shards))])
+    return map_state_rows(*shards[0], lambda t: next(merged))
+
+
+def _rows_in_order(state, aux) -> list:
+    """The capacity-leading tensors of (state, aux), in map_state_rows's order."""
+    out = []
+    map_state_rows(state, aux, lambda t: out.append(t) or t)
+    return out

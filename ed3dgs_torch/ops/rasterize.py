@@ -110,16 +110,20 @@ def sorted_payload_grad(pair_payload, packed, cot, bins, kw) -> torch.Tensor:
 
 
 def rasterize_rows(payload, depth, valid, rect_min, rect_max, tiles_touched, bg,
-                   cfg: RasterConfig, *, grid_x: int, grid_y: int) -> RasterOutputs:
+                   cfg: RasterConfig, *, grid_x: int, grid_y: int, half_w=None,
+                   half_h=None) -> RasterOutputs:
     """Rasterize bare splat rows ([N, 26] payload, see build_gaussian_payload)
-    over an explicit tile grid."""
+    over an explicit tile grid. Rays leave from pixel (half_w, half_h), the
+    image centre by default; a strip of a larger image (parallel/
+    tile_sharded.py) passes the full image's centre in its own rows."""
     with record_function("ed3dgs.bin"):
         bins = bin_rows(depth.detach(), valid, tiles_touched, rect_min, rect_max,
                         grid_x=grid_x, grid_y=grid_y, pair_capacity=cfg.pair_capacity)
     with record_function("ed3dgs.gather"):
         payload_sorted = _PermuteRows.apply(payload, bins.order)
     kw = dict(grid_x=grid_x, grid_y=grid_y, width=cfg.width, height=cfg.height,
-              focal_x=cfg.focal_x, focal_y=cfg.focal_y, chunk=cfg.chunk)
+              focal_x=cfg.focal_x, focal_y=cfg.focal_y, chunk=cfg.chunk, half_w=half_w,
+              half_h=half_h)
     packed = _ExpandRaster.apply(payload_sorted, bins, kw)
     with record_function("ed3dgs.relayout"):
         # padded tile columns hold garbage: slice before any arithmetic

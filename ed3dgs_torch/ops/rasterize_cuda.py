@@ -207,7 +207,8 @@ def _chunk_rows(pair_payload, start, count, c, chunk, rowid):
 
 def rasterize_forward_plain(pair_payload, tile_start, tile_count, *, grid_x: int,
                             grid_y: int, width: int, height: int, focal_x: float,
-                            focal_y: float, chunk: int = 128,
+                            focal_y: float, chunk: int = 128, half_w: float | None = None,
+                            half_h: float | None = None,
                             stats: dict | None = None) -> torch.Tensor:
     """Plain PyTorch version of K1 (same arguments as `rasterize_forward`),
     TILE_BATCH tiles at a time. Unwritten tile columns are zero.
@@ -269,9 +270,15 @@ def rasterize_forward_plain(pair_payload, tile_start, tile_count, *, grid_x: int
             ], dim=1)
             med = torch.where((midx >= 0)[:, None, :], new, med)
         packed = _finalize(acc_w, acc_wx, acc_wy, med, t_carry, pxf, pyf,
-                           width / 2.0, height / 2.0, focal_x, focal_y)
+                           *_half(width, height, half_w, half_h), focal_x, focal_y)
         out[tid // grid_x, tid % grid_x] = packed
     return out
+
+
+def _half(width, height, half_w, half_h) -> tuple:
+    """The ray origin's pixel (half_w, half_h), the image centre by default."""
+    return (width / 2.0 if half_w is None else float(half_w),
+            height / 2.0 if half_h is None else float(half_h))
 
 
 def _check_tiles(pair_payload, tile_start, tile_count, num_tiles):
@@ -304,16 +311,19 @@ def kernel_info(kernel: str, chunk: int = 128) -> dict:
 
 def rasterize_forward(pair_payload, tile_start, tile_count, *, grid_x: int,
                       grid_y: int, width: int, height: int, focal_x: float,
-                      focal_y: float, chunk: int = 128) -> torch.Tensor:
+                      focal_y: float, chunk: int = 128, half_w: float | None = None,
+                      half_h: float | None = None) -> torch.Tensor:
     """Blend every tile. pair_payload [K, 26] float32 rows in pair order;
     tile_start / tile_count [grid_x*grid_y] int32. Returns the packed
     [grid_y, GXP, 24, 256] channels; tile columns grid_x..GXP are left
-    unwritten. Ray directions are taken from the image centre."""
+    unwritten. A pixel's ray is ((x - half_w) / focal_x, (y - half_h) /
+    focal_y, 1); half_w and half_h default to the image centre, and a strip
+    of a larger image passes the full image's, shifted to its first row."""
     if not pair_payload.is_cuda:
         return rasterize_forward_plain(
             pair_payload, tile_start, tile_count, grid_x=grid_x, grid_y=grid_y,
             width=width, height=height, focal_x=focal_x, focal_y=focal_y,
-            chunk=chunk)
+            chunk=chunk, half_w=half_w, half_h=half_h)
     num_tiles = grid_x * grid_y
     _check_tiles(pair_payload, tile_start, tile_count, num_tiles)
     _check_chunk(chunk)
@@ -324,7 +334,7 @@ def rasterize_forward(pair_payload, tile_start, tile_count, *, grid_x: int,
         err = cuda_lib.lib("rasterize_forward").ed3dgs_forward_blend(
             pair_payload.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
             out.data_ptr(), num_tiles, grid_x, gxp, chunk,
-            chunk * MAX_CHUNKS, focal_x, focal_y, width / 2.0, height / 2.0,
+            chunk * MAX_CHUNKS, focal_x, focal_y, *_half(width, height, half_w, half_h),
             cuda_lib.stream_of(pair_payload))
     cuda_lib.check_launch(err, "rasterize_forward")
     rasterize_forward.launches += 1
@@ -400,7 +410,8 @@ def _cotangent_matrices(u):
 
 def rasterize_backward_plain(pair_payload, tile_start, tile_count, packed, cot, *,
                              grid_x: int, grid_y: int, width: int, height: int,
-                             focal_x: float, focal_y: float, chunk: int = 128):
+                             focal_x: float, focal_y: float, chunk: int = 128,
+                             half_w: float | None = None, half_h: float | None = None):
     """Plain PyTorch version of K2 (same arguments and results as
     `rasterize_backward`), TILE_BATCH tiles at a time. Rows past the last
     tile's, which K2 leaves unwritten, are zero here."""
@@ -442,8 +453,9 @@ def rasterize_backward_plain(pair_payload, tile_start, tile_count, packed, cot, 
         clive_all[tid] = clive.to(torch.int32)
         # ---- un-finalize the output cotangents
         ty, tx = tid // grid_x, tid % grid_x
-        u = (pxf - width / 2.0) / focal_x
-        v = (pyf - height / 2.0) / focal_y
+        hw, hh = _half(width, height, half_w, half_h)
+        u = (pxf - hw) / focal_x
+        v = (pyf - hh) / focal_y
         ln = torch.sqrt(u * u + v * v + 1.0)
         cu = _unfinalize(packed[ty, tx], cot[ty, tx], ln)
         M1, M2, M3, N1, N2, N3 = _cotangent_matrices(cu)
@@ -498,7 +510,8 @@ def rasterize_backward_plain(pair_payload, tile_start, tile_count, packed, cot, 
 
 def rasterize_backward(pair_payload, tile_start, tile_count, packed, cot, *,
                        grid_x: int, grid_y: int, width: int, height: int,
-                       focal_x: float, focal_y: float, chunk: int = 128):
+                       focal_x: float, focal_y: float, chunk: int = 128,
+                       half_w: float | None = None, half_h: float | None = None):
     """Gradient of `rasterize_forward` with respect to pair_payload.
 
     packed is the forward's output and cot its cotangent, both [grid_y, GXP,
@@ -511,7 +524,7 @@ def rasterize_backward(pair_payload, tile_start, tile_count, packed, cot, *,
         return rasterize_backward_plain(
             pair_payload, tile_start, tile_count, packed, cot, grid_x=grid_x,
             grid_y=grid_y, width=width, height=height, focal_x=focal_x,
-            focal_y=focal_y, chunk=chunk)
+            focal_y=focal_y, chunk=chunk, half_w=half_w, half_h=half_h)
     num_tiles = grid_x * grid_y
     _check_tiles(pair_payload, tile_start, tile_count, num_tiles)
     gxp = pad_grid_x(grid_x)
@@ -535,8 +548,8 @@ def rasterize_backward(pair_payload, tile_start, tile_count, packed, cot, *,
             pair_payload.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
             packed.data_ptr(), cot.data_ptr(), dpay.data_ptr(), clive.data_ptr(),
             tchk[0].data_ptr(), tchk[1].data_ptr(), tchk[2].data_ptr(), num_tiles, grid_x,
-            gxp, chunk, chunk * MAX_CHUNKS, focal_x, focal_y, width / 2.0, height / 2.0,
-            cuda_lib.stream_of(pair_payload))
+            gxp, chunk, chunk * MAX_CHUNKS, focal_x, focal_y,
+            *_half(width, height, half_w, half_h), cuda_lib.stream_of(pair_payload))
     cuda_lib.check_launch(err, "rasterize_backward")
     rasterize_backward.launches += 1
     return dpay, clive

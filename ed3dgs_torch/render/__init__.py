@@ -1,9 +1,11 @@
 """High-level renderer: deform -> activate -> project -> blend (port of
-ed3dgs_tpu/render/__init__.py, without the tile-sharded multi-device path).
+ed3dgs_tpu/render/__init__.py).
 
 API parity with the reference gaussian_renderer.render / render_tongue /
 render_without_tongue (gaussian_renderer/__init__.py:8-431): returns the same
 output dictionary keys. Everything runs on the device of the parameters.
+With `mesh`, one camera is rendered by the ranks of the mesh's gauss axis
+together, through the strip exchange (parallel/tile_sharded.py).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from ..device import resolve_device
 from ..models import gaussians as gm
 from ..models.deformation import deform_forward
 from ..ops.rasterize import RasterConfig, rasterize
+from ..parallel import comm
+from ..parallel.tile_sharded import tile_sharded_rasterize
 
 # SH band of each of the 16 coefficients (degree 3)
 _SH_BAND = (0, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3)
@@ -136,10 +140,19 @@ def render(
     tongue_filter: Optional[str] = None,  # None | "only" | "without"
     mean2d_offset: Optional[torch.Tensor] = None,
     active_sh_degree=None,
+    mesh=None,
+    send_capacity: Optional[int] = None,
 ) -> dict:
     """One render (reference gaussian_renderer.render :8-142). tongue_filter
     implements render_tongue / render_without_tongue (:145-431): the whole
-    cloud is deformed, then only the (non-)tongue subset is rasterized."""
+    cloud is deformed, then only the (non-)tongue subset is rasterized.
+
+    mesh: a parallel.mesh.Mesh. params and aux are then this rank's rows of
+    the gauss shard; the camera is rendered by the gauss group together
+    (tile_sharded_rasterize), every rank gets the whole image, and
+    "send_overflow" holds the largest per-(source, destination) splat
+    demand: past `send_capacity` (default max(64, 2 * local rows)) the
+    deepest splats were dropped. "num_pairs" is the whole view's demand."""
     proj, shs_f, xyz_f, extras = project_for_render(
         params, aux, deform_params, hidden_cfg, settings, raster_cfg,
         iteration=iteration, sh_degree=sh_degree, kernel_size=kernel_size,
@@ -147,11 +160,17 @@ def render(
         num_down_emb_c=num_down_emb_c, num_down_emb_f=num_down_emb_f,
         tongue_filter=tongue_filter, mean2d_offset=mean2d_offset,
         active_sh_degree=active_sh_degree)
-    out = rasterize(proj, aux.tongue_class[:, 0], bg, raster_cfg)
-    return assemble_outputs(out, proj, shs_f, xyz_f, extras)
+    if mesh is None:
+        out = rasterize(proj, aux.tongue_class[:, 0], bg, raster_cfg)
+        return assemble_outputs(out, proj, shs_f, xyz_f, extras)
+    out, send_overflow = tile_sharded_rasterize(proj, aux.tongue_class[:, 0], bg, raster_cfg,
+                                                mesh, send_capacity=send_capacity)
+    r = assemble_outputs(out, proj, shs_f, xyz_f, extras, send_overflow)
+    comm.all_reduce_(r["num_pairs"], mesh, "gauss", "sum", "metric")
+    return r
 
 
-def assemble_outputs(out, proj, shs_f, xyz_f, extras):
+def assemble_outputs(out, proj, shs_f, xyz_f, extras, send_overflow=None):
     """RasterOutputs + projection residues -> the reference's output dict."""
     return {
         "render": out.color,
@@ -160,8 +179,9 @@ def assemble_outputs(out, proj, shs_f, xyz_f, extras):
         "num_pairs": torch.sum(torch.where(proj.valid, proj.tiles_touched,
                                            torch.zeros_like(proj.tiles_touched)),
                                dtype=torch.int32),
-        # set by the tile-sharded multi-device path only (not ported yet)
-        "send_overflow": None,
+        # the strip exchange's largest per-(source, destination) splat demand
+        # (render with a mesh); None on one device
+        "send_overflow": send_overflow,
         "tile_overflow": out.tile_overflow,
         "mask": out.alpha,
         "expected_coord": out.expected_coord,

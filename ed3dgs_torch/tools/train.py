@@ -16,10 +16,23 @@ graph on the reference's cadences (train.py:123-452).
 
 It runs on the card unless `--device cpu` is passed; without a GPU the
 default raises. `--backend` is accepted for the JAX tool's command lines and
-ignored: the port has one backend. `--mesh` and `--comms strip` raise
-NotImplementedError. Densification draws come from a `torch.Generator`
-seeded by `--seed`: the JAX package's `PRNGKey` stream cannot be
-reproduced, so the two tools densify with different noise.
+ignored: the port has one backend. Densification draws come from a
+`torch.Generator` seeded by `--seed`: the JAX package's `PRNGKey` stream
+cannot be reproduced, so the two tools densify with different noise.
+
+Multi-device training runs one process per rank:
+
+  python -m torch.distributed.run --standalone --nproc_per_node N \
+      -m ed3dgs_torch.tools.train ... --mesh data=D,gauss=G [--comms strip]
+
+Each rank stages only its data row's cameras, keeps its gauss shard of the
+cloud and takes the sharded step (parallel/sharded.py); the metrics are
+global, rank 0 writes cfg_args, tfevents, PLYs and checkpoints (whole, the
+single-process format), and densification and the 3D filter and KNN
+refreshes run on the gathered cloud. `--dist_backend` picks the
+torch.distributed backend ("nccl" by default on GPUs, one per rank;
+"gloo" on the CPU), and `--share_device` puts every rank on cuda:0 (gloo
+only: NCCL refuses two ranks on one card).
 """
 
 from __future__ import annotations
@@ -50,11 +63,19 @@ def parse_args(argv=None):
                         "has one backend (the CUDA kernels on the card, their plain "
                         "versions on the CPU)")
     p.add_argument("--mesh", default=None, metavar="SPEC",
-                   help="multi-device training: not ported yet (ROADMAP.md, Queue 1 "
-                        "item 10); raises NotImplementedError")
+                   help="multi-device mesh over the torch.distributed world, e.g. "
+                        "'data=2,gauss=4' (0 = the rest) or 'auto'; run one process per "
+                        "rank under torch.distributed.run")
     p.add_argument("--comms", default="gspmd", choices=["gspmd", "strip"],
-                   help="multi-device rasterizer comms: 'strip' is not ported yet "
-                        "(ROADMAP.md, Queue 1 item 10)")
+                   help="with --mesh: 'gspmd' gathers the projected splats over the gauss "
+                        "axis, 'strip' exchanges them strip by strip (one all_to_all a "
+                        "camera)")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend with --mesh (default: nccl on GPUs, "
+                        "gloo on the CPU or with --share_device)")
+    p.add_argument("--share_device", action="store_true",
+                   help="with --mesh on GPUs: every rank on cuda:0 (ranks sharing one "
+                        "card; needs --dist_backend gloo)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the GPU; 'cpu' runs the "
                         "kernels' plain versions)")
@@ -143,11 +164,12 @@ class PcdSupervisionLoader:
         return pts
 
 
-def stage_batch(cams, use_ssim, tongue_enabled, device, pcd_loader=None):
+def stage_batch(cams, use_ssim, tongue_enabled, device, pcd_loader=None, pcd_frame_no=None):
     """The train step's batch for `cams` on `device`: images, camera
     matrices, times, camera ids, the SSIM gate, the tongue masks with
-    `tongue_enabled`, and with `pcd_loader` the last camera's frame's
-    sampled GT cloud (`pcd_valid` stays a host bool)."""
+    `tongue_enabled`, and with `pcd_loader` the sampled GT cloud of frame
+    `pcd_frame_no` (default: the last camera's; `pcd_valid` stays a host
+    bool)."""
     import torch
 
     mats = [c.matrices() for c in cams]
@@ -175,7 +197,8 @@ def stage_batch(cams, use_ssim, tongue_enabled, device, pcd_loader=None):
     if tongue_enabled:
         batch["tongue_gt"] = dev(np.stack(tongues))
     if pcd_loader is not None:
-        pts, valid = pcd_loader.sample(cams[-1].frame_no)
+        pts, valid = pcd_loader.sample(cams[-1].frame_no if pcd_frame_no is None
+                                       else pcd_frame_no)
         batch["pcd_points"] = dev(np.asarray(pts, np.float32))
         batch["pcd_valid"] = bool(valid)
     return batch
@@ -211,18 +234,50 @@ def main(argv=None):
     return run_training(cfg, args)
 
 
+def _start_world(args):
+    """(mesh, device) for this rank: the world torchrun describes joined on
+    the asked backend, or (None, the asked device) without --mesh."""
+    import torch
+
+    from ..device import resolve_device
+    from ..parallel import multihost
+
+    if not args.mesh:
+        if args.comms != "gspmd":
+            raise ValueError("--comms strip exchanges splats between the ranks of a mesh: "
+                             "pass --mesh")
+        return None, resolve_device(args.device)
+    device = multihost.rank_device(args.device, share=args.share_device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)   # NCCL's own calls use the current device
+    backend = args.dist_backend or (
+        "nccl" if device.type == "cuda" and not args.share_device else "gloo")
+    multihost.check_backend(backend, device, args.share_device)
+    multihost.initialize_multihost(backend)
+    mesh = multihost.parse_mesh_spec(args.mesh)
+    if mesh.rank == 0:
+        print(f"[mesh] {mesh.size('world')} ranks, data={mesh.shape['data']} "
+              f"gauss={mesh.shape['gauss']}, comms {args.comms}, backend {backend}, "
+              f"device {device}{' (shared by every rank)' if args.share_device else ''}",
+              flush=True)
+    return mesh, device
+
+
 def run_training(cfg, args):
     """Train as the JAX tool does. Returns (scene, state, aux, log): log
     holds the loop's wall ms, loss and train PSNR per iteration, the test
     PSNRs, the densify events, the pair-capacity changes, the alive counts
-    at start and end, and the stager's decode and wait ms."""
+    at start and end, and the stager's decode and wait ms. With --mesh the
+    state and aux are whole (gathered) on every rank."""
     import torch
 
     from ..data.native_staging import Stager
     from ..data.scene import Scene
-    from ..device import resolve_device
     from ..models import gaussians as gm
     from ..ops.rasterize import RasterConfig
+    from ..parallel import comm
+    from ..parallel.multihost import host_batch_slice, to_host
+    from ..parallel.sharded import shard_train_state
     from ..render import RenderSettings
     from ..render import render as render_fn
     from ..train import losses as L
@@ -232,18 +287,26 @@ def run_training(cfg, args):
     from ..train.trainer import (TrainSetup, init_train_state, make_densify_step,
                                  make_train_step)
 
-    if args.mesh or args.comms != "gspmd":
-        raise NotImplementedError(
-            "multi-device training (--mesh, --comms strip) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 10)")
-    device = resolve_device(args.device)
+    mesh, device = _start_world(args)
     t_start = time.time()
     model, opt, hidden = cfg.model, cfg.opt, cfg.hidden
     capacity = args.capacity or opt.max_number_gaussians
+    is_proc0 = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        if opt.batch_size % mesh.shape["data"]:
+            raise ValueError(f"batch_size {opt.batch_size} must be divisible by the mesh's "
+                             f"data axis ({mesh.shape['data']})")
+        gauss = mesh.shape["gauss"]
+        if capacity % gauss:  # the row shards must be equal
+            capacity += gauss - capacity % gauss
+            if is_proc0:
+                print(f"capacity rounded up to {capacity} (multiple of gauss axis {gauss})",
+                      flush=True)
 
     os.makedirs(model.model_path, exist_ok=True)
-    with open(os.path.join(model.model_path, "cfg_args"), "w") as f:
-        f.write(repr({"model": vars(model), "opt": vars(opt), "hidden": vars(hidden)}))
+    if is_proc0:
+        with open(os.path.join(model.model_path, "cfg_args"), "w") as f:
+            f.write(repr({"model": vars(model), "opt": vars(opt), "hidden": vars(hidden)}))
 
     scene = Scene(model, hidden, capacity=capacity, duration=args.duration,
                   shuffle=False, seed=args.seed, device=device)
@@ -253,6 +316,8 @@ def run_training(cfg, args):
     rcfg = RasterConfig(width=cam0.width, height=cam0.height,
                         focal_x=cam0.focal_x, focal_y=cam0.focal_y,
                         pair_capacity=opt.pair_capacity, chunk=opt.raster_chunk)
+    comms = args.comms if mesh is not None else "gspmd"
+    strip_caps = {"send": max(64, -(-2 * capacity // (mesh.shape["gauss"] if mesh else 1)))}
     setup = TrainSetup(
         raster=rcfg, hidden=hidden, batch_size=opt.batch_size,
         white_background=model.white_background, kernel_size=model.kernel_size,
@@ -265,7 +330,10 @@ def run_training(cfg, args):
         radegs_from_iter=opt.radegs_regularization_from_iter,
         num_down_emb=hidden.min_embeddings, sh_degree=model.sh_degree,
         colmap_supervision=model.colmap_supervision_enabled,
-        deform_from_iter=hidden.deform_from_iter)
+        deform_from_iter=hidden.deform_from_iter,
+        batch_mode="vmap" if mesh is not None else "scan",
+        comms=comms, mesh=mesh,
+        send_capacity=strip_caps["send"] if comms == "strip" else None)
 
     state, optimizer = init_train_state(scene.params, hidden, opt, scene.cameras_extent,
                                         seed=args.seed)
@@ -273,7 +341,9 @@ def run_training(cfg, args):
     first_iter = 1
     if args.start_checkpoint:
         state, aux, first_iter = load_checkpoint(args.start_checkpoint, state, aux, device)
-        print(f"resumed from {args.start_checkpoint} at iteration {first_iter}", flush=True)
+        if is_proc0:
+            print(f"resumed from {args.start_checkpoint} at iteration {first_iter}",
+                  flush=True)
 
     step_fn = make_train_step(setup, optimizer)
     densify_fn = make_densify_step(opt, opt.percent_dense, scene.cameras_extent)
@@ -294,10 +364,25 @@ def run_training(cfg, args):
     heights = torch.tensor([float(c.height) for c in first_frames], **f32)
 
     def refresh_filter(params, aux):
+        """The 3D filter of the whole cloud (params and aux whole)."""
         if model.disable_filter3D:
             return aux._replace(filter_3d=torch.zeros_like(aux.filter_3d))
         return aux._replace(filter_3d=gm.compute_3d_filter(
             params.xyz, aux.alive, view_mats, focals_x, focals_y, widths, heights))
+
+    def whole(state, aux):
+        return (state, aux) if mesh is None else to_host(mesh, state, aux)
+
+    def shard(state, aux):
+        return (state, aux) if mesh is None else shard_train_state(mesh, state, aux)
+
+    def points(aux):
+        """(alive, alive tongue) Gaussians of the whole cloud, from this
+        rank's shard."""
+        n = torch.stack([aux.alive.sum(), (aux.alive & (aux.tongue_class[:, 0] > 0.5)).sum()])
+        if mesh is not None:
+            comm.all_reduce_(n, mesh, "gauss", "sum", "metric")
+        return [int(v) for v in n]
 
     aux = refresh_filter(state.params["gaussians"], aux)
 
@@ -315,16 +400,20 @@ def run_training(cfg, args):
 
     # adaptive KNN-graph capacity buckets (grow-only, like the pair capacity):
     # a refresh that drops more edges than the coverage target allows
-    # re-prepares the graph at bigger buckets before training continues
+    # re-prepares the graph at bigger buckets before training continues.
+    # Every rank builds the same (replicated) cache from the whole cloud, so
+    # the bucket decisions agree.
     knn_caps = dict(trainer.KNN_CAPS_DEFAULT)
 
     def refresh_knn(params, aux):
         return trainer.refresh_knn_cache(
             params, aux, knn_caps, tongue_enabled=model.tongue_mask_loss_enabled,
-            coverage_target=opt.knn_coverage_target, quiet=args.quiet)
+            coverage_target=opt.knn_coverage_target, quiet=args.quiet or not is_proc0)
 
     knn_cache = refresh_knn(state.params["gaussians"], aux)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    log_points = int(aux.alive.sum())     # the whole cloud, before sharding
+    state, aux = shard(state, aux)
 
     final_iter = opt.iterations
     save_iters = set(args.save_iterations or [final_iter])
@@ -339,6 +428,11 @@ def run_training(cfg, args):
             cam = min(options, key=lambda x: abs(x.frame_no - int(f) % maxtime))
         return cam
 
+    def local_slice(cams):
+        """The cameras this rank stages: its data row's slice of the batch
+        (every rank's sampler has the same seed, so they agree on the batch)."""
+        return cams if mesh is None else cams[host_batch_slice(len(cams), mesh)]
+
     # decode iteration i+1's batch on worker threads while the card runs
     # step i (the reference's lazy PIL load stalls the loop instead,
     # train.py:172)
@@ -347,21 +441,39 @@ def run_training(cfg, args):
     def sample_batch(iteration):
         cams_idx, frames, use_ssim = sampler.sample(iteration, final_iter)
         cams = [pick(c, f) for c, f in zip(cams_idx, frames)]
-        for c in cams:
+        for c in local_slice(cams):
             stager.submit(c)
         return cams, use_ssim
 
     pcd_loader = (PcdSupervisionLoader(model, seed=args.seed)
                   if model.colmap_supervision_enabled else None)
 
+    def stage(cams, use_ssim):
+        # the COLMAP cloud keys to the GLOBAL batch's last camera: every rank
+        # samples the same replicated cloud
+        batch = stage_batch(local_slice(cams), use_ssim, model.tongue_mask_loss_enabled,
+                            device, pcd_loader, pcd_frame_no=cams[-1].frame_no)
+        if mesh is not None and pcd_loader is not None:
+            # a cloud file present on some hosts and missing on others would
+            # feed the ranks different terms: fail instead
+            mine = torch.tensor([[cams[-1].frame_no, int(batch["pcd_valid"])]], device=device)
+            seen = comm.all_gather_rows(mine, mesh, "world", "metric")
+            if not bool((seen == mine).all()):
+                raise RuntimeError(
+                    f"colmap-pcd supervision desynced across ranks: (frame, valid) "
+                    f"{seen.tolist()}; a cloud file present on some hosts is missing on "
+                    "others (check colmap_pcd_dir on every host)")
+        return batch
+
     tb = None
-    if not args.no_tensorboard:
+    if not args.no_tensorboard and is_proc0:
         from ..utils.tb_writer import SummaryWriter
         tb = SummaryWriter(model.model_path)
 
     # periodic held-out test PSNR (reference train.py:378-389), rendered at
     # the CURRENT raster config: the pair capacity follows the demand, and an
-    # eval render at a stale one would drop pairs
+    # eval render at a stale one would drop pairs. On a mesh every rank
+    # renders the camera with its gauss group (the strip exchange).
     test_cams = list(scene.test_cameras)
     eval_rng = np.random.default_rng(args.seed)
     bg = torch.full((3,), 1.0 if model.white_background else 0.0, **f32)
@@ -383,7 +495,8 @@ def run_training(cfg, args):
                             kernel_size=model.kernel_size,
                             disable_filter3d=model.disable_filter3D,
                             num_down_emb_c=hidden.min_embeddings,
-                            num_down_emb_f=hidden.min_embeddings)["render"]
+                            num_down_emb_f=hidden.min_embeddings, mesh=mesh,
+                            send_capacity=strip_caps["send"] if mesh else None)["render"]
         cam.release_image()
         gt = torch.as_tensor(img, device=device)
         return float(torch.mean(L.psnr(out[None], gt[None])))
@@ -394,36 +507,44 @@ def run_training(cfg, args):
     cap_policy.start(first_iter)
 
     log = {"iter_ms": [], "loss": [], "psnr": [], "test_psnr": [], "densify": [],
-           "capacity": [], "points_start": int(aux.alive.sum())}
+           "capacity": [], "points_start": log_points}
 
-    def maybe_resize_capacity(iteration, num_pairs):
+    def maybe_resize_capacity(iteration, num_pairs, send_overflow):
         nonlocal rcfg, setup, step_fn
         want = cap_policy.observe(iteration, num_pairs)
         if want is not None:
-            if not args.quiet:
+            if not args.quiet and is_proc0:
                 print(f"[{iteration}] pair_capacity {rcfg.pair_capacity} -> {want}", flush=True)
             log["capacity"].append((iteration, rcfg.pair_capacity, want))
             rcfg = replace(rcfg, pair_capacity=want)
             setup = replace(setup, raster=rcfg)
             step_fn = make_train_step(setup, optimizer)
+        if comms == "strip" and send_overflow > strip_caps["send"]:
+            # the strip buffers dropped the deepest splats: grow them (the
+            # contract of the pair capacity)
+            while strip_caps["send"] < send_overflow:
+                strip_caps["send"] *= 2
+            if is_proc0:
+                print(f"[{iteration}] strip send_capacity -> {strip_caps['send']}", flush=True)
+            setup = replace(setup, send_capacity=strip_caps["send"])
+            step_fn = make_train_step(setup, optimizer)
 
     prof = None
     pending = sample_batch(first_iter)
     t_iter = time.time()
-    prof_start = first_iter + 19 if args.profile else -1
+    prof_start = first_iter + 19 if args.profile and is_proc0 else -1
     prof_stop = prof_start + args.profile
     try:
         for iteration in range(first_iter, final_iter + 1):
             t_loop = time.perf_counter()
             cams, use_ssim = pending
-            for c in cams:
+            for c in local_slice(cams):
                 stager.fetch_into(c)
             if iteration < final_iter:
                 pending = sample_batch(iteration + 1)
             if iteration == prof_start:
                 prof = _start_profile(torch, device)
-            batch = stage_batch(cams, use_ssim, model.tongue_mask_loss_enabled, device,
-                                pcd_loader)
+            batch = stage(cams, use_ssim)
             state, aux, metrics = step_fn(state, aux, batch, knn_cache)
             if iteration == prof_stop and prof is not None:
                 _stop_profile(prof, os.path.join(model.model_path, "profile"))
@@ -432,8 +553,9 @@ def run_training(cfg, args):
             l1_items = metrics["l1_items"].cpu().numpy()
             sampler.record_loss([cam_index.get(c.cam_no, 0) for c in cams],
                                 [c.frame_no for c in cams], l1_items)
-            maybe_resize_capacity(iteration, int(metrics["num_pairs"]))
-            for c in cams:
+            maybe_resize_capacity(iteration, int(metrics["num_pairs"]),
+                                  int(metrics["send_overflow"]))
+            for c in local_slice(cams):
                 c.release_image()
 
             if iteration < opt.densify_until_iter and iteration > opt.densify_from_iter \
@@ -442,23 +564,27 @@ def run_training(cfg, args):
                        - iteration * (opt.densify_grad_threshold_fine_init
                                       - opt.densify_grad_threshold_after)
                        / opt.densify_until_iter)
+                # on the whole cloud; every rank draws the same noise
+                state, aux = whole(state, aux)
                 state, aux, n_c, n_s = densify_fn(state, aux, generator, thr)
                 aux = refresh_filter(state.params["gaussians"], aux)
                 knn_cache = refresh_knn(state.params["gaussians"], aux)
                 log["densify"].append((iteration, int(n_c), int(n_s), int(aux.alive.sum())))
+                state, aux = shard(state, aux)
             elif (iteration % 100 == 0 and iteration > opt.densify_until_iter
                     and not model.disable_filter3D and iteration < final_iter - 100):
+                state, aux = whole(state, aux)
                 aux = refresh_filter(state.params["gaussians"], aux)
+                state, aux = shard(state, aux)
 
             loss = float(metrics["loss"])
             log["loss"].append(loss)
             log["psnr"].append(float(metrics["psnr"]))
+            n_points, n_tongue = points(aux)
             if tb is not None:
                 now = time.time()
-                training_report(
-                    tb, iteration, metrics, now - t_iter, int(aux.alive.sum()),
-                    int((aux.alive & (aux.tongue_class[:, 0] > 0.5)).sum())
-                    if model.tongue_mask_loss_enabled else 0)
+                training_report(tb, iteration, metrics, now - t_iter, n_points,
+                                n_tongue if model.tongue_mask_loss_enabled else 0)
                 t_iter = now
             if args.test_every > 0 and iteration % args.test_every == 0 and test_cams:
                 tp = eval_test_psnr(iteration)
@@ -466,23 +592,24 @@ def run_training(cfg, args):
                     log["test_psnr"].append((iteration, tp))
                     if tb is not None:
                         tb.add_scalar("test/psnr", tp, iteration)
-                    if not args.quiet:
+                    if not args.quiet and is_proc0:
                         print(f"[{iteration}] test psnr {tp:.2f}", flush=True)
 
-            if not args.quiet and iteration % 100 == 0:
+            if not args.quiet and is_proc0 and iteration % 100 == 0:
                 ema_loss = 0.4 * loss + 0.6 * ema_loss
                 print(f"[{iteration}/{final_iter}] loss={ema_loss:.5f} "
-                      f"psnr={float(metrics['psnr']):.2f} points={int(aux.alive.sum())}",
-                      flush=True)
+                      f"psnr={float(metrics['psnr']):.2f} points={n_points}", flush=True)
 
-            if iteration in save_iters:
-                elapsed = time.time() - t_start
-                with open(log_path, "a") as f:
-                    f.write(f"Iteration {iteration}: {elapsed} seconds "
-                            f"points: {int(aux.alive.sum())}\n")
-                scene.save(iteration, state.params["gaussians"], aux, state.params["deform"])
-            if iteration in ckpt_iters:
-                save_checkpoint(model.model_path, iteration, state, aux)
+            if iteration in save_iters or iteration in ckpt_iters:
+                saved = whole(state, aux)
+                if is_proc0 and iteration in save_iters:
+                    with open(log_path, "a") as f:
+                        f.write(f"Iteration {iteration}: {time.time() - t_start} seconds "
+                                f"points: {n_points}\n")
+                    scene.save(iteration, saved[0].params["gaussians"], saved[1],
+                               saved[0].params["deform"])
+                if is_proc0 and iteration in ckpt_iters:
+                    save_checkpoint(model.model_path, iteration, *saved)
             log["iter_ms"].append((time.perf_counter() - t_loop) * 1e3)
     finally:
         stager.close()
@@ -490,6 +617,7 @@ def run_training(cfg, args):
             tb.close()
         if prof is not None:
             prof.stop()
+    state, aux = whole(state, aux)
     log.update(points_end=int(aux.alive.sum()), decode_ms=list(stager.decode_ms),
                wait_ms=list(stager.wait_ms), first_iter=first_iter)
     return scene, state, aux, log
@@ -544,4 +672,7 @@ def load_checkpoint(path, state, aux, device="cuda"):
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+    if dist.is_initialized():   # a rank of a torch.distributed.run world
+        dist.destroy_process_group()
     sys.exit(0)

@@ -24,9 +24,12 @@ With `colmap_supervision`, the step adds 0.01 x the chamfer term of the
 batch's sampled GT cloud (`pcd_points`, `pcd_valid`) to the last camera's
 deformed positions, after `deform_from_iter`.
 
-Not ported yet, and refused with NotImplementedError rather than skipped:
-the strip-exchange comms and the vmapped batch. ROADMAP.md names the slice
-that brings each.
+With `mesh` (parallel/mesh.py) the step runs on one rank's shards of a
+data x gauss mesh (parallel/sharded.py): `comms="gspmd"` gathers the
+projected splat rows over the gauss group and blends whole images,
+`comms="strip"` exchanges them strip by strip (parallel/tile_sharded.py).
+`batch_mode="vmap"` is accepted for the JAX package's configurations: the
+port has no vmap, so it renders camera by camera, as "scan" does.
 """
 
 from __future__ import annotations
@@ -43,7 +46,11 @@ from ..ops import knn_loss
 from ..ops.knn import far_shell
 from ..ops.knn import knn as knn_op
 from ..ops.rasterize import RasterConfig
-from ..render import RenderSettings, render
+from ..ops.binning import build_gaussian_payload
+from ..parallel import comm
+from ..parallel import sharded as psh
+from ..parallel.tile_sharded import batched_strip_rasterize
+from ..render import RenderSettings, assemble_outputs, project_for_render, render
 from . import losses as L
 from .densify import add_densification_stats, densify
 from .optim import (TrainState, build_optimizer, flatten_params, reset_moments_at,
@@ -77,21 +84,32 @@ class TrainSetup:
     # samples to the deformed Gaussians, active after deform_from_iter
     colmap_supervision: bool = False
     deform_from_iter: int = 0
+    # "scan" and "vmap" both render the batch camera by camera: the JAX
+    # package's vmap keeps B a batch axis for GSPMD, which the port's
+    # explicit sharding does not need
     batch_mode: str = "scan"
+    # with `mesh`: "gspmd" gathers the projected splat rows over the gauss
+    # group, "strip" exchanges them strip by strip (parallel/tile_sharded.py)
     comms: str = "gspmd"
+    mesh: Optional[object] = None          # parallel.mesh.Mesh, or None for one process
+    send_capacity: Optional[int] = None    # per-(source, destination) strip buffer rows
 
 
 def check_supported(setup: TrainSetup):
-    """Raise for every part of the JAX step the port does not carry yet."""
-    if setup.comms != "gspmd":
-        raise NotImplementedError(
-            f"comms={setup.comms!r}: the strip exchange comes with the multi-device "
-            "slice (ROADMAP.md, Queue 1 item 10)")
-    if setup.batch_mode != "scan":
-        raise NotImplementedError(
-            f"batch_mode={setup.batch_mode!r}: the port renders a batch one camera "
-            "after another; the vmapped batch comes with the multi-device slice "
-            "(ROADMAP.md, Queue 1 item 10)")
+    """Raise for a configuration the step cannot run: an unknown comms or
+    batch mode, the strip exchange without a mesh, or a batch that the
+    mesh's data axis does not divide."""
+    if setup.comms not in ("gspmd", "strip"):
+        raise ValueError(f"comms={setup.comms!r}: want 'gspmd' or 'strip'")
+    if setup.batch_mode not in ("scan", "vmap"):
+        raise ValueError(f"batch_mode={setup.batch_mode!r}: want 'scan' or 'vmap'")
+    if setup.comms == "strip" and setup.mesh is None:
+        raise ValueError("comms='strip' exchanges splats between the ranks of a mesh: "
+                         "pass TrainSetup.mesh")
+    if setup.mesh is not None and setup.batch_size % setup.mesh.shape["data"]:
+        raise ValueError(f"batch_size {setup.batch_size} (batch_mode={setup.batch_mode!r}) "
+                         f"does not split over the mesh's data axis "
+                         f"({setup.mesh.shape['data']})")
 
 
 # --- the KNN graph cache ------------------------------------------------------
@@ -224,33 +242,86 @@ def refresh_knn_cache(params: gm.GaussianParams, aux: gm.GaussianAux,
 
 # --- the train step -------------------------------------------------------------
 
+def _background(setup: TrainSetup, device):
+    return torch.full((3,), 1.0 if setup.white_background else 0.0, device=device)
+
+
+def _project_kw(setup: TrainSetup, iteration):
+    # oneupSHdegree every 1000 iterations (train.py:129-130)
+    return dict(iteration=iteration, sh_degree=setup.sh_degree,
+                kernel_size=setup.kernel_size, disable_filter3d=setup.disable_filter3d,
+                num_down_emb_c=setup.num_down_emb, num_down_emb_f=setup.num_down_emb,
+                active_sh_degree=min(iteration // 1000, setup.sh_degree))
+
+
 def _render_one(params, aux, dparams, setup: TrainSetup, settings, iteration, offset,
                 tongue_filter=None):
-    # oneupSHdegree every 1000 iterations (train.py:129-130)
-    bg = torch.full((3,), 1.0 if setup.white_background else 0.0, device=params.xyz.device)
-    return render(params, aux, dparams, setup.hidden, settings, setup.raster, bg,
-                  iteration=iteration, sh_degree=setup.sh_degree,
-                  kernel_size=setup.kernel_size, disable_filter3d=setup.disable_filter3d,
-                  num_down_emb_c=setup.num_down_emb, num_down_emb_f=setup.num_down_emb,
-                  tongue_filter=tongue_filter, mean2d_offset=offset,
-                  active_sh_degree=min(iteration // 1000, setup.sh_degree))
+    """One camera's render; on a mesh, of this rank's rows together with
+    its gauss group's (gathered, or through the strip exchange)."""
+    bg = _background(setup, params.xyz.device)
+    kw = dict(_project_kw(setup, iteration), tongue_filter=tongue_filter,
+              mean2d_offset=offset)
+    if setup.mesh is None or setup.comms == "strip":
+        return render(params, aux, dparams, setup.hidden, settings, setup.raster, bg,
+                      mesh=setup.mesh, send_capacity=setup.send_capacity, **kw)
+    proj, shs_f, xyz_f, extras = project_for_render(params, aux, dparams, setup.hidden,
+                                                    settings, setup.raster, **kw)
+    out, num_pairs = psh.gathered_rasterize(proj, aux.tongue_class[:, 0], bg, setup.raster,
+                                            setup.mesh)
+    return dict(assemble_outputs(out, proj, shs_f, xyz_f, extras), num_pairs=num_pairs)
+
+
+def _settings(batch, b):
+    return RenderSettings(batch["viewmatrix"][b], batch["projmatrix"][b], batch["campos"][b],
+                          batch["time"][b], batch["cam_no"][b])
+
+
+def _strip_render_batch(gparams, aux, dparams, setup: TrainSetup, batch, offsets, iteration):
+    """This rank's cameras through the strip exchange (--comms strip): each
+    camera projected on this rank's rows, then one exchange a camera
+    (parallel/tile_sharded.py: batched_strip_rasterize). Returns (the
+    renders, one dict a camera, and the send overflow)."""
+    projs, xyzs = [], []
+    for b in range(offsets.shape[0]):
+        proj, _, xyz_f, _ = project_for_render(
+            gparams, aux, dparams, setup.hidden, _settings(batch, b), setup.raster,
+            mean2d_offset=offsets[b], **_project_kw(setup, iteration))
+        projs.append(proj)
+        xyzs.append(xyz_f)
+    tongue = aux.tongue_class[:, 0]
+    out, send_ovf = batched_strip_rasterize(
+        torch.stack([build_gaussian_payload(p, tongue) for p in projs]),
+        torch.stack([p.depth for p in projs]),
+        torch.stack([p.valid & (p.tiles_touched > 0) for p in projs]),
+        torch.stack([p.rect_min for p in projs]), torch.stack([p.rect_max for p in projs]),
+        _background(setup, gparams.xyz.device), setup.raster, setup.mesh,
+        send_capacity=setup.send_capacity)
+    num_pairs = torch.stack([torch.sum(torch.where(p.valid, p.tiles_touched,
+                                                   torch.zeros_like(p.tiles_touched)),
+                                       dtype=torch.int32) for p in projs])
+    comm.all_reduce_(num_pairs, setup.mesh, "gauss", "sum", "metric")
+    renders = [{
+        "render": out.color[b], "radii": p.radius, "visibility_filter": p.radius > 0,
+        "expected_depth": out.expected_depth[b], "median_depth": out.median_depth[b],
+        "normal": out.normal[b], "expected_coord": out.expected_coord[b],
+        "median_coord": out.median_coord[b], "tongue_mask": out.tongue[b],
+        "num_pairs": num_pairs[b], "tile_overflow": out.tile_overflow,
+        "deformed_gaussian_positions": xyzs[b]} for b, p in enumerate(projs)]
+    return renders, send_ovf
 
 
 def _tongue_terms(setup: TrainSetup, gparams, aux, dparams, batch, knn_cache, r_last,
-                  iteration):
+                  iteration, rows):
     """The tongue losses of the last camera (train.py, tongue_mask_loss):
     the blended tongue channel against the tongue mask, the KNN term on the
     tongue graph, and the colour of the tongue-only and tongue-free renders
     inside and outside the mask: {name: term}, added to the loss in order
     with weights 5, reg_coef, 1 and 0.5."""
-    B = setup.batch_size
     gt = batch["gt_image"]
     gt_tongue = batch["tongue_gt"][-1]                                   # [1, H, W]
     t_l1 = L.l1_loss(gt_tongue[None], r_last["tongue_mask"][None], keepdim=True).mean()
-    t_emb = knn_loss.knn_loss_fused(gparams.embedding, knn_cache.t_graph, KNN_K)
-    settings = RenderSettings(batch["viewmatrix"][B - 1], batch["projmatrix"][B - 1],
-                              batch["campos"][B - 1], batch["time"][B - 1],
-                              batch["cam_no"][B - 1])
+    t_emb = knn_loss.knn_loss_fused(rows(gparams.embedding), knn_cache.t_graph, KNN_K)
+    settings = _settings(batch, gt.shape[0] - 1)
     gt_mean = torch.mean(gt_tongue)
     r_tongue = _render_one(gparams, aux, dparams, setup, settings, iteration, None, "only")
     t_rgb = torch.mean(torch.abs(gt[-1] * gt_tongue - r_tongue["render"] * gt_tongue))
@@ -269,49 +340,65 @@ def make_loss_and_grads(setup: TrainSetup):
     vs_grad, radii, visible): the step's forward and backward without the
     update. grads is {path: tensor} over every parameter (zeros where the
     loss does not reach); vs_grad [C, 2] is the gradient of the zero
-    screen-space offsets, summed over the batch."""
+    screen-space offsets, summed over the batch. On a mesh, params, aux and
+    batch are this rank's shards, and every output is what the whole mesh
+    computes (gradients summed, metrics global; parallel/sharded.py)."""
     check_supported(setup)
     B = setup.batch_size
+    mesh = setup.mesh
+    # global terms on the first data rank, the last camera's on the rank
+    # that holds the global batch's last camera; the temporal TV reaches the
+    # replicated network directly, so one rank of the world adds its gradient
+    first = mesh is None or mesh.d == 0
+    last = mesh is None or mesh.d == mesh.shape["data"] - 1
+    tv_add_grad = mesh is None or mesh.g == 0
+
+    def rows(x):
+        """A per-Gaussian tensor of this rank's rows -> the whole cloud's."""
+        return x if mesh is None else comm.all_gather_rows(x, mesh, "gauss", "state")
 
     def loss_fn(params, offsets, aux, batch, knn_cache, iteration):
         gparams: gm.GaussianParams = params["gaussians"]
         dparams = params["deform"]
         reg_kick_on = iteration >= setup.radegs_from_iter
-        renders = []
-        for b in range(B):
-            settings = RenderSettings(batch["viewmatrix"][b], batch["projmatrix"][b],
-                                      batch["campos"][b], batch["time"][b],
-                                      batch["cam_no"][b])
-            renders.append(_render_one(gparams, aux, dparams, setup, settings, iteration,
-                                       offsets[b]))
+        n_cam = offsets.shape[0]
+        send_ovf = None
+        if setup.comms == "strip":
+            renders, send_ovf = _strip_render_batch(gparams, aux, dparams, setup, batch,
+                                                    offsets, iteration)
+        else:
+            renders = [_render_one(gparams, aux, dparams, setup, _settings(batch, b),
+                                   iteration, offsets[b]) for b in range(n_cam)]
         image = torch.stack([r["render"] for r in renders])           # [B, 3, H, W]
         gt = batch["gt_image"]
         zero = torch.zeros((), device=image.device)
+        # this rank's cameras' share of the global batch mean
+        w = n_cam / B
         l1_items = L.l1_loss(image, gt, keepdim=True)
-        l1 = torch.mean(l1_items)
+        l1 = torch.mean(l1_items) * w
         loss = l1
 
         use_ssim = bool(batch["use_ssim"])
-        ssim_val = L.ssim(image, gt) if use_ssim else torch.ones((), device=image.device)
+        ssim_val = L.ssim(image, gt) * w if use_ssim else torch.full((), w, device=image.device)
         if use_ssim:
-            loss = loss + setup.lambda_dssim * ((1.0 - ssim_val) / 2.0)
+            loss = loss + setup.lambda_dssim * ((w - ssim_val) / 2.0)
 
-        opa_loss = L.opacity_mean_loss(gparams.opacity, aux.alive)
-        if setup.opacity_l1_coef > 0:
-            loss = loss + setup.opacity_l1_coef * opa_loss
-
-        emb_loss = knn_loss.knn_loss_fused(gparams.embedding, knn_cache.graph, KNN_K)
-        loss = loss + setup.reg_coef * emb_loss
-
-        tv_loss = zero
-        if setup.coef_tv_temporal > 0:
-            tv_loss = L.temporal_tv_loss(dparams["weight"])
-            loss = loss + setup.coef_tv_temporal * tv_loss
+        opa_loss = emb_loss = tv_loss = zero
+        if first:
+            opa_loss = L.opacity_mean_loss(rows(gparams.opacity), rows(aux.alive))
+            if setup.opacity_l1_coef > 0:
+                loss = loss + setup.opacity_l1_coef * opa_loss
+            emb_loss = knn_loss.knn_loss_fused(rows(gparams.embedding), knn_cache.graph, KNN_K)
+            loss = loss + setup.reg_coef * emb_loss
+            if setup.coef_tv_temporal > 0:
+                tv_loss = L.temporal_tv_loss(dparams["weight"])
+                tv_term = setup.coef_tv_temporal * tv_loss
+                loss = loss + (tv_term if tv_add_grad else tv_term.detach())
 
         # depth-normal on the LAST batch entry only (train.py:247-271)
         r_last = renders[-1]
-        dn = zero
-        if reg_kick_on:
+        dn = pcd_loss = zero
+        if last and reg_kick_on:
             rc = setup.raster
             dn = (L.coord_normal_loss(r_last["normal"], r_last["expected_coord"],
                                       r_last["median_coord"])
@@ -324,17 +411,21 @@ def make_loss_and_grads(setup: TrainSetup):
         # COLMAP point-cloud supervision on the last batch entry's deformed
         # positions (train.py:273-295), skipped before deform_from_iter or
         # when the host found no GT cloud for the frame
-        pcd_loss = zero
-        if (setup.colmap_supervision and iteration > setup.deform_from_iter
+        if (last and setup.colmap_supervision and iteration > setup.deform_from_iter
                 and bool(batch["pcd_valid"])):
             pcd_loss = L.colmap_pcd_loss(batch["pcd_points"],
-                                         r_last["deformed_gaussian_positions"], aux.alive)
+                                         rows(r_last["deformed_gaussian_positions"]),
+                                         rows(aux.alive))
             loss = loss + 0.01 * pcd_loss  # closest_distance_coef (train.py:294)
 
         tongue_metrics = {}
         if setup.tongue_enabled:
-            tongue_metrics = _tongue_terms(setup, gparams, aux, dparams, batch, knn_cache,
-                                           r_last, iteration)
+            if last:
+                tongue_metrics = _tongue_terms(setup, gparams, aux, dparams, batch, knn_cache,
+                                               r_last, iteration, rows)
+            else:
+                tongue_metrics = {k: zero for k in ("tongue_l1", "tongue_emb", "tongue_rgb",
+                                                    "wo_tongue_rgb")}
             for name, weight in (("tongue_l1", 5.0), ("tongue_emb", setup.reg_coef),
                                  ("tongue_rgb", 1.0), ("wo_tongue_rgb", 0.5)):
                 loss = loss + weight * tongue_metrics[name]
@@ -343,12 +434,13 @@ def make_loss_and_grads(setup: TrainSetup):
         visible = torch.stack([r["visibility_filter"] for r in renders]).any(dim=0)
         metrics = {
             "loss": loss, "l1": l1, "l1_items": l1_items,
-            "psnr": torch.mean(L.psnr(image, gt)),
+            "psnr": torch.mean(L.psnr(image, gt)) * w,
             "ssim": ssim_val, "emb_loss": emb_loss, "tv_loss": tv_loss,
             "opacity_mean": opa_loss, "depth_normal": dn, "pcd_loss": pcd_loss,
             "num_pairs": torch.stack([r["num_pairs"] for r in renders]).amax(),
             "tile_overflow": torch.stack([r["tile_overflow"] for r in renders]).any(),
-            "send_overflow": torch.zeros((), dtype=torch.int32, device=image.device),
+            "send_overflow": (torch.zeros((), dtype=torch.int32, device=image.device)
+                              if send_ovf is None else send_ovf.to(torch.int32)),
             **tongue_metrics,
         }
         return loss, metrics, radii, visible
@@ -357,15 +449,21 @@ def make_loss_and_grads(setup: TrainSetup):
         flat = flatten_params(params)
         leaves = {p: t.detach().requires_grad_(True) for p, t in flat.items()}
         C = aux.alive.shape[0]
-        offsets = torch.zeros((B, C, 2), dtype=torch.float32, device=aux.alive.device,
+        n_cam = batch["gt_image"].shape[0]
+        offsets = torch.zeros((n_cam, C, 2), dtype=torch.float32, device=aux.alive.device,
                               requires_grad=True)
-        loss, metrics, radii, visible = loss_fn(unflatten_params(leaves), offsets, aux,
-                                                batch, knn_cache, iteration)
+        loss, metrics, radii, visible = loss_fn(unflatten_params(leaves), offsets, aux, batch,
+                                                knn_cache, iteration)
         grads = torch.autograd.grad(loss, [*leaves.values(), offsets], allow_unused=True)
         g = {p: torch.zeros_like(leaves[p]) if d is None else d
              for p, d in zip(leaves, grads)}
+        vs_grad = grads[-1].sum(dim=0)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, g, grads[-1].sum(dim=0), radii, visible
+        if mesh is not None:
+            g, vs_grad = psh.reduce_gradients(mesh, g, vs_grad)
+            radii, visible = psh.reduce_densify_stats(mesh, radii, visible)
+            metrics = psh.reduce_metrics(mesh, metrics)
+        return metrics["loss"], metrics, g, vs_grad, radii, visible
 
     return loss_and_grads
 
@@ -373,12 +471,14 @@ def make_loss_and_grads(setup: TrainSetup):
 def make_train_step(setup: TrainSetup, optimizer):
     """The train step: (state, aux, batch, knn_cache) -> (state, aux,
     metrics), with `optimizer` from `init_train_state` (it holds the lr
-    schedules) and `knn_cache` from `refresh_knn_cache`. Batch entries
-    (leading dim B): gt_image [B,3,H,W], viewmatrix [B,4,4], projmatrix
-    [B,4,4], campos [B,3], time [B], cam_no [B], tongue_gt [B,1,H,W] (read
-    with tongue_enabled), pcd_points [P,3] and pcd_valid, a bool (read with
-    colmap_supervision); use_ssim, a bool (the host-computed periodic SSIM
-    gate, train.py:199)."""
+    schedules) and `knn_cache` from `refresh_knn_cache`. On a mesh
+    (`setup.mesh`), state, aux and batch are this rank's shards
+    (parallel/sharded.py) and the metrics are global. Batch entries
+    (leading dim B, or this rank's cameras of it): gt_image [B,3,H,W],
+    viewmatrix [B,4,4], projmatrix [B,4,4], campos [B,3], time [B], cam_no
+    [B], tongue_gt [B,1,H,W] (read with tongue_enabled), pcd_points [P,3]
+    and pcd_valid, a bool (read with colmap_supervision); use_ssim, a bool
+    (the host-computed periodic SSIM gate, train.py:199)."""
     loss_and_grads = make_loss_and_grads(setup)
 
     def train_step(state: TrainState, aux: gm.GaussianAux, batch, knn_cache: KnnCache):

@@ -129,8 +129,9 @@ def test_jax_scene_reads_the_ports_model(trained):
 
 def test_cli_entry_point_and_unported_flags(tmp_path):
     """`python -m ed3dgs_torch.tools.train --help` runs without JAX and names
-    --device and --backend; --mesh and --comms strip raise
-    NotImplementedError; the default device needs a GPU."""
+    --device and --backend; a mesh the world cannot hold and --comms strip
+    without a mesh raise ValueError (both raised NotImplementedError before
+    the multi-device path was ported); the default device needs a GPU."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     code = ("import sys; sys.modules['jax'] = None; import runpy; "
             "sys.argv = ['train', '--help']; "
@@ -139,9 +140,10 @@ def test_cli_entry_point_and_unported_flags(tmp_path):
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "--device" in out.stdout and "ignored" in out.stdout
-    for extra in (["--mesh", "auto"], ["--comms", "strip"]):
+    for extra, what in ((["--mesh", "data=2", "--device", "cpu"], "needs 2 ranks"),
+                        (["--comms", "strip"], "--mesh")):
         args = ttrain.parse_args(["-s", str(tmp_path), "-m", str(tmp_path / "m"), *extra])
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(ValueError, match=what):
             ttrain.run_training(ttrain.build_config(args), args)
     import torch
     if not torch.cuda.is_available():

@@ -36,7 +36,11 @@ CPU's, the mesh evaluation's float64 closest points within 1e-6, LPIPS
 at the bound of tests/test_lpips.py, and the offline tools' device code:
 TSDF fusion (both engines) within 1e-6 with equal blocks and faces, the
 mesh-video splatter and the Gaussian-ellipsoid mesh, each also
-bit-identical on a rerun.
+bit-identical on a rerun. The strip exchange's pieces (parallel/
+tile_sharded.py): K1 and K2 at a strip's ray origin (half_w, half_h off the
+image centre) under the same rules, and the pack's binning with K4 over 2, 4
+and 8 strips (grid_x = 1) and its K3 backward, card against CPU bit for bit
+(the sums within 1e-6 of the largest).
 """
 
 import math
@@ -862,3 +866,76 @@ def test_dot3_at_midpoints_on_card_matches_cpu(dev, dense_max, monkeypatch):
         outs.append([x.detach().cpu().numpy() for x in (sq, ab, ta.grad, tb.grad)])
     for x, y in zip(*outs):
         np.testing.assert_array_equal(x.view(np.int32), y.view(np.int32))
+
+
+@pytest.mark.parametrize("half", [(24.0, -12.0), (27.5, 52.0)])
+def test_blend_kernels_at_a_strip_origin(dev, half):
+    """K1 and K2 with the ray origin (half_w, half_h) of a strip of a larger
+    image against their plain versions; the origin reaches the kernels (the
+    coordinate channels move with it)."""
+    w, h, n, chunk = 48, 32, 300, 32
+    arrays, cam = scene(n, w, h, seed=5)
+    proj = project(arrays, cam, w, h, dev)
+    bins = binning.bin_gaussians(proj, width=w, height=h, pair_capacity=1 << 15)
+    rows = binning.build_gaussian_payload(proj, torch.as_tensor(arrays[5], device=dev))
+    pairs = rows[bins.order][bins.pair_gauss].contiguous()
+    gx, gy = bins.grid
+    kw = dict(grid_x=gx, grid_y=gy, width=w, height=h, focal_x=cam.focal_x,
+              focal_y=cam.focal_y, chunk=chunk, half_w=half[0], half_h=half[1])
+    got = rasterize_cuda.rasterize_forward(pairs, bins.tile_start, bins.tile_count, **kw)
+    want = rasterize_cuda.rasterize_forward_plain(pairs, bins.tile_start, bins.tile_count, **kw)
+    centred = rasterize_cuda.rasterize_forward(pairs, bins.tile_start, bins.tile_count,
+                                               **dict(kw, half_w=None, half_h=None))
+    got, want, centred = got[:, :gx], want[:, :gx], centred[:, :gx]
+    off = outside(got, want).float().mean(dim=(0, 1, 3))
+    other = [c for c in range(rasterize_cuda.OUT_PAD) if c not in MEDIAN_CHANNELS]
+    assert off[other].max() == 0 and off[MEDIAN_CHANNELS].max() <= MAX_FLIPPED
+    depth = rasterize_cuda.OUT_CHANNELS["depth"]
+    assert float((got[:, :, depth] - centred[:, :, depth]).abs().max()) > 1e-3
+    packed = torch.zeros((gy, relayout.pad_grid_x(gx)) + tuple(got.shape[2:]), device=dev)
+    packed[:, :gx] = got
+    cot = 0.01 * torch.randn(packed.shape, device=dev,
+                             generator=torch.Generator(dev).manual_seed(1))
+    g, live = rasterize_cuda.rasterize_backward(pairs, bins.tile_start, bins.tile_count, packed,
+                                                cot, **kw)
+    p, want_live = rasterize_cuda.rasterize_backward_plain(pairs, bins.tile_start,
+                                                           bins.tile_count, packed, cot, **kw)
+    total = int(bins.tile_count.sum())
+    assert torch.equal(live, want_live) and total > 0
+    g, p = g[:total], p[:total]
+    assert bool(((g - p).abs().amax(dim=0) <= 1e-4 * p.abs().amax(dim=0)).all())
+
+
+@pytest.mark.parametrize("g", [2, 4, 8])
+@pytest.mark.parametrize("n", [100, 50_176])
+def test_strip_pack_on_card_matches_cpu(dev, g, n):
+    """The strip exchange's pack: bin_rows over g strips (grid_x = 1, K4's
+    look-back over few tiles), its buffers and demand, and its K3 backward,
+    card against CPU."""
+    from ed3dgs_torch.parallel import tile_sharded
+
+    rng = np.random.default_rng(g * n)
+    strip_rows = 3
+    y0 = rng.integers(0, g * strip_rows, n)
+    y1 = np.minimum(y0 + rng.integers(0, 2 * strip_rows, n), g * strip_rows)
+    host = dict(payload=rng.normal(size=(n, 26)).astype(np.float32),
+                extra=rng.normal(size=(n, 5)).astype(np.float32),
+                depth=rng.uniform(1, 3, n).astype(np.float32),
+                valid=rng.uniform(size=n) > 0.1, y0=y0.astype(np.int32),
+                y1=y1.astype(np.int32))
+    cap = max(64, 2 * n // g)
+    ct = rng.normal(size=(g * cap, 31)).astype(np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        t = {k: torch.as_tensor(v, device=d) for k, v in host.items()}
+        payload = t["payload"].requires_grad_(True)
+        before = binning_scan.fused_bin_scans.launches
+        bufs, demand = tile_sharded._pack_for_strips(payload, t["extra"], t["depth"], t["valid"],
+                                                     t["y0"], t["y1"], g, strip_rows, cap)
+        (grad,) = torch.autograd.grad((bufs * torch.as_tensor(ct, device=d)).sum(), payload)
+        out[d.type] = (bufs.detach().cpu(), int(demand), grad.cpu(),
+                       binning_scan.fused_bin_scans.launches - before)
+    (bc, dc, gc, launched), (bh, dh, gh, _) = out["cuda"], out["cpu"]
+    assert launched == 1
+    assert torch.equal(bc, bh) and dc == dh
+    assert float((gc - gh).abs().max()) <= 1e-6 * float(gh.abs().max())

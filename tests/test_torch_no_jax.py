@@ -45,7 +45,10 @@ for name in ("ed3dgs_torch.train.trainer", "ed3dgs_torch.train.optim",
              "ed3dgs_torch.tools.mesh_extract_tsdf", "ed3dgs_torch.tools.gaussians_to_mesh",
              "ed3dgs_torch.tools.mesh_video", "ed3dgs_torch.tools.viewer",
              "ed3dgs_torch.tools.prepare_data", "ed3dgs_torch.tools.prepare_colmap",
-             "ed3dgs_torch.tools.prepare_radegs", "ed3dgs_torch.tools.nersemble_utils"):
+             "ed3dgs_torch.tools.prepare_radegs", "ed3dgs_torch.tools.nersemble_utils",
+             "ed3dgs_torch.parallel", "ed3dgs_torch.parallel.mesh",
+             "ed3dgs_torch.parallel.comm", "ed3dgs_torch.parallel.multihost",
+             "ed3dgs_torch.parallel.tile_sharded", "ed3dgs_torch.parallel.sharded"):
     assert name in names, name
 print(len(names))
 """
@@ -56,7 +59,7 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 73   # every module of the nine slices was imported
+    assert int(out.stdout.split()[-1]) >= 79   # every module of the ten slices was imported
 
 
 def test_chip_smoke_imports_without_jax():
@@ -178,3 +181,26 @@ def test_offline_tools_refuse_the_cpu_unless_asked(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             run()
     assert mesh_video.main([model, "--device", "cpu"]) == []
+
+
+def test_multi_device_path_refuses_the_cpu_unless_asked():
+    """A rank's device is the card unless the CPU is asked for; NCCL is
+    refused where it cannot run (the CPU, ranks sharing a card) instead of
+    being swapped for gloo; tools.train --mesh needs a GPU by default."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from ed3dgs_torch.parallel import multihost
+    from ed3dgs_torch.tools import train
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost.rank_device("cuda", share=True)
+    assert multihost.rank_device("cpu") == torch.device("cpu")
+    for device, share in ((torch.device("cpu"), False), (torch.device("cuda", 0), True)):
+        with pytest.raises(ValueError, match="nccl"):
+            multihost.check_backend("nccl", device, share)
+    multihost.check_backend("gloo", torch.device("cuda", 0), True)
+    with pytest.raises(ValueError, match="backend"):
+        multihost.initialize_multihost("mpi")
+    args = train.parse_args(["-s", "x", "-m", "y", "--mesh", "data=1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.run_training(train.build_config(args), args)

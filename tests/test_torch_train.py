@@ -22,6 +22,7 @@ port, are in tests/test_torch_train_state.py, which imports the helpers here.
 
 import dataclasses
 import math
+import types
 
 import numpy as np
 import jax
@@ -293,14 +294,20 @@ def test_step_aux_update_matches_jax(f32_steps):
 
 @pytest.mark.parametrize("kw,what", [
     (dict(comms="strip"), "strip"),
-    (dict(batch_mode="vmap"), "vmap"),
+    # a stand-in for a 3 x 1 mesh: B = 2 does not split over its data axis
+    (dict(batch_mode="vmap", mesh=types.SimpleNamespace(shape={"data": 3, "gauss": 1})),
+     "vmap"),
 ])
 def test_unported_features_raise(kw, what):
+    """What the step cannot run raises before it starts: the strip exchange
+    without a mesh, and a batch (here vmapped) that the mesh's data axis
+    does not divide. Both once raised NotImplementedError, before the
+    multi-device step was ported."""
     cam = cameras()[0]
     base = {**setup_kw(), **kw}
     setup = trainer.TrainSetup(raster=RasterConfig(**raster_kw(cam)),
                                hidden=DeformHiddenConfig(), **base)
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(ValueError, match=what):
         trainer.make_train_step(setup, None)
 
 
