@@ -27,24 +27,46 @@ chunk 128):
    and the trainer's coverage measure) and its two halves timed apart (the
    neighbour search `_cache_inputs`, the graph preparation `_prepare_cache`);
    `init_train_state` ->
-   `make_train_step`, one warm-up step that records the inputs the step
-   hands K2, K3, K5b, K6 and K7, then five steps at iteration 20,000
-   (deformation, coarse-to-fine, SH 3, the KNN regulariser and the
-   depth-normal term live; SSIM on two of them). Every count is set to 0
-   just before the five steps: K1-K5b must have risen by steps x batch, K6
-   and K7 by exactly one per step, K8 (no production caller) not at all.
+   `make_train_step(..., graph=False)` (the eager step) and
+   `make_train_step` (the default: a CUDA graph captured per key and
+   replayed), one eager warm-up step that records the inputs the step
+   hands K2, K3, K5b, K6 and K7; (a) one eager step with SSIM off and one
+   with SSIM on under `torch.cuda.set_sync_debug_mode("warn")`, printing
+   each host-device wait and where it is; (b) six steps of each from one
+   state with the same batches, from three iterations before the
+   depth-normal term to three after, SSIM on and off (four keys): after
+   every step every metric, parameter, Adam moment and aux statistic must
+   be bit-identical, each replay runs under sync debug mode "error" and
+   every graphed step must launch K1-K7 on the card as an eager step does.
+   A replay calls no kernel wrapper, so the graphed paths' launches are
+   counted from a device trace (torch.profiler's CUDA activity, each
+   kernel by its symbol: ops/cuda_lib.py `DeviceLaunches`), and the
+   wrappers count only eager launches (a capture launches nothing); (c)
+   five steps at iteration 20,000 (deformation, coarse-to-fine, SH 3, the
+   KNN regulariser and the depth-normal term live; SSIM on two of them),
+   eager, graphed with no tracer for the times, and graphed again under
+   the device trace (the main path), all from the same state (the metrics
+   bit-identical). Every count is set to 0 just before each five: K1-K5b
+   must have risen by steps x batch, K6 and K7 by exactly one per step, K8
+   (no production caller) not at all.
    Prints each step's loss, the step time by CUDA events, the host time to
    return from each step and the device allocations (cudaMalloc) it made,
-   and one profiled
-   step's device busy time, idle share and top device items, and K6's and
-   K7's device time inside it (warm L2), then profiles the step four
-   times in turns with K3 reading the pair-gradient rows through the
-   inverse pair permutation (as shipped) and with the gather before K3
+   one profiled graphed step's device busy time and idle share (against
+   the profiler's wall and against the steps' time by events) and top
+   device items, and the captures (keys, seconds each, pool bytes); (d)
+   `tools.FrameRenderer`'s graphed frame against the eager one at the
+   three frame times, bit for bit, both timed by events. Then one profiled
+   eager step's device busy time, idle share and top device items, and
+   K6's and K7's device time inside it (warm L2), then profiles the eager
+   step four times in turns with K3 reading the pair-gradient rows through
+   the inverse pair permutation (as shipped) and with the gather before K3
    (the unfolded path) and reports the segment_sum stage of each. Then
    `make_densify_step` at the config's gradient threshold (n_cloned,
    n_split, the alive count, its time) or, where nothing reaches it, at the
    99.9th percentile of the same statistics, the filter and KNN refreshes,
-   and two more steps, counted as the five were;
+   and two more steps eager and graphed from the densified state (copied
+   into the graphed step's static buffers with the new KNN cache), counted
+   as the five were and bit-identical;
 4. holds K2, K3, K5b, K6, K7 and K8 against their plain versions on the
    recorded inputs (K5b bit-exact; K2's live-chunk counts exactly and every
    row of every tile within K2_REL of its column's largest value; K3, as
@@ -68,8 +90,12 @@ chunk 128):
    `ed3dgs_torch.tools.train.main` in-process at the full width of
    configs/nersemble/default.py for 300 iterations (CLI_SET overrides only
    schedule keys), with a checkpoint at 150, the model saved at 300, a test
-   PSNR every 100 and densify events at 150, 200, 250; every count is set
-   to 0 just before and K1-K7 must each have launched. Then it resumes
+   PSNR every 100 and densify events at 150, 200, 250 (the tool's default:
+   the step and the test render as CUDA graphs; the line gives the
+   captures and the ms each iteration's first read of the step's results
+   waited); every count is set to 0 just before and K1-K7 must each have
+   launched on the card (device trace, lapped every CLI_LAP steps), K6
+   and K7 once a step. Then it resumes
    from the checkpoint for 20 iterations (the state it loads must equal
    the file's arrays bit for bit) and reloads the saved model through
    `convert.load_model` (its render must equal the in-memory state's bit
@@ -84,12 +110,13 @@ chunk 128):
 7. the `serve` phase, on the `cli` phase's scene and trained model (the
    saved iteration 300): `ed3dgs_torch.tools.render.main` on the train,
    test and video splits at 802x550 (the train and video splits cut to
-   SERVE_FRAMES frames, the test split's 8 whole), `tools.metrics.main` on
-   the test renders, `tools.mesh_extract.main` at timestep 0 (the three
-   train views, eight binary steps) and `tools.evaluate_mesh.main` against
-   the scene's own point cloud. Every count is set to 0 just before: K1 and
-   K5a must have launched once per frame and mask rendered, K4 also once
-   per integration. It prints a `serve` JSON line: frames per split, the
+   SERVE_FRAMES frames, the test split's 8 whole), once for its times and
+   once more inside the counted window, then `tools.metrics.main` on the
+   test renders, `tools.mesh_extract.main` at timestep 0 (the three train
+   views, eight binary steps) and `tools.evaluate_mesh.main` against the
+   scene's own point cloud. Every count is set to 0 just before the
+   window: K1 and K5a must have launched on the card (device trace) once
+   per frame and mask rendered, K4 also once per integration. It prints a `serve` JSON line: frames per split, the
    tool's FPS, the median render ms (after a synchronise) and PNG-save ms
    a frame, the launches, PSNR/SSIM/LPIPS from results.json, the tetra
    point count, the Delaunay, SDF and whole extraction seconds, the mesh's
@@ -124,7 +151,8 @@ chunk 128):
    pose-bounds`, `seg-color`, `render-mesh`) on a 2-camera, 2-timestep
    raw capture of PNG frames it writes. Every count is set to 0 before
    the TSDF tool and again before the viewer's requests: K1, K4 and K5a
-   must each have launched once per view and per request rendered. It
+   must each have launched once per view and (on the card, device trace)
+   per request rendered. It
    prints an `offline` JSON line; it fails on a launch count that
    differs, or a comparison past the bounds below;
 9. the `multi` phase (ed3dgs_torch/parallel/): two ranks that share
@@ -157,6 +185,7 @@ Needs one CUDA device; refuses to run without one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -232,6 +261,10 @@ KNN_LOSS_REL, KNN_ROW_REL = 1e-5, 1e-5
 FILTER_EYES = ((0.0, 0.0, 0.0), (0.3, 0.0, 0.0), (-0.3, 0.0, 0.0), (0.0, 0.2, 0.0),
                (0.0, -0.2, 0.0))
 MORE_STEPS = 2               # steps after the densify step and the refreshes
+# the graphed step against the eager one: the SSIM gate of each step, from
+# three iterations before the depth-normal term to three after
+GRAPH_SSIM = (True, False, True, True, False, False)
+FRAME_REPS = 10              # frames timed each way
 # the small cut's densify: free capacity beside the cloud, hot statistics
 SMALL_CAP = 5120
 # One train step of the small cut, card against CPU (float32 activations):
@@ -250,6 +283,7 @@ CLI_SET = ["deform_from_iter=50", "densify_from_iter=100", "densify_until_iter=2
            "densification_interval=50", "radegs_regularization_from_iter=0",
            "min_embeddings=4", "max_embeddings=8"]
 CLI_WINDOW = 100             # iterations a loss / PSNR window averages
+CLI_LAP = 25                 # steps between two laps of the cli phase's device trace
 # The serve phase: the tools on the cli phase's model. The train (24 views)
 # and video splits are cut to SERVE_FRAMES frames; the test split has 8.
 SERVE_FRAMES = 16
@@ -449,6 +483,42 @@ def recorder(seen, module, attr, key):
     return lambda: setattr(module, attr, orig)
 
 
+# each counter's kernel wrapper, as ops/cuda_lib.py KERNEL_SYMBOLS names it
+WRAPPER_OF = {"K1": "rasterize_cuda.rasterize_forward", "K2": "rasterize_cuda.rasterize_backward",
+              "K3": "segment_sum.segment_sum_rows", "K4": "binning_scan.fused_bin_scans",
+              "K5a": "relayout.unpack_image", "K5b": "relayout.pack_image",
+              "K6": "knn_loss.knn_rows", "K7": "knn_loss.knn_reverse",
+              "K8": "segment_sum.segment_sum_rows_packed"}
+
+
+def traced_launches(trace, keys) -> dict:
+    """{K: launches that ran on the card} from a closed
+    cuda_lib.DeviceLaunches trace (a replayed graph calls no wrapper, so
+    only the trace sees its kernels); fails where the trace holds no kernel
+    at all, since then nothing was measured."""
+    if trace.kernels == 0:
+        fail("the device trace holds no kernel: launches on the card were not measured")
+    return {k: trace.counts[WRAPPER_OF[k]] for k in keys}
+
+
+class LappedStep:
+    """A train step that laps `trace` every CLI_LAP calls (the long cli run
+    stays within the tracer's buffers); the step's attributes show through."""
+
+    def __init__(self, step, trace, calls):
+        self.step, self.trace, self.calls = step, trace, calls
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def __call__(self, *args):
+        out = self.step(*args)
+        self.calls[0] += 1
+        if self.calls[0] % CLI_LAP == 0:
+            self.trace.lap()
+        return out
+
+
 def profile_window(torch, fn, out_path):
     """Profile one call of fn: (wall ms, device busy ms, top device items,
     stages). Device-side events only (kernels, copies); the record_function
@@ -537,12 +607,12 @@ def cli_phase(torch, counters, bare_step_ms, tmp):
     The scene and the model stay in `tmp` for the serve phase."""
     from ed3dgs_torch import convert
     from ed3dgs_torch.data.synthetic import generate_scene
+    from ed3dgs_torch.ops import cuda_lib
     from ed3dgs_torch.ops.rasterize import RasterConfig
     from ed3dgs_torch.render import RenderSettings, render
     from ed3dgs_torch.tools import train as train_tool
+    from ed3dgs_torch.train import trainer
 
-    for fn in counters.values():
-        fn.launches = 0
     out = {}
     t_phase = time.perf_counter()
     scene_dir, model_dir = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
@@ -554,14 +624,26 @@ def cli_phase(torch, counters, bare_step_ms, tmp):
             "--configs", os.path.join(REPO, "configs", "nersemble", "default.py"),
             "--duration", str(CLI_FRAMES), "--test_every", str(CLI_TEST_EVERY),
             "--quiet", "--seed", "0", "--device", DEVICE]
-    t0 = time.perf_counter()
-    scene, state, aux, log = train_tool.main(
-        argv + ["--iterations", str(CLI_ITERS), "--checkpoint_iterations", str(CLI_CKPT),
-                "--set", *CLI_SET])
-    out["train_s"] = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    launches = {k: counters[k].launches for k in ("K1", "K2", "K3", "K4", "K5a", "K5b",
-                                                  "K6", "K7")}
+    # the run's launches on the card from a device trace (the tool replays
+    # graphs, which call no wrapper), lapped every CLI_LAP steps
+    keys = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7")
+    make_step, calls = trainer.make_train_step, [0]
+    for fn in counters.values():
+        fn.launches = 0
+    trace = cuda_lib.DeviceLaunches()
+    trainer.make_train_step = lambda *a, **k: LappedStep(make_step(*a, **k), trace, calls)
+    try:
+        t0 = time.perf_counter()
+        with trace:
+            scene, state, aux, log = train_tool.main(
+                argv + ["--iterations", str(CLI_ITERS), "--checkpoint_iterations",
+                        str(CLI_CKPT), "--set", *CLI_SET])
+        out["train_s"] = time.perf_counter() - t0
+    finally:
+        trainer.make_train_step = make_step
+    launches = traced_launches(trace, keys)
+    wrapped = {k: counters[k].launches for k in keys}
+    out["trace_kernels"] = trace.kernels
 
     # resume from the checkpoint: the state it loads is the file's
     ckpt = os.path.join(model_dir, f"chkpnt{CLI_CKPT}.npz")
@@ -630,6 +712,7 @@ def cli_phase(torch, counters, bare_step_ms, tmp):
         loop_s=float(np.sum(log["iter_ms"]) / 1e3),
         median_iter_ms=float(np.median(log["iter_ms"])),
         bare_step_ms=float(np.median(bare_step_ms)),
+        read_wait_ms=float(np.median(log["read_wait_ms"])),
         decode_ms_per_frame=float(np.median(decode)) if decode else None,
         stager_wait_ms_per_iter=float(np.sum(waits) / n),
         loss_first=mean(log["loss"][first]), loss_last=mean(log["loss"][last]),
@@ -639,13 +722,20 @@ def cli_phase(torch, counters, bare_step_ms, tmp):
         densify_events=len(log["densify"]), densify=log["densify"],
         capacity_changes=len(log["capacity"]), capacity=log["capacity"],
         resume_loss_last=float(rlog["loss"][-1]) if rlog["loss"] else None,
+        graph_captures=log["graph_captures"],
         resume_same=bool(resume_same), reload_render_identical=bool(reload_same),
-        launches=launches, scene_dir=scene_dir, model_dir=model_dir, argv=argv)
+        launches=launches, wrapper_counts=wrapped, trace_laps=calls[0] // CLI_LAP,
+        scene_dir=scene_dir, model_dir=model_dir, argv=argv)
     print("cli: " + ", ".join(f"{k}={v}" for k, v in out.items()
                               if k not in ("densify", "argv")), flush=True)
     bad = [k for k, v in launches.items() if v == 0]
     if bad:
         fail(f"cli: kernels {bad} did not launch during the phase")
+    # one KNN loss and B cameras' gradient kernels a step: a trace that
+    # dropped events would break these
+    if not (launches["K6"] == launches["K7"] == n and launches["K2"] % n == 0
+            and launches["K2"] == launches["K3"] == launches["K5b"]):
+        fail(f"cli: {n} steps launched {launches} on the card (device trace)")
     if not all(math.isfinite(x) for x in log["loss"] + rlog["loss"]):
         fail("cli: a loss is not finite")
     if not out["psnr_last"] > out["psnr_first"]:
@@ -672,6 +762,7 @@ def serve_phase(torch, counters, cli):
     from ed3dgs_torch.data.scene import Scene, read_deformation
     from ed3dgs_torch.mesh.extract import deformed_gaussians
     from ed3dgs_torch.mesh.tetra import get_tetra_points
+    from ed3dgs_torch.ops import cuda_lib
     from ed3dgs_torch.ops.integrate import integrate_points
     from ed3dgs_torch.ops.rasterize import RasterConfig
     from ed3dgs_torch.render import RenderSettings, render
@@ -686,8 +777,9 @@ def serve_phase(torch, counters, cli):
             "--duration", str(CLI_FRAMES), "--iteration", str(CLI_ITERS), "--device", DEVICE]
     sets = ["--set", *CLI_SET]
     out = {}
-    for fn in counters.values():
-        fn.launches = 0
+    # the render tool for its times, with no tracer; then again inside the
+    # window whose launches on the card a device trace counts (the tool
+    # replays a graph per frame, which calls no wrapper)
     t0 = time.perf_counter()
     stats = render_tool.main(argv + ["--max_frames", str(SERVE_FRAMES)] + sets)
     out["render_s"] = time.perf_counter() - t0
@@ -697,6 +789,14 @@ def serve_phase(torch, counters, cli):
     out.update(frames=frames, fps={k: v["fps"] for k, v in stats.items()},
                render_ms_median=float(np.median(render_ms)),
                save_ms_median=float(np.median(save_ms)))
+    for fn in counters.values():
+        fn.launches = 0
+    trace = cuda_lib.DeviceLaunches().__enter__()
+    stats = render_tool.main(argv + ["--max_frames", str(SERVE_FRAMES)] + sets)
+    out["render_ms_median_traced"] = float(np.median(
+        [ms for v in stats.values() for ms in v["render_ms"]]))
+    if {k: v["frames"] for k, v in stats.items()} != frames:
+        fail("serve: the traced render run rendered other frames")
 
     t0 = time.perf_counter()
     scores = metrics.main(["-m", model_dir, "--device", DEVICE])[model_dir]
@@ -716,11 +816,12 @@ def serve_phase(torch, counters, cli):
                delaunay_s=mstats["delaunay_s"], sdf_s=mstats["sdf_s"],
                extract_s=mstats["total_s"], vertices=n_verts, faces=n_faces,
                sdf_evaluations=mstats["sdf_evaluations"], masks=masks)
-    torch.cuda.synchronize()
-    launches = {k: counters[k].launches for k in ("K1", "K4", "K5a")}
+    trace.__exit__(None, None, None)
+    launches = traced_launches(trace, ("K1", "K4", "K5a"))
     n_frames = sum(frames.values())
     expected = {"K1": n_frames + masks, "K4": n_frames + 2 * masks, "K5a": n_frames + masks}
-    out.update(launches=launches, expected_launches=expected)
+    out.update(launches=launches, expected_launches=expected,
+               wrapper_counts={k: counters[k].launches for k in ("K1", "K4", "K5a")})
 
     verts, faces = read_mesh_ply(os.path.join(model_dir, "meshes", "00000", "recon.ply"))
     gt_dir = os.path.join(os.path.dirname(model_dir), "gt")
@@ -897,6 +998,7 @@ def offline_phase(torch, counters, cli):
     from ed3dgs_torch.data.ply import fetch_point_cloud, read_ply
     from ed3dgs_torch.mesh import tsdf
     from ed3dgs_torch.mesh.tsdf_sparse import fuse_volume_sparse
+    from ed3dgs_torch.ops import cuda_lib
     from ed3dgs_torch.ops.rasterize import RasterConfig
     from ed3dgs_torch.render import RenderSettings
     from ed3dgs_torch.render.network_gui import ViewerServer
@@ -1053,6 +1155,9 @@ def offline_phase(torch, counters, cli):
     port = server.listener.getsockname()[1]
     for fn in counters.values():
         fn.launches = 0
+    # the requests' launches on the card from a device trace: the handler
+    # replays a graph per size, which calls no wrapper
+    trace = cuda_lib.DeviceLaunches().__enter__()
     thread = threading.Thread(target=server.serve_forever, args=(handle,),
                               kwargs={"verify": "offline", "max_requests": len(msgs)},
                               daemon=True)
@@ -1081,8 +1186,8 @@ def offline_phase(torch, counters, cli):
     finally:
         thread.join(timeout=120)
         server.close()
-    sync()
-    viewer_launches = {k: counters[k].launches for k in ("K1", "K4", "K5a")}
+        trace.__exit__(None, None, None)
+    viewer_launches = traced_launches(trace, ("K1", "K4", "K5a"))
     rendered = len(VIEWER_SIZES)
     if viewer_launches != {k: rendered for k in viewer_launches}:
         bad.append(f"viewer launches {viewer_launches}, {rendered} requests rendered")
@@ -1322,7 +1427,7 @@ def multi_phase(torch, snap, cli, tmp):
     with torch.enable_grad():
         for key, setup_r, batches in (("b", setup, one), ("c", replace(setup, batch_size=2),
                                                           two)):
-            step = make_train_step(setup_r, snap["optimizer"])
+            step = make_train_step(setup_r, snap["optimizer"], graph=False)
             st, ax, metrics, first = state, aux, [], None
             for b in batches:
                 st, ax, m = step(st, ax, b, cache)
@@ -1468,6 +1573,160 @@ def multi_phase(torch, snap, cli, tmp):
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"multi: phase {out['wall_s']:.1f} s (world {out['world_s']:.1f} s, torchrun "
           f"{out['cli_s']:.1f} s)", flush=True)
+    return out
+
+
+def count_waits(torch, fn) -> list:
+    """Run fn under sync debug mode "warn": one entry a host-device wait,
+    the innermost ed3dgs_torch frame that made it and that frame's caller."""
+    import traceback
+    import warnings
+    pkg = os.path.join(REPO, "ed3dgs_torch")
+    waits = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "prototype feature" in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(pkg)]
+        waits.append(" <- ".join(f"{os.path.relpath(f.filename, REPO)}:{f.lineno} ({f.name})"
+                                 for f in frames[::-1][:2]) or f"{filename}:{lineno}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return waits
+
+
+def state_tensors(state, aux, metrics) -> dict:
+    """Every tensor a step returns, by name."""
+    from ed3dgs_torch.train.optim import flatten_params
+    out = {f"params/{k}": v for k, v in flatten_params(state.params).items()}
+    for g, st in state.opt_state.items():
+        out.update({f"mu/{g}/{k}": v for k, v in st.mu.items()})
+        out.update({f"nu/{g}/{k}": v for k, v in st.nu.items()})
+    out.update({f"aux/{k}": v for k, v in aux._asdict().items()})
+    out.update({f"metrics/{k}": v for k, v in metrics.items()})
+    return out
+
+
+def graph_against_eager(torch, eager, step, state, aux, cache, cam, B, setup, counters,
+                        per_step):
+    """GRAPH_STEPS steps of the eager step and of the graphed one from one
+    state and the same batches, from 3 iterations before the depth-normal
+    term through 3 after, SSIM on and off: after every step every metric,
+    parameter, Adam moment and aux statistic must be bit-identical, every
+    replay must run under sync debug mode "error", and every graphed step
+    must launch K1-K7 on the card as often as an eager step (counted from a
+    device trace), while the wrappers count only a key's first, eager run
+    (a replay calls none, a capture launches nothing). Returns the numbers
+    it printed."""
+    from ed3dgs_torch.ops import cuda_lib
+    state = state._replace(iteration=setup.radegs_from_iter - 3)
+    e_state, e_aux, g_state, g_aux = state, aux, state, aux
+    out = dict(steps=[], replays=0, captures=0)
+    for i, ssim in enumerate(GRAPH_SSIM):
+        b = make_batch(torch, cam, B, 0.15 + 0.1 * i, ssim, 700 + i, DEVICE)
+        e_state, e_aux, em = eager(e_state, e_aux, b, cache)
+        replay = step.key(g_state, g_aux, b, cache) in step.graphs if step.graphs else False
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        with cuda_lib.DeviceLaunches() as trace:
+            if replay:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                g_state, g_aux, gm = step(g_state, g_aux, b, cache)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        launches = traced_launches(trace, counters)
+        wrapped = {k: fn.launches for k, fn in counters.items()}
+        want, got = state_tensors(e_state, e_aux, em), state_tensors(g_state, g_aux, gm)
+        differ = [k for k in want if not (want[k].dtype == got[k].dtype
+                                          and torch.equal(want[k], got[k]))]
+        it = int(e_state.iteration) - 1
+        print(f"graphed against eager, iteration {it} SSIM {ssim} depth-normal "
+              f"{it >= setup.radegs_from_iter}: {'replay' if replay else 'capture'}, "
+              f"{len(want)} tensors, differing {len(differ)} {differ[:6]}, launches on "
+              f"the card (device trace) {launches}, counted by the wrappers {wrapped}",
+              flush=True)
+        out["steps"].append(dict(iteration=it, ssim=ssim, replay=replay, differing=differ,
+                                 launches=launches, wrapper_counts=wrapped,
+                                 loss=float(gm["loss"])))
+        out["replays" if replay else "captures"] += 1
+        if differ:
+            fail(f"the graphed step differs from the eager step at iteration {it}: {differ[:8]}")
+        if int(e_state.iteration) != int(g_state.iteration):
+            fail("the graphed step's iteration count differs from the eager step's")
+        if launches != per_step:
+            fail(f"the graphed step launched {launches}, the eager step {per_step}")
+        if wrapped != ({k: 0 for k in per_step} if replay else per_step):
+            fail(f"the wrappers counted {wrapped} in a {'replay' if replay else 'capture'}")
+    if out["replays"] < 2 or out["captures"] < 2:
+        fail(f"graphed against eager: {out['replays']} replays and {out['captures']} captures; "
+             "the batches must cross a key change and replay known keys")
+    return out
+
+
+def frame_against_eager(torch, params, aux, dparams, hidden, model, rcfg, bg, cam):
+    """tools.FrameRenderer's graph against render() op by op on the bench
+    frame at FRAME_TIMES: every output bit-identical; both timed by CUDA
+    events (FRAME_REPS frames each, after one of each). Each graphed frame
+    of the comparison must launch K1, K4 and K5a once on the card (counted
+    from a device trace)."""
+    from ed3dgs_torch.ops import cuda_lib
+    from ed3dgs_torch.tools import FRAME_OUTPUTS, FrameRenderer
+    kw = dict(sh_degree=model.sh_degree, kernel_size=model.kernel_size,
+              disable_filter3d=model.disable_filter3D, num_down_emb=hidden.min_embeddings)
+    graphed = FrameRenderer(hidden, bg, **kw)
+    eager = FrameRenderer(hidden, bg, graph=False, **kw)
+    trained = (params, aux, dparams)
+
+    def frame(fr, t):
+        return fr("bench", trained, rcfg, cam.world_view, cam.full_proj, cam.campos, t)
+    differ, launches = [], []
+    for t in FRAME_TIMES:
+        want = frame(eager, t)
+        with cuda_lib.DeviceLaunches() as trace:
+            got = frame(graphed, t)
+        launches.append(traced_launches(trace, ("K1", "K4", "K5a")))
+        differ += [(t, k) for k in FRAME_OUTPUTS if not torch.equal(want[k], got[k])]
+    times = {}
+    for name, fr in (("eager", eager), ("graphed", graphed)):
+        frame(fr, FRAME_TIMES[1])
+        torch.cuda.synchronize()
+        ms, host = [], []
+        for i in range(FRAME_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            frame(fr, FRAME_TIMES[i % len(FRAME_TIMES)])
+            end.record()
+            host.append((time.perf_counter() - t0) * 1e3)
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        times[name] = dict(ms=ms, host_ms=host)
+    caps = graphed.graphs.captures
+    out = dict(differing=differ, launches=launches, captures=len(caps),
+               capture_s=[c[1] for c in caps],
+               pool_bytes=graphed.graphs.pool_bytes,
+               eager_ms_median=float(np.median(times["eager"]["ms"])),
+               graphed_ms_median=float(np.median(times["graphed"]["ms"])),
+               eager_host_ms_median=float(np.median(times["eager"]["host_ms"])),
+               graphed_host_ms_median=float(np.median(times["graphed"]["host_ms"])))
+    print("frame graph against render() op by op: " + ", ".join(
+        f"{k}={v}" for k, v in out.items()), flush=True)
+    if differ:
+        fail(f"the graphed frame differs from render(): {differ[:8]}")
+    if any(n != 1 for per in launches for n in per.values()):
+        fail(f"a graphed frame did not launch K1, K4 and K5a once each: {launches}")
     return out
 
 
@@ -1777,6 +2036,8 @@ def main():
 
     state, optimizer = init_train_state(params, hidden, opt, extent, seed=0)
     state = state._replace(iteration=TRAIN_ITERATION)
+    # the eager step (graph=False) and the user's default: a CUDA graph per key
+    eager = make_train_step(setup, optimizer, graph=False)
     step = make_train_step(setup, optimizer)
     batches = [make_batch(torch, cam, B, 0.1 + 0.2 * i, i in SSIM_STEPS, 100 + i, DEVICE)
                for i in range(TRAIN_STEPS)]
@@ -1792,8 +2053,8 @@ def main():
                recorder(seen, knn_loss, "knn_rows", "K6"),
                recorder(seen, knn_loss, "knn_reverse", "K7")]
     try:
-        state, taux, metrics = step(state, aux, make_batch(torch, cam, B, 0.05, True, 99,
-                                                           DEVICE), knn_cache)
+        state, taux, metrics = eager(state, aux, make_batch(torch, cam, B, 0.05, True, 99,
+                                                            DEVICE), knn_cache)
         torch.cuda.synchronize()
     finally:
         for r in restore:
@@ -1810,12 +2071,34 @@ def main():
     per_step = {k: (B if k in ("K1", "K2", "K3", "K4", "K5a", "K5b") else
                     1 if k in ("K6", "K7") else 0) for k in counters}
 
-    def run_steps(state, taux, batches, what):
+    # (a) the eager step's host-device waits
+    result["eager_waits"] = {}
+    for what, ssim in (("ssim_off", False), ("ssim_on", True)):
+        wb = make_batch(torch, cam, B, 0.3, ssim, 98, DEVICE)
+        waits = count_waits(torch, lambda: eager(state, taux, wb, knn_cache))
+        places = {}
+        for w in waits:
+            places[w] = places.get(w, 0) + 1
+        print(f"eager step waits (sync debug mode warn), SSIM {what[5:]}: {len(waits)}"
+              + "".join(f"\n  {n} x {w}" for w, n in places.items()), flush=True)
+        result["eager_waits"][what] = dict(waits=len(waits), places=places)
+
+    # (b) the graphed step against the eager step, bit for bit
+    result["graph_vs_eager"] = graph_against_eager(
+        torch, eager, step, state, taux, knn_cache, cam, B, setup, counters, per_step)
+
+    def run_steps(step_fn, state, taux, batches, what, count="wrappers"):
         """The steps of `batches` with every count set to 0 just before;
-        fails unless each kernel rose by its per-step launches."""
+        fails unless each kernel rose by its per-step launches, as its
+        wrapper counts them (count="wrappers": the eager step, whose every
+        call launches) or as a device trace sees them on the card
+        (count="trace": the graphed step, whose replays call no wrapper);
+        count=None checks none (a run for its times, with no tracer)."""
         for fn in counters.values():
             fn.launches = 0
         out, events, enqueue_ms, mallocs = [], [], [], []
+        trace = cuda_lib.DeviceLaunches() if count == "trace" else contextlib.nullcontext()
+        trace.__enter__()
         t_host = time.perf_counter()
         for b in batches:
             start = torch.cuda.Event(enable_timing=True)
@@ -1823,17 +2106,22 @@ def main():
             n_malloc = torch.cuda.memory_stats().get("num_device_alloc", 0)
             t0 = time.perf_counter()
             start.record()
-            state, taux, metrics = step(state, taux, b, knn_cache)
+            state, taux, metrics = step_fn(state, taux, b, knn_cache)
             end.record()
             enqueue_ms.append((time.perf_counter() - t0) * 1e3)
             mallocs.append(torch.cuda.memory_stats().get("num_device_alloc", 0) - n_malloc)
             events.append((start, end))
-            out.append(metrics)
+            # the graphed step's metrics are its static buffers: keep a copy
+            out.append({k: v.clone() for k, v in metrics.items()})
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t_host) * 1e3 / len(batches)
-        launches = {k: fn.launches for k, fn in counters.items()}
-        print(f"train path, {what}: {len(batches)} steps: launches {launches}", flush=True)
-        for k, n in launches.items():
+        trace.__exit__(None, None, None)
+        launches = (traced_launches(trace, counters) if count == "trace" else
+                    {k: fn.launches for k, fn in counters.items()} if count else None)
+        print(f"train path, {what}: {len(batches)} steps: launches "
+              f"{launches if count else 'not counted'}"
+              + (" (device trace)" if count == "trace" else ""), flush=True)
+        for k, n in (launches or {}).items():
             if n != per_step[k] * len(batches):
                 fail(f"{k} launched {n} times in {len(batches)} steps of batch {B} ({what})")
         for i, m in enumerate(out):
@@ -1850,10 +2138,31 @@ def main():
               + f"; host wall {host_ms:.3f} ms/step; host ms to return from each step "
               + ", ".join(f"{x:.3f}" for x in enqueue_ms)
               + f"; new device allocations (cudaMalloc) in each step {mallocs}", flush=True)
-        return state, taux, out, step_ms, host_ms, launches
+        return state, taux, out, step_ms, host_ms, launches, enqueue_ms
 
-    state, taux, losses, step_ms, step_host_ms, train_launches = run_steps(
-        state, taux, batches, "after the first refresh")
+    # (c) the same five steps from one state: eager, graphed for the times
+    # (no tracer), then graphed under the device trace that counts its
+    # launches (the main path: the default the tools run)
+    start_state, start_aux = state, taux
+    _, _, losses_e, step_ms_e, host_ms_e, _, enqueue_e = run_steps(
+        eager, start_state, start_aux, batches, "eager, after the first refresh")
+    _, _, losses_u, step_ms, step_host_ms, _, enqueue_g = run_steps(
+        step, start_state, start_aux, batches, "graphed, after the first refresh, for the times",
+        count=None)
+    state, taux, losses, step_ms_traced, _, train_launches, _ = run_steps(
+        step, start_state, start_aux, batches, "graphed, after the first refresh (main path)",
+        count="trace")
+    same5 = all(torch.equal(a[k], b[k]) and torch.equal(a[k], c[k])
+                for a, b, c in zip(losses_e, losses_u, losses) for k in a)
+    print(f"  five steps eager against graphed: every metric bit-identical={same5}; median "
+          f"ms by events eager {float(np.median(step_ms_e)):.3f}, graphed "
+          f"{float(np.median(step_ms)):.3f} (under the device trace "
+          f"{float(np.median(step_ms_traced)):.3f}); host ms to return eager "
+          f"{float(np.median(enqueue_e)):.3f}, graphed {float(np.median(enqueue_g)):.3f}",
+          flush=True)
+    if not same5:
+        fail("the graphed step's metrics differ from the eager step's")
+    del start_state, start_aux
     for i, m in enumerate(losses):
         if (i in SSIM_STEPS) == (float(m["ssim"]) == 1.0):
             fail(f"train step {i}: the SSIM term is not live as configured")
@@ -1862,15 +2171,38 @@ def main():
             fail(f"parameter {name} is not finite after the steps")
     if float(taux.denom.sum()) <= 0 or not bool(torch.isfinite(taux.xyz_grad_accum).all()):
         fail("the densification statistics did not accumulate")
-    result.update(train_step_ms=step_ms, train_host_ms_per_step=step_host_ms,
+    pbatch = make_batch(torch, cam, B, 0.6, True, 200, DEVICE)
+    gprof = profile_window(torch, lambda: step(state, taux, pbatch, knn_cache),
+                           os.path.join(out_dir, "profile_step_graphed.txt"))
+    result["train_profile_graphed"] = print_profile("graphed train step", *gprof)
+    # the profiler's wall includes its own overhead: the idle share against
+    # the graphed steps' time by events as well
+    idle_events = 1 - gprof[1] / float(np.median(step_ms))
+    print(f"  derived idle share (the profiled step's device busy ms over the untraced "
+          f"graphed steps' median ms by events, {float(np.median(step_ms)):.3f}): "
+          f"{idle_events:.3f}; the profile's own idle share is the one above", flush=True)
+    result["train_profile_graphed"]["idle_share_by_events"] = idle_events
+    caps = step.graphs.captures
+    print(f"  captures of the train step: {len(caps)} keys, seconds each "
+          f"{[round(c[1], 3) for c in caps]}, pool bytes {step.graphs.pool_bytes} "
+          f"(each: {[c[2] for c in caps]})", flush=True)
+    result.update(train_step_ms=step_ms, train_step_ms_traced=step_ms_traced,
+                  train_host_ms_per_step=step_host_ms,
+                  train_step_ms_eager=step_ms_e, train_host_ms_per_step_eager=host_ms_e,
+                  train_enqueue_ms_graphed=enqueue_g, train_enqueue_ms_eager=enqueue_e,
                   train_launches=train_launches,
                   train_losses=[float(m["loss"]) for m in losses],
-                  emb_losses=[float(m["emb_loss"]) for m in losses])
-    del losses, batches
-    pbatch = make_batch(torch, cam, B, 0.6, True, 200, DEVICE)
+                  emb_losses=[float(m["emb_loss"]) for m in losses],
+                  train_captures=dict(keys=len(caps), seconds=[c[1] for c in caps],
+                                      pool_bytes=step.graphs.pool_bytes))
+    del losses, losses_e, losses_u, batches
+
+    # (d) the frame: FrameRenderer's graph against render() op by op
+    result["frame_graph"] = frame_against_eager(torch, params, aux, dparams, hidden, model,
+                                                rcfg, bg, cam)
 
     def profiled_step():
-        step(state, taux, pbatch, knn_cache)
+        eager(state, taux, pbatch, knn_cache)
     prof = profile_window(torch, profiled_step, os.path.join(out_dir, "profile_step.txt"))
     result["train_profile"] = print_profile("train step", *prof)
     # K6's and K7's device time inside the step (warm L2: the step has just
@@ -1958,12 +2290,27 @@ def main():
     knn_cache, knn_info2 = refresh_knn(state.params["gaussians"], taux)
     more = [make_batch(torch, cam, B, 0.35 + 0.2 * i, False, 400 + i, DEVICE)
             for i in range(MORE_STEPS)]
-    state, taux, losses2, step_ms2, host_ms2, launches2 = run_steps(
-        state, taux, more, "after densify and the refreshes")
+    # the densified state and the new KNN cache copied into the graphed
+    # step's static buffers, against the eager step from the same state
+    e_state, _, losses2e, _, _, _, _ = run_steps(
+        eager, state, taux, more, "eager, after densify and the refreshes")
+    e_params = {k: v.clone() for k, v in e_state.params["gaussians"]._asdict().items()}
+    del e_state
+    state, taux, losses2, step_ms2, host_ms2, launches2, _ = run_steps(
+        step, state, taux, more, "graphed, after densify and the refreshes", count="trace")
+    same2 = (all(torch.equal(a[k], b[k]) for a, b in zip(losses2e, losses2) for k in a)
+             and all(torch.equal(e_params[k], v)
+                     for k, v in state.params["gaussians"]._asdict().items()))
+    print(f"  after densify: graphed steps (densified state and new KNN cache copied in) "
+          f"bit-identical to eager={same2}; captures now {len(step.graphs.captures)}",
+          flush=True)
+    if not same2:
+        fail("after densify the graphed step differs from the eager step")
     result["densify"] = dict(steps=densified, extent=extent, filter_ms=filter2_ms,
                              knn_refresh=knn_info2, steps_after_ms=step_ms2,
-                             steps_after_host_ms=host_ms2, launches_after=launches2)
-    del losses2, more
+                             steps_after_host_ms=host_ms2, launches_after=launches2,
+                             graphed_equals_eager=same2)
+    del losses2, losses2e, more, e_params
     # the multi phase starts from this state (after densify and the refreshes)
     snap = dict(state=state, aux=taux, cache=knn_cache, setup=setup, optimizer=optimizer,
                 opt=opt, extent=extent)
@@ -2345,12 +2692,14 @@ def main():
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(f"total {result['total_s']:.1f} s", flush=True)
-    cli_keys = ("iterations", "wall_s", "median_iter_ms", "bare_step_ms", "decode_ms_per_frame",
+    cli_keys = ("iterations", "wall_s", "median_iter_ms", "bare_step_ms", "read_wait_ms",
+                "decode_ms_per_frame",
                 "stager_wait_ms_per_iter", "loss_first", "loss_last", "psnr_first", "psnr_last",
                 "test_psnr", "points_start", "points_end", "densify_events", "capacity_changes",
-                "launches")
+                "graph_captures", "launches", "trace_laps", "trace_kernels")
     print(json.dumps({"cli": {k: result["cli"][k] for k in cli_keys}}), flush=True)
-    serve_keys = ("frames", "fps", "render_ms_median", "save_ms_median", "launches", "psnr",
+    serve_keys = ("frames", "fps", "render_ms_median", "render_ms_median_traced",
+                  "save_ms_median", "launches", "psnr",
                   "ssim", "lpips_vgg", "lpips_alex", "float_test_psnr", "cli_test_psnr",
                   "tetra_points",
                   "delaunay_s", "sdf_s", "extract_s", "vertices", "faces",

@@ -86,8 +86,10 @@ def sym3_pseudo_inverse_min(p: torch.Tensor, min_eig_threshold: float = 1e-8):
     min_eig = eigs[..., 2]
     well = min_eig > min_eig_threshold
     # safe input: the unselected branch must stay finite forward and backward
-    identity6 = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 1.0], dtype=p.dtype,
-                             device=p.device)
+    # (the packed identity 1, 0, 0, 1, 0, 1, made on the device: a copy
+    # from host memory would make the host wait)
+    k = torch.arange(6, device=p.device)
+    identity6 = ((k == 0) | (k == 3) | (k == 5)).to(p.dtype)
     p_safe = torch.where(well[..., None], p, identity6)
     inv = sym3_inverse(p_safe)
     v = sym3_eigenvector(p_ng, min_eig)

@@ -43,8 +43,14 @@ _OFF = 1 << 20
 
 def encode(ijk: torch.Tensor) -> torch.Tensor:
     """[N, 3] integer voxel (or block) coords -> unique int64 keys, ordered
-    as the coordinates are lexicographically."""
+    as the coordinates are lexicographically. Raises ValueError, naming the
+    coordinate, for any |i|, |j| or |k| >= 2^20: past that the 21-bit
+    fields would run into each other and two voxels share a key."""
     ijk = ijk.to(torch.int64)
+    out = (ijk.abs() >= _OFF).any(1)
+    if bool(out.any()):
+        raise ValueError(f"voxel coordinate {tuple(ijk[out][0].tolist())} is outside the "
+                         f"sparse TSDF's key range: each of |i|, |j|, |k| must be < 2^20")
     return ((ijk[:, 0] + _OFF) * _M + (ijk[:, 1] + _OFF)) * _M + (ijk[:, 2] + _OFF)
 
 

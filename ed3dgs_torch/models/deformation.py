@@ -70,13 +70,30 @@ def init_deform_params(cfg: DeformHiddenConfig, seed: int = 0, device="cuda"):
     }
 
 
+def _abs(x):
+    """|x| whose gradient at 0 is +1, as JAX's `abs` and the reference's
+    grid_sample reflection (`reflect_coordinates_set_grad`) take it;
+    `torch.abs` gives 0 there, which stops the time offset's gradient at
+    t = 0 and t = 1."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _reflect(x, size):
     """Reflection padding coordinate map with align_corners=True semantics:
     reflect about 0 and size-1 (period 2*(size-1))."""
     span = torch.clamp_min(size - 1.0, 1e-12)
-    x = torch.abs(x)
+    x = _abs(x)
     x = torch.remainder(x, 2.0 * span)
-    return span - torch.abs(x - span)
+    return span - _abs(x - span)
+
+
+def device_scalar(x, device) -> torch.Tensor:
+    """x as a 0-d float32 tensor on `device`: a tensor cast where it lies, a
+    Python number filled in on the device. A copy from host memory would
+    make the host wait for the card, and a captured graph cannot hold one."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def temporal_embedding(weight: torch.Tensor, t: torch.Tensor, cur_emb) -> torch.Tensor:
@@ -84,7 +101,7 @@ def temporal_embedding(weight: torch.Tensor, t: torch.Tensor, cur_emb) -> torch.
     weight [max_emb, D]; t scalar time; cur_emb current embedding count
     (int or 0-d tensor). Returns [D]."""
     max_emb = weight.shape[0]
-    cur = torch.as_tensor(cur_emb, dtype=torch.float32, device=weight.device)
+    cur = device_scalar(cur_emb, weight.device)
     top = torch.clamp_min(cur - 1.0, 0.0)
     # grid_sample y coordinate (align_corners): y = t*(cur-1), reflected
     y = _reflect(t * (cur - 1.0), cur)
@@ -97,9 +114,10 @@ def temporal_embedding(weight: torch.Tensor, t: torch.Tensor, cur_emb) -> torch.
         u = torch.clamp(j * scale, 0.0, max_emb - 1.0)
         u0 = torch.clamp(torch.floor(u), 0.0, max_emb - 1.0)
         g = u - u0
-        i0 = u0.to(torch.int64)
+        i0 = u0.to(torch.int64).reshape(1)
         i1 = torch.clamp_max(i0 + 1, max_emb - 1)
-        return (1.0 - g) * weight[i0] + g * weight[i1]
+        # index_select: indexing by a 0-d tensor reads the index on the host
+        return (1.0 - g) * weight.index_select(0, i0)[0] + g * weight.index_select(0, i1)[0]
 
     r0 = resized_row(y0)
     r1 = resized_row(torch.minimum(y0 + 1.0, top))
@@ -148,8 +166,7 @@ def _tower_deform(tower, cfg, emb_t, embedding, xyz, scales, rotations, opacity,
 
 def c2f_num_embeddings(cfg: DeformHiddenConfig, iteration, num_down_emb, device="cpu"):
     """int_lininterp of the embedding count (scene/deformation.py:69-70,80)."""
-    it = torch.clamp(torch.as_tensor(iteration, dtype=torch.float32, device=device),
-                     0.0, cfg.c2f_temporal_iter)
+    it = torch.clamp(device_scalar(iteration, device), 0.0, cfg.c2f_temporal_iter)
     val = num_down_emb + (cfg.max_embeddings - num_down_emb) * it / cfg.c2f_temporal_iter
     return torch.floor(val).to(torch.int32)
 
@@ -164,7 +181,7 @@ def deform_forward(
     sh: torch.Tensor,           # [N, 16, 3]
     embedding: torch.Tensor,    # [N, E] per-gaussian embeddings
     time,                       # scalar time in [0,1]
-    iteration,                  # scalar
+    iteration,                  # a number or a 0-d tensor (on the device: no host copy)
     cam_no: Optional[torch.Tensor] = None,  # scalar int, or None in eval mode
     num_down_emb_c: int = 30,
     num_down_emb_f: int = 30,
@@ -180,10 +197,10 @@ def deform_forward(
         offset = torch.where(cnt > 0, torch.sum(offsets) / torch.clamp_min(cnt, 1.0),
                              torch.zeros_like(cnt))
     else:
-        offset = offsets[cam_no]
-    t = torch.as_tensor(time, dtype=torch.float32, device=dev) + offset
+        offset = offsets.index_select(0, cam_no.reshape(1).to(torch.int64))[0]
+    t = device_scalar(time, dev) + offset
 
-    it = torch.as_tensor(iteration, dtype=torch.float32, device=dev)
+    it = device_scalar(iteration, dev)
     if cfg.use_anneal:
         coef = torch.clamp(it / 1000.0, 0.0, 1.0)
         coef_c = torch.clamp((it - cfg.deform_from_iter) / 1000.0, 0.0, 1.0)

@@ -73,9 +73,12 @@ def apply_3d_filter(opacity_raw, scaling_raw, filter_3d):
     opacity = torch.sigmoid(opacity_raw)
     scales = torch.exp(scaling_raw)
     s2 = scales * scales
-    det1 = torch.prod(s2, dim=-1)
+    # the products written out, (x * y) * z as jnp.prod's pairwise tree
+    # forms them (and its gradient); torch.prod's backward reads on the host
+    # whether a factor is zero, a wait a captured step cannot make
+    det1 = s2[..., 0] * s2[..., 1] * s2[..., 2]
     s2f = s2 + filter_3d * filter_3d
-    det2 = torch.prod(s2f, dim=-1)
+    det2 = s2f[..., 0] * s2f[..., 1] * s2f[..., 2]
     coef = torch.sqrt(det1 / det2)
     return torch.sqrt(s2f), opacity * coef[..., None]
 

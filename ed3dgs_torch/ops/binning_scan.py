@@ -76,7 +76,7 @@ def fused_bin_scans(dv, dpk, total, *, grid_x: int, num_tiles: int,
             scratch.data_ptr(), K, grid_x, num_tiles, rank_bits, b,
             cuda_lib.stream_of(dv))
     cuda_lib.check_launch(err, "fused_bin_scans")
-    fused_bin_scans.launches += 1
+    cuda_lib.count_launch(fused_bin_scans)
     return key
 
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -208,16 +209,101 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 _ZEROED = {}
+_OUTGROWN = []   # buffers replaced by bigger ones, which a captured graph may still use
 
 
 def zeroed(name: str, nbytes: int, like: torch.Tensor) -> torch.Tensor:
     """A buffer of at least `nbytes` zero bytes on `like`'s device, kept for
     its device and current stream: a kernel that takes it must leave it
     zeroed when it ends, so that the next launch on the stream needs no
-    memset. Calls on other streams get buffers of their own."""
+    memset. Calls on other streams get buffers of their own.
+
+    A CUDA graph bakes in the buffer it was captured with, so a buffer is
+    never freed, and none is made during a capture (it would live in the
+    graph's pool): the captured function must have run once on the capture
+    stream first (utils/graphs.py does), or this raises."""
     key = (name, like.device, stream_of(like))
     buf = _ZEROED.get(key)
     if buf is None or buf.numel() < nbytes:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: no zeroed scratch buffer of {nbytes} bytes for this "
+                               "stream during a CUDA graph capture: run the function once on "
+                               "the capture stream before capturing it")
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = torch.zeros(nbytes, dtype=torch.uint8, device=like.device)
         _ZEROED[key] = buf
     return buf
+
+
+def count_launch(wrapper):
+    """One launch of `wrapper`'s kernel, counted in `wrapper.launches`:
+    each wrapper calls this right after its launch. A launch recorded into
+    a CUDA graph capture runs nothing and is not counted; the kernels a
+    graph replays, which call no wrapper, are counted on the device by
+    `DeviceLaunches`."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+
+
+# each kernel's symbol (csrc/*.cu, all in an anonymous namespace) -> the
+# wrapper that launches it. K3's instance without an index is also K8's
+# kernel; it is counted on K8, as no path calls K3 without an index.
+KERNEL_SYMBOLS = {
+    "forward_blend": "rasterize_cuda.rasterize_forward",
+    "backward_blend": "rasterize_cuda.rasterize_backward",
+    "segment_sum<true>": "segment_sum.segment_sum_rows",
+    "segment_sum<false>": "segment_sum.segment_sum_rows_packed",
+    "scan_decode": "binning_scan.fused_bin_scans",
+    "unpack": "relayout.unpack_image",
+    "pack": "relayout.pack_image",
+    "knn_rows": "knn_loss.knn_rows",
+    "knn_rows_wide": "knn_loss.knn_rows",
+    "knn_reverse<false>": "knn_loss.knn_reverse",
+    "knn_reverse<true>": "knn_loss.knn_reverse",
+}
+_SYMBOL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+(?:<[^>(]*>)?)\(")
+
+
+class DeviceLaunches:
+    """The launches of the port's kernels that ran on the card, read from
+    a device trace (torch.profiler's CUDA activity): each kernel of
+    KERNEL_SYMBOLS counted by its symbol, the kernels of replayed CUDA
+    graphs included. `with DeviceLaunches() as d: ...`, then `d.counts`:
+    {"module.wrapper": launches}. `lap()` closes the trace taken so far
+    (the card synchronises) and opens the next, so that a long window stays
+    within the tracer's buffers."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(sorted(set(KERNEL_SYMBOLS.values())), 0)
+        self.kernels = 0        # every kernel in the trace, the port's or not
+        self._prof = None
+
+    def __enter__(self):
+        self._open()
+        return self
+
+    def __exit__(self, *exc):
+        self._close()
+
+    def lap(self):
+        self._close()
+        self._open()
+
+    def _open(self):
+        from torch.profiler import ProfilerActivity, profile
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.__enter__()
+
+    def _close(self):
+        from torch.autograd import DeviceType
+        prof, self._prof = self._prof, None
+        prof.__exit__(None, None, None)
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if e.device_type() != DeviceType.CUDA or name.startswith(("Memcpy", "Memset")):
+                continue
+            self.kernels += 1
+            m = _SYMBOL.match(name)
+            if m is not None and m.group(1) in KERNEL_SYMBOLS:
+                self.counts[KERNEL_SYMBOLS[m.group(1)]] += 1

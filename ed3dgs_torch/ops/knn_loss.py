@@ -271,12 +271,15 @@ def knn_reverse_plain(emb_r: torch.Tensor, s: torch.Tensor, de: torch.Tensor,
                       rev_ptr: torch.Tensor, rev_pair: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K7: de + dL/de_j, the latter summed over
     each rank's in-edges (-s_ik (e_i - e_j)) by a segment sum over the
-    reverse adjacency. Returns [Cp, E] float32."""
-    K = s.shape[1]
+    reverse adjacency. Returns [Cp, E] float32. rev_pair may run past
+    rev_ptr[-1] (a list padded to a fixed length): those entries, any pair
+    ids in range, are summed into no rank."""
+    K, Cp = s.shape[1], emb_r.shape[0]
     pid = rev_pair.long()
     i = pid // K
-    j = torch.repeat_interleave(torch.arange(emb_r.shape[0], device=emb_r.device),
-                                (rev_ptr[1:] - rev_ptr[:-1]).long())
+    # each in-edge's rank j: rev_ptr[j] <= position < rev_ptr[j + 1]
+    pos = torch.arange(pid.shape[0], dtype=rev_ptr.dtype, device=rev_ptr.device)
+    j = torch.clamp_max(torch.searchsorted(rev_ptr[1:], pos, right=True), Cp - 1)
     rows = -(s.reshape(-1)[pid][:, None] * (emb_r[i] - emb_r[j]))
     return de + segment_sum_rows_plain(rows, rev_ptr[:-1], rev_ptr[1:])
 
@@ -349,7 +352,7 @@ def knn_rows(emb_r: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor, coef: torc
             emb_r.data_ptr(), nbr.data_ptr(), w.data_ptr(), coef.data_ptr(), de.data_ptr(),
             s.data_ptr(), partials.data_ptr(), Cp, E, K, cuda_lib.stream_of(emb_r))
     cuda_lib.check_launch(err, "knn_rows")
-    knn_rows.launches += 1
+    cuda_lib.count_launch(knn_rows)
     return partials.sum(), de, s
 
 
@@ -381,7 +384,7 @@ def knn_reverse(emb_r: torch.Tensor, s: torch.Tensor, de: torch.Tensor,
             emb_r.data_ptr(), s.data_ptr(), de.data_ptr(), rev_ptr.data_ptr(),
             rev_pair.data_ptr(), out.data_ptr(), Cp, E, K, cuda_lib.stream_of(emb_r))
     cuda_lib.check_launch(err, "knn_reverse")
-    knn_reverse.launches += 1
+    cuda_lib.count_launch(knn_reverse)
     return out
 
 

@@ -337,7 +337,7 @@ def rasterize_forward(pair_payload, tile_start, tile_count, *, grid_x: int,
             chunk * MAX_CHUNKS, focal_x, focal_y, *_half(width, height, half_w, half_h),
             cuda_lib.stream_of(pair_payload))
     cuda_lib.check_launch(err, "rasterize_forward")
-    rasterize_forward.launches += 1
+    cuda_lib.count_launch(rasterize_forward)
     return out
 
 
@@ -551,7 +551,7 @@ def rasterize_backward(pair_payload, tile_start, tile_count, packed, cot, *,
             gxp, chunk, chunk * MAX_CHUNKS, focal_x, focal_y,
             *_half(width, height, half_w, half_h), cuda_lib.stream_of(pair_payload))
     cuda_lib.check_launch(err, "rasterize_backward")
-    rasterize_backward.launches += 1
+    cuda_lib.count_launch(rasterize_backward)
     return dpay, clive
 
 

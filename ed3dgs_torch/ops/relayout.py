@@ -55,7 +55,7 @@ def unpack_image(packed: torch.Tensor) -> torch.Tensor:
             packed.data_ptr(), out.data_ptr(), gy, gxp, C,
             cuda_lib.stream_of(packed))
     cuda_lib.check_launch(err, "unpack_image")
-    unpack_image.launches += 1
+    cuda_lib.count_launch(unpack_image)
     return out
 
 
@@ -84,7 +84,7 @@ def pack_image(img: torch.Tensor) -> torch.Tensor:
         err = cuda_lib.lib("relayout").ed3dgs_pack_image(
             img.data_ptr(), out.data_ptr(), gy, gxp, C, cuda_lib.stream_of(img))
     cuda_lib.check_launch(err, "pack_image")
-    pack_image.launches += 1
+    cuda_lib.count_launch(pack_image)
     return out
 
 

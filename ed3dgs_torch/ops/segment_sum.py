@@ -56,7 +56,7 @@ def segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
     if not rows.is_cuda:
         return segment_sum_rows_plain(rows, starts, ends)
     out = _launch(rows, starts, ends)
-    segment_sum_rows.launches += 1
+    cuda_lib.count_launch(segment_sum_rows)
     return out
 
 
@@ -82,7 +82,7 @@ def segment_sum_rows_gathered(src: torch.Tensor, idx: torch.Tensor, starts: torc
         return segment_sum_rows_gathered_plain(src, idx, starts, ends)
     cuda_lib.check_cuda(idx, "idx", torch.int32, 1)
     out = _launch(src, starts, ends, idx)
-    segment_sum_rows.launches += 1
+    cuda_lib.count_launch(segment_sum_rows)
     return out
 
 
@@ -94,7 +94,7 @@ def segment_sum_rows_packed(rows: torch.Tensor, starts: torch.Tensor,
     if not rows.is_cuda:
         return segment_sum_rows_plain(rows, starts, ends)
     out = _launch(rows, starts, ends)
-    segment_sum_rows_packed.launches += 1
+    cuda_lib.count_launch(segment_sum_rows_packed)
     return out
 
 

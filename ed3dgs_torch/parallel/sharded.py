@@ -89,7 +89,7 @@ def make_sharded_train_step(setup, optimizer, mesh: Mesh):
     from dataclasses import replace
 
     from ..train.trainer import make_train_step
-    return make_train_step(replace(setup, mesh=mesh), optimizer)
+    return make_train_step(replace(setup, mesh=mesh), optimizer, graph=False)
 
 
 def gathered_rasterize(proj, tongue, bg, cfg, mesh: Mesh):

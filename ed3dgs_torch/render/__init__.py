@@ -25,9 +25,6 @@ from ..ops.rasterize import RasterConfig, rasterize
 from ..parallel import comm
 from ..parallel.tile_sharded import tile_sharded_rasterize
 
-# SH band of each of the 16 coefficients (degree 3)
-_SH_BAND = (0, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3)
-
 
 class RenderSettings(NamedTuple):
     """Per-camera inputs."""
@@ -94,9 +91,10 @@ def project_for_render(
 
         if active_sh_degree is not None:
             # oneupSHdegree (gaussian_model.py:146-148): zeroing the bands above
-            # the active degree is exactly truncated SH evaluation
-            band = torch.tensor(_SH_BAND, device=shs_f.device)
-            shs_f = shs_f * (band <= active_sh_degree).to(shs_f.dtype)[None, :, None]
+            # the active degree is exactly truncated SH evaluation; the
+            # coefficients of bands 0..d are the first (d + 1)^2
+            keep = torch.arange(shs_f.shape[1], device=shs_f.device) < (active_sh_degree + 1) ** 2
+            shs_f = shs_f * keep.to(shs_f.dtype)[None, :, None]
         if disable_filter3d:
             scales_act = torch.exp(scales_f)
             opac_act = torch.sigmoid(opac_f)

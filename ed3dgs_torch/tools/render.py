@@ -14,7 +14,9 @@ quantised as it does (clip to [0, 1], then truncate `x * 255` to uint8),
 and written by the port's own encoder (data/image_io.py).
 
 It runs on the card unless `--device cpu` is passed; without a GPU the
-default raises. `--backend` is accepted for the JAX tool's command lines and
+default raises. On the card each frame replays a CUDA graph captured for
+its tongue filter (tools.FrameRenderer), as the JAX tool jits one render
+per filter. `--backend` is accepted for the JAX tool's command lines and
 ignored: the port has one backend. The video goes through imageio, else
 Pillow (an animated GIF); where neither is installed it is skipped with a
 line that says so (the JAX tool raises ImportError there).
@@ -29,7 +31,7 @@ import time
 
 import numpy as np
 
-from . import add_model_flags, load_trained
+from . import FrameRenderer, add_model_flags, load_trained
 
 
 def parse_args(argv=None):
@@ -166,35 +168,28 @@ def main(argv=None):
 
     from ..device import resolve_device
     from ..ops.rasterize import RasterConfig
-    from ..render import RenderSettings
-    from ..render import render as render_fn
 
     device = resolve_device(args.device)
     cfg, scene, dparams = load_trained(args, device)
     model, hidden, opt = cfg.model, cfg.hidden, cfg.opt
-    params, aux = scene.params, scene.aux
+    trained = (scene.params, scene.aux, dparams)
 
     cam0 = (scene.test_cameras or scene.train_cameras)[0].matrices()
     rcfg = RasterConfig(width=cam0.width, height=cam0.height,
                         focal_x=cam0.focal_x, focal_y=cam0.focal_y,
                         pair_capacity=opt.pair_capacity, chunk=opt.raster_chunk)
-    f32 = dict(dtype=torch.float32, device=device)
-    bg = torch.full((3,), 1.0 if model.white_background else 0.0, **f32)
+    bg = torch.full((3,), 1.0 if model.white_background else 0.0, dtype=torch.float32,
+                    device=device)
+    # one graph per tongue filter, as the JAX tool jits one render per filter
+    frame = FrameRenderer(hidden, bg, sh_degree=model.sh_degree,
+                          kernel_size=model.kernel_size,
+                          disable_filter3d=model.disable_filter3D,
+                          num_down_emb=hidden.min_embeddings)
 
     def renderer(cam, tongue_filter=None):
         m = cam.matrices()
-        s = RenderSettings(torch.as_tensor(m.world_view, **f32),
-                           torch.as_tensor(m.full_proj, **f32),
-                           torch.as_tensor(m.campos, **f32),
-                           torch.tensor(cam.time, **f32), None)
-        with torch.no_grad():
-            return render_fn(params, aux, dparams, hidden, s, rcfg, bg,
-                             iteration=10 ** 9, sh_degree=model.sh_degree,
-                             kernel_size=model.kernel_size,
-                             disable_filter3d=model.disable_filter3D,
-                             num_down_emb_c=hidden.min_embeddings,
-                             num_down_emb_f=hidden.min_embeddings,
-                             tongue_filter=tongue_filter)
+        return frame(tongue_filter or "full", trained, rcfg, m.world_view, m.full_proj,
+                     m.campos, cam.time, tongue_filter=tongue_filter)
 
     # reference directory layout: <model_path>/<split>/ours_<iter>/{renders,gt}
     out_dir = model.model_path

@@ -15,8 +15,12 @@ train step (train/trainer.py), moves the pair capacity with the pair demand
 graph on the reference's cadences (train.py:123-452).
 
 It runs on the card unless `--device cpu` is passed; without a GPU the
-default raises. `--backend` is accepted for the JAX tool's command lines and
-ignored: the port has one backend. Densification draws come from a
+default raises. On the card the step and the test render replay CUDA graphs
+captured per key (trainer.GraphedTrainStep, tools.FrameRenderer), as the
+JAX tool jits them; a pair-capacity change captures anew, and the state a
+densify step returns and each new KNN cache are copied into the step's
+static buffers; with `--mesh` both run op by op. `--backend` is accepted
+for the JAX tool's command lines and ignored: the port has one backend. Densification draws come from a
 `torch.Generator` seeded by `--seed`: the JAX package's `PRNGKey` stream
 cannot be reproduced, so the two tools densify with different noise.
 
@@ -265,9 +269,12 @@ def _start_world(args):
 
 def run_training(cfg, args):
     """Train as the JAX tool does. Returns (scene, state, aux, log): log
-    holds the loop's wall ms, loss and train PSNR per iteration, the test
+    holds the loop's wall ms, loss and train PSNR per iteration, the ms
+    each iteration's first read of the step's results waited, the test
     PSNRs, the densify events, the pair-capacity changes, the alive counts
-    at start and end, and the stager's decode and wait ms. With --mesh the
+    at start and end, the stager's decode and wait ms, and per graph cache
+    (each train step made, the test render) its name, captures, their
+    seconds and its pool bytes. With --mesh the
     state and aux are whole (gathered) on every rank."""
     import torch
 
@@ -286,6 +293,7 @@ def run_training(cfg, args):
     from ..train.sampling import CameraSampler
     from ..train.trainer import (TrainSetup, init_train_state, make_densify_step,
                                  make_train_step)
+    from . import FrameRenderer
 
     mesh, device = _start_world(args)
     t_start = time.time()
@@ -345,7 +353,11 @@ def run_training(cfg, args):
             print(f"resumed from {args.start_checkpoint} at iteration {first_iter}",
                   flush=True)
 
-    step_fn = make_train_step(setup, optimizer)
+    # one CUDA graph per key on the card, as the JAX tool jits the step; the
+    # sharded step is eager, as the JAX tool's is not jitted whole on a mesh
+    graph = mesh is None
+    step_fn = make_train_step(setup, optimizer, graph=graph)
+    captured = []               # the captures of each step and graph cache released
     densify_fn = make_densify_step(opt, opt.percent_dense, scene.cameras_extent)
 
     # camera metadata for sampling / 3D filter
@@ -478,25 +490,36 @@ def run_training(cfg, args):
     eval_rng = np.random.default_rng(args.seed)
     bg = torch.full((3,), 1.0 if model.white_background else 0.0, **f32)
 
+    # one graph per raster config (JAX: tools/train.py:465-480)
+    eval_frame = FrameRenderer(hidden, bg, sh_degree=model.sh_degree,
+                               kernel_size=model.kernel_size,
+                               disable_filter3d=model.disable_filter3D,
+                               num_down_emb=hidden.min_embeddings)
+
     def eval_test_psnr(iteration):
         cam = test_cams[eval_rng.integers(len(test_cams))]
         img = cam.image
         if img is None:
             return None
         m = cam.matrices()
-        with torch.no_grad():
-            s = RenderSettings(torch.as_tensor(m.world_view, **f32),
-                               torch.as_tensor(m.full_proj, **f32),
-                               torch.as_tensor(m.campos, **f32),
-                               torch.tensor(cam.time, **f32),
-                               torch.zeros((), dtype=torch.int64, device=device))
-            out = render_fn(state.params["gaussians"], aux, state.params["deform"], hidden, s,
-                            rcfg, bg, iteration=iteration, sh_degree=model.sh_degree,
-                            kernel_size=model.kernel_size,
-                            disable_filter3d=model.disable_filter3D,
-                            num_down_emb_c=hidden.min_embeddings,
-                            num_down_emb_f=hidden.min_embeddings, mesh=mesh,
-                            send_capacity=strip_caps["send"] if mesh else None)["render"]
+        if mesh is None:
+            out = eval_frame(rcfg, (state.params["gaussians"], aux, state.params["deform"]),
+                             rcfg, m.world_view, m.full_proj, m.campos, cam.time,
+                             iteration=iteration, cam_no=0)["render"]
+        else:
+            with torch.no_grad():
+                s = RenderSettings(torch.as_tensor(m.world_view, **f32),
+                                   torch.as_tensor(m.full_proj, **f32),
+                                   torch.as_tensor(m.campos, **f32),
+                                   torch.tensor(cam.time, **f32),
+                                   torch.zeros((), dtype=torch.int64, device=device))
+                out = render_fn(state.params["gaussians"], aux, state.params["deform"],
+                                hidden, s, rcfg, bg, iteration=iteration,
+                                sh_degree=model.sh_degree, kernel_size=model.kernel_size,
+                                disable_filter3d=model.disable_filter3D,
+                                num_down_emb_c=hidden.min_embeddings,
+                                num_down_emb_f=hidden.min_embeddings, mesh=mesh,
+                                send_capacity=strip_caps["send"])["render"]
         cam.release_image()
         gt = torch.as_tensor(img, device=device)
         return float(torch.mean(L.psnr(out[None], gt[None])))
@@ -507,7 +530,7 @@ def run_training(cfg, args):
     cap_policy.start(first_iter)
 
     log = {"iter_ms": [], "loss": [], "psnr": [], "test_psnr": [], "densify": [],
-           "capacity": [], "points_start": log_points}
+           "capacity": [], "points_start": log_points, "read_wait_ms": []}
 
     def maybe_resize_capacity(iteration, num_pairs, send_overflow):
         nonlocal rcfg, setup, step_fn
@@ -518,7 +541,9 @@ def run_training(cfg, args):
             log["capacity"].append((iteration, rcfg.pair_capacity, want))
             rcfg = replace(rcfg, pair_capacity=want)
             setup = replace(setup, raster=rcfg)
-            step_fn = make_train_step(setup, optimizer)
+            # a new step on the new buffers: the old step's graphs go with it
+            captured.extend(_graph_stats(step_fn))
+            step_fn = make_train_step(setup, optimizer, graph=graph)
         if comms == "strip" and send_overflow > strip_caps["send"]:
             # the strip buffers dropped the deepest splats: grow them (the
             # contract of the pair capacity)
@@ -527,7 +552,8 @@ def run_training(cfg, args):
             if is_proc0:
                 print(f"[{iteration}] strip send_capacity -> {strip_caps['send']}", flush=True)
             setup = replace(setup, send_capacity=strip_caps["send"])
-            step_fn = make_train_step(setup, optimizer)
+            captured.extend(_graph_stats(step_fn))
+            step_fn = make_train_step(setup, optimizer, graph=graph)
 
     prof = None
     pending = sample_batch(first_iter)
@@ -550,7 +576,11 @@ def run_training(cfg, args):
                 _stop_profile(prof, os.path.join(model.model_path, "profile"))
                 prof = None
 
+            # the loop's first read of the step's results waits for the card
+            # to finish the step (the JAX tool reads them here too)
+            t_read = time.perf_counter()
             l1_items = metrics["l1_items"].cpu().numpy()
+            log["read_wait_ms"].append((time.perf_counter() - t_read) * 1e3)
             sampler.record_loss([cam_index.get(c.cam_no, 0) for c in cams],
                                 [c.frame_no for c in cams], l1_items)
             maybe_resize_capacity(iteration, int(metrics["num_pairs"]),
@@ -619,8 +649,18 @@ def run_training(cfg, args):
             prof.stop()
     state, aux = whole(state, aux)
     log.update(points_end=int(aux.alive.sum()), decode_ms=list(stager.decode_ms),
-               wait_ms=list(stager.wait_ms), first_iter=first_iter)
+               wait_ms=list(stager.wait_ms), first_iter=first_iter,
+               graph_captures=captured + _graph_stats(step_fn) + _graph_stats(eval_frame))
     return scene, state, aux, log
+
+
+def _graph_stats(fn) -> list:
+    """[(name, captures, their seconds, pool bytes)] of a graphed step or
+    frame's graph cache; [] where it has none (eager, or on the CPU)."""
+    c = getattr(fn, "graphs", None)
+    if c is None:
+        return []
+    return [(c.name, len(c.captures), sum(t for _, t, _ in c.captures), c.pool_bytes)]
 
 
 def _start_profile(torch, device):

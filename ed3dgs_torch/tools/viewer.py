@@ -10,8 +10,11 @@ Each request renders through `render()` (K1, K4 and K5a on the card) at
 the request's resolution, any width and height; the raster setup of each
 resolution is made at its first request, with the focals of that
 request's fovs, and a later request at that size with other fovs keeps
-them, as the JAX tool does (ROADMAP Queue 3). It runs on the card unless
-`--device cpu` is passed; without a GPU the default raises.
+them, as the JAX tool does (ROADMAP Queue 3). On the card each resolution's
+render is a CUDA graph captured at its first request and replayed
+(tools.FrameRenderer), as the JAX tool jits one per resolution. It runs
+on the card unless `--device cpu` is passed; without a GPU the default
+raises.
 """
 
 from __future__ import annotations
@@ -21,20 +24,25 @@ import sys
 
 import numpy as np
 
-from . import add_model_flags, load_trained, render_eval
+from . import FrameRenderer, add_model_flags, load_trained
 
 
 def make_handler(cfg, scene, dparams, time: float = 0.0):
     """handle(camera dict from `ViewerServer.read_request`) -> the render
-    [3, H, W] on the model's device, at timeline position `time`."""
+    [3, H, W] on the model's device, at timeline position `time`: on the
+    card a CUDA graph captured per resolution and replayed."""
     import torch
 
     from ..ops.rasterize import RasterConfig
-    from ..render import RenderSettings
 
     device = scene.params.xyz.device
-    f32 = dict(dtype=torch.float32, device=device)
-    bg = torch.ones(3, **f32)
+    bg = torch.ones(3, dtype=torch.float32, device=device)
+    model, hidden = cfg.model, cfg.hidden
+    frame = FrameRenderer(hidden, bg, sh_degree=model.sh_degree,
+                          kernel_size=model.kernel_size,
+                          disable_filter3d=model.disable_filter3D,
+                          num_down_emb=hidden.min_embeddings)
+    trained = (scene.params, scene.aux, dparams)
     configs = {}
 
     def handle(cam):
@@ -47,10 +55,9 @@ def make_handler(cfg, scene, dparams, time: float = 0.0):
                                         pair_capacity=cfg.opt.pair_capacity,
                                         chunk=cfg.opt.raster_chunk)
         wv = cam["world_view"]
-        s = RenderSettings(torch.as_tensor(wv, **f32), torch.as_tensor(cam["full_proj"], **f32),
-                           torch.as_tensor(np.linalg.inv(wv)[:3, 3], **f32),
-                           torch.tensor(time, **f32), None)
-        return render_eval(cfg, scene, dparams, s, configs[key], bg)["render"]
+        # the frame's own tensor: the next request at this size replays into it
+        return frame(key, trained, configs[key], wv, cam["full_proj"],
+                     np.linalg.inv(wv)[:3, 3], time)["render"].clone()
     return handle
 
 

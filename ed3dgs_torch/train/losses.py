@@ -36,6 +36,20 @@ def _gaussian_window_np(window_size: int = 11, sigma: float = 1.5):
     return np.outer(g, g)
 
 
+_WINDOWS: dict = {}
+
+
+def _gaussian_window(window_size: int, dtype, device) -> torch.Tensor:
+    """The window on `device`, copied there once: a copy from host memory
+    makes the host wait for the card, and a captured graph cannot hold one."""
+    key = (window_size, dtype, torch.device(device))
+    w = _WINDOWS.get(key)
+    if w is None:
+        w = _WINDOWS[key] = torch.as_tensor(_gaussian_window_np(window_size), dtype=dtype,
+                                            device=device)
+    return w
+
+
 def ssim(img1, img2, window_size: int = 11):
     """Gaussian-window SSIM, same constants and padding as the reference
     (utils/loss_utils.py:43-73). img: [B, C, H, W] or [C, H, W]; the window
@@ -46,7 +60,7 @@ def ssim(img1, img2, window_size: int = 11):
     if img1.dim() == 3:
         img1, img2 = img1[None], img2[None]
     C = img1.shape[1]
-    w = torch.as_tensor(_gaussian_window_np(window_size), dtype=img1.dtype, device=img1.device)
+    w = _gaussian_window(window_size, img1.dtype, img1.device)
     kernel = w[None, None].expand(C, 1, window_size, window_size).contiguous()
     pad = window_size // 2
 

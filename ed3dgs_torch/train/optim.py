@@ -135,20 +135,50 @@ class Optimizer:
                              {p: torch.zeros_like(flat[p]) for p in flat if labels[p] == g})
                 for g in GROUPS}
 
-    def update(self, grads: dict, opt_state: dict, params):
+    def update_table(self, opt_state: dict, device) -> torch.Tensor:
+        """The scalars of the next update, [9 groups, 3] float32 on the CPU:
+        each group's step (minus its learning rate) and its two bias
+        corrections, as `update` computes them from the counts, bit for bit.
+        For a CUDA `device` the corrections are their float32 reciprocals:
+        PyTorch's CUDA division by a 0-d CPU tensor multiplies by the
+        divisor's reciprocal, formed in float32 on the host, and `update`
+        multiplies by the table's entries there (so a captured update that
+        reads the table on the card computes what the eager one does)."""
+        rows = []
+        for g in GROUPS:
+            count = opt_state[g].count
+            row = [-self.schedules[g](count), _bias_correction(B1, count + 1),
+                   _bias_correction(B2, count + 1)]
+            if torch.device(device).type == "cuda":
+                row[1:] = [1.0 / x for x in row[1:]]
+            rows.append(torch.stack(row))
+        return torch.stack(rows)
+
+    def update(self, grads: dict, opt_state: dict, params, table=None):
+        """With `table` (`update_table`'s values on the parameters' device),
+        the schedule and bias corrections are read from it, not computed
+        from the counts: a captured graph replays that read with the values
+        written before each replay."""
         flat = flatten_params(params)
         new_flat, new_state = dict(flat), {}
-        for g in GROUPS:
+        on_card = table is not None and table.is_cuda
+        for i, g in enumerate(GROUPS):
             st = opt_state[g]
             count_inc = st.count + 1
-            bc1, bc2 = _bias_correction(B1, count_inc), _bias_correction(B2, count_inc)
-            step = -self.schedules[g](st.count)
+            if table is None:
+                step = -self.schedules[g](st.count)
+                bc1, bc2 = _bias_correction(B1, count_inc), _bias_correction(B2, count_inc)
+            else:
+                step, bc1, bc2 = table[i].unbind()
             mu, nu = {}, {}
             for p in st.mu:
                 grad = grads[p]
                 mu[p] = (1 - B1) * grad + B1 * st.mu[p]
                 nu[p] = (1 - B2) * grad ** 2 + B2 * st.nu[p]
-                upd = (mu[p] / bc1) / (torch.sqrt(nu[p] / bc2 + 0.0) + EPS)
+                if on_card:
+                    upd = (mu[p] * bc1) / (torch.sqrt(nu[p] * bc2 + 0.0) + EPS)
+                else:
+                    upd = (mu[p] / bc1) / (torch.sqrt(nu[p] / bc2 + 0.0) + EPS)
                 new_flat[p] = flat[p] + step * upd
             new_state[g] = AdamState(count_inc, mu, nu)
         return unflatten_params(new_flat), new_state

@@ -53,8 +53,8 @@ from ..parallel.tile_sharded import batched_strip_rasterize
 from ..render import RenderSettings, assemble_outputs, project_for_render, render
 from . import losses as L
 from .densify import add_densification_stats, densify
-from .optim import (TrainState, build_optimizer, flatten_params, reset_moments_at,
-                    unflatten_params)
+from .optim import (GROUPS, AdamState, TrainState, build_optimizer, flatten_params,
+                    reset_moments_at, unflatten_params)
 
 KNN_K = 20              # neighbours per Gaussian (train.py:222 o3d_knn(..., 20))
 
@@ -246,20 +246,41 @@ def _background(setup: TrainSetup, device):
     return torch.full((3,), 1.0 if setup.white_background else 0.0, device=device)
 
 
-def _project_kw(setup: TrainSetup, iteration):
-    # oneupSHdegree every 1000 iterations (train.py:129-130)
+class StepBranches(NamedTuple):
+    """The Python branches of one step, each a value of the iteration or
+    the batch: the part of a captured step's key that is not a shape (the
+    JAX step keeps them on the device, `trainer.py:242,270,359,382,395`)."""
+
+    active_sh_degree: int   # oneupSHdegree every 1000 iterations (train.py:129-130)
+    use_ssim: bool          # the host's periodic SSIM gate (train.py:199)
+    depth_normal: bool      # the depth-normal term, from radegs_from_iter on
+    colmap: bool            # COLMAP supervision, after deform_from_iter on a frame with a cloud
+
+
+def step_branches(setup: TrainSetup, iteration: int, batch) -> StepBranches:
+    return StepBranches(
+        active_sh_degree=min(iteration // 1000, setup.sh_degree),
+        use_ssim=bool(batch["use_ssim"]),
+        depth_normal=iteration >= setup.radegs_from_iter,
+        colmap=(setup.colmap_supervision and iteration > setup.deform_from_iter
+                and bool(batch["pcd_valid"])))
+
+
+def _project_kw(setup: TrainSetup, iteration, active_sh_degree: int):
+    """`iteration` is what the deformation reads: a number, or a 0-d tensor
+    on the device in a captured step."""
     return dict(iteration=iteration, sh_degree=setup.sh_degree,
                 kernel_size=setup.kernel_size, disable_filter3d=setup.disable_filter3d,
                 num_down_emb_c=setup.num_down_emb, num_down_emb_f=setup.num_down_emb,
-                active_sh_degree=min(iteration // 1000, setup.sh_degree))
+                active_sh_degree=active_sh_degree)
 
 
-def _render_one(params, aux, dparams, setup: TrainSetup, settings, iteration, offset,
+def _render_one(params, aux, dparams, setup: TrainSetup, settings, it, active_sh, offset,
                 tongue_filter=None):
     """One camera's render; on a mesh, of this rank's rows together with
     its gauss group's (gathered, or through the strip exchange)."""
     bg = _background(setup, params.xyz.device)
-    kw = dict(_project_kw(setup, iteration), tongue_filter=tongue_filter,
+    kw = dict(_project_kw(setup, it, active_sh), tongue_filter=tongue_filter,
               mean2d_offset=offset)
     if setup.mesh is None or setup.comms == "strip":
         return render(params, aux, dparams, setup.hidden, settings, setup.raster, bg,
@@ -276,7 +297,8 @@ def _settings(batch, b):
                           batch["time"][b], batch["cam_no"][b])
 
 
-def _strip_render_batch(gparams, aux, dparams, setup: TrainSetup, batch, offsets, iteration):
+def _strip_render_batch(gparams, aux, dparams, setup: TrainSetup, batch, offsets, it,
+                        active_sh):
     """This rank's cameras through the strip exchange (--comms strip): each
     camera projected on this rank's rows, then one exchange a camera
     (parallel/tile_sharded.py: batched_strip_rasterize). Returns (the
@@ -285,7 +307,7 @@ def _strip_render_batch(gparams, aux, dparams, setup: TrainSetup, batch, offsets
     for b in range(offsets.shape[0]):
         proj, _, xyz_f, _ = project_for_render(
             gparams, aux, dparams, setup.hidden, _settings(batch, b), setup.raster,
-            mean2d_offset=offsets[b], **_project_kw(setup, iteration))
+            mean2d_offset=offsets[b], **_project_kw(setup, it, active_sh))
         projs.append(proj)
         xyzs.append(xyz_f)
     tongue = aux.tongue_class[:, 0]
@@ -311,7 +333,7 @@ def _strip_render_batch(gparams, aux, dparams, setup: TrainSetup, batch, offsets
 
 
 def _tongue_terms(setup: TrainSetup, gparams, aux, dparams, batch, knn_cache, r_last,
-                  iteration, rows):
+                  it, active_sh, rows):
     """The tongue losses of the last camera (train.py, tongue_mask_loss):
     the blended tongue channel against the tongue mask, the KNN term on the
     tongue graph, and the colour of the tongue-only and tongue-free renders
@@ -323,11 +345,12 @@ def _tongue_terms(setup: TrainSetup, gparams, aux, dparams, batch, knn_cache, r_
     t_emb = knn_loss.knn_loss_fused(rows(gparams.embedding), knn_cache.t_graph, KNN_K)
     settings = _settings(batch, gt.shape[0] - 1)
     gt_mean = torch.mean(gt_tongue)
-    r_tongue = _render_one(gparams, aux, dparams, setup, settings, iteration, None, "only")
+    r_tongue = _render_one(gparams, aux, dparams, setup, settings, it, active_sh, None, "only")
     t_rgb = torch.mean(torch.abs(gt[-1] * gt_tongue - r_tongue["render"] * gt_tongue))
     t_rgb = torch.where(gt_mean > 0.005, t_rgb / torch.clamp_min(gt_mean, 1e-8),
                         torch.zeros_like(t_rgb))
-    r_wo = _render_one(gparams, aux, dparams, setup, settings, iteration, None, "without")
+    r_wo = _render_one(gparams, aux, dparams, setup, settings, it, active_sh, None,
+                       "without")
     inv = 1.0 - gt_tongue
     wo_rgb = torch.mean(torch.abs(gt[-1] * inv - r_wo["render"] * inv))
     wo_rgb = wo_rgb / torch.clamp_min(torch.mean(inv), 1e-8)
@@ -357,18 +380,18 @@ def make_loss_and_grads(setup: TrainSetup):
         """A per-Gaussian tensor of this rank's rows -> the whole cloud's."""
         return x if mesh is None else comm.all_gather_rows(x, mesh, "gauss", "state")
 
-    def loss_fn(params, offsets, aux, batch, knn_cache, iteration):
+    def loss_fn(params, offsets, aux, batch, knn_cache, br: StepBranches, it):
         gparams: gm.GaussianParams = params["gaussians"]
         dparams = params["deform"]
-        reg_kick_on = iteration >= setup.radegs_from_iter
+        sh = br.active_sh_degree
         n_cam = offsets.shape[0]
         send_ovf = None
         if setup.comms == "strip":
             renders, send_ovf = _strip_render_batch(gparams, aux, dparams, setup, batch,
-                                                    offsets, iteration)
+                                                    offsets, it, sh)
         else:
             renders = [_render_one(gparams, aux, dparams, setup, _settings(batch, b),
-                                   iteration, offsets[b]) for b in range(n_cam)]
+                                   it, sh, offsets[b]) for b in range(n_cam)]
         image = torch.stack([r["render"] for r in renders])           # [B, 3, H, W]
         gt = batch["gt_image"]
         zero = torch.zeros((), device=image.device)
@@ -378,9 +401,9 @@ def make_loss_and_grads(setup: TrainSetup):
         l1 = torch.mean(l1_items) * w
         loss = l1
 
-        use_ssim = bool(batch["use_ssim"])
-        ssim_val = L.ssim(image, gt) * w if use_ssim else torch.full((), w, device=image.device)
-        if use_ssim:
+        ssim_val = (L.ssim(image, gt) * w if br.use_ssim
+                    else torch.full((), w, device=image.device))
+        if br.use_ssim:
             loss = loss + setup.lambda_dssim * ((w - ssim_val) / 2.0)
 
         opa_loss = emb_loss = tv_loss = zero
@@ -398,7 +421,7 @@ def make_loss_and_grads(setup: TrainSetup):
         # depth-normal on the LAST batch entry only (train.py:247-271)
         r_last = renders[-1]
         dn = pcd_loss = zero
-        if last and reg_kick_on:
+        if last and br.depth_normal:
             rc = setup.raster
             dn = (L.coord_normal_loss(r_last["normal"], r_last["expected_coord"],
                                       r_last["median_coord"])
@@ -411,8 +434,7 @@ def make_loss_and_grads(setup: TrainSetup):
         # COLMAP point-cloud supervision on the last batch entry's deformed
         # positions (train.py:273-295), skipped before deform_from_iter or
         # when the host found no GT cloud for the frame
-        if (last and setup.colmap_supervision and iteration > setup.deform_from_iter
-                and bool(batch["pcd_valid"])):
+        if last and br.colmap:
             pcd_loss = L.colmap_pcd_loss(batch["pcd_points"],
                                          rows(r_last["deformed_gaussian_positions"]),
                                          rows(aux.alive))
@@ -422,7 +444,7 @@ def make_loss_and_grads(setup: TrainSetup):
         if setup.tongue_enabled:
             if last:
                 tongue_metrics = _tongue_terms(setup, gparams, aux, dparams, batch, knn_cache,
-                                               r_last, iteration, rows)
+                                               r_last, it, sh, rows)
             else:
                 tongue_metrics = {k: zero for k in ("tongue_l1", "tongue_emb", "tongue_rgb",
                                                     "wo_tongue_rgb")}
@@ -445,15 +467,21 @@ def make_loss_and_grads(setup: TrainSetup):
         }
         return loss, metrics, radii, visible
 
-    def loss_and_grads(params, aux, batch, knn_cache: KnnCache, iteration: int):
+    def loss_and_grads(params, aux, batch, knn_cache: KnnCache, iteration: int,
+                       device_iteration: Optional[torch.Tensor] = None):
+        """`device_iteration`: a 0-d float32 tensor on the device holding
+        `iteration`, which the deformation then reads (a captured step's
+        static input) instead of the number."""
         flat = flatten_params(params)
         leaves = {p: t.detach().requires_grad_(True) for p, t in flat.items()}
         C = aux.alive.shape[0]
         n_cam = batch["gt_image"].shape[0]
         offsets = torch.zeros((n_cam, C, 2), dtype=torch.float32, device=aux.alive.device,
                               requires_grad=True)
-        loss, metrics, radii, visible = loss_fn(unflatten_params(leaves), offsets, aux, batch,
-                                                knn_cache, iteration)
+        loss, metrics, radii, visible = loss_fn(
+            unflatten_params(leaves), offsets, aux, batch, knn_cache,
+            step_branches(setup, iteration, batch),
+            iteration if device_iteration is None else device_iteration)
         grads = torch.autograd.grad(loss, [*leaves.values(), offsets], allow_unused=True)
         g = {p: torch.zeros_like(leaves[p]) if d is None else d
              for p, d in zip(leaves, grads)}
@@ -468,17 +496,37 @@ def make_loss_and_grads(setup: TrainSetup):
     return loss_and_grads
 
 
-def make_train_step(setup: TrainSetup, optimizer):
+def make_train_step(setup: TrainSetup, optimizer, graph: bool = True):
     """The train step: (state, aux, batch, knn_cache) -> (state, aux,
-    metrics), with `optimizer` from `init_train_state` (it holds the lr
-    schedules) and `knn_cache` from `refresh_knn_cache`. On a mesh
+    metrics), the counterpart of ed3dgs_tpu/train/trainer.py:313-478
+    (`make_train_step`, jitted by default), with `optimizer` from
+    `init_train_state` (it holds the lr schedules) and `knn_cache` from
+    `refresh_knn_cache`. Batch entries (leading dim B, or this rank's
+    cameras of it): gt_image [B,3,H,W], viewmatrix [B,4,4], projmatrix
+    [B,4,4], campos [B,3], time [B], cam_no [B], tongue_gt [B,1,H,W] (read
+    with tongue_enabled), pcd_points [P,3] and pcd_valid, a bool (read with
+    colmap_supervision); use_ssim, a bool (the host-computed periodic SSIM
+    gate, train.py:199).
+
+    graph=True (the default, as JAX's jit=True) runs the step on the card
+    as a captured CUDA graph per key (`GraphedTrainStep`: the state it
+    returns is its static buffers, which the next call overwrites); on a
+    CPU state the same path runs eagerly. graph=False gives the eager,
+    functional step on any device. On a mesh
     (`setup.mesh`), state, aux and batch are this rank's shards
-    (parallel/sharded.py) and the metrics are global. Batch entries
-    (leading dim B, or this rank's cameras of it): gt_image [B,3,H,W],
-    viewmatrix [B,4,4], projmatrix [B,4,4], campos [B,3], time [B], cam_no
-    [B], tongue_gt [B,1,H,W] (read with tongue_enabled), pcd_points [P,3]
-    and pcd_valid, a bool (read with colmap_supervision); use_ssim, a bool
-    (the host-computed periodic SSIM gate, train.py:199)."""
+    (parallel/sharded.py) and the metrics are global; that step is eager
+    (graph=False), and graph=True raises."""
+    check_supported(setup)
+    if graph:
+        if setup.mesh is not None:
+            raise ValueError("graph=True with a mesh: the sharded step is not captured as a "
+                             "CUDA graph yet (capturing the NCCL step is a later slice of "
+                             "the port); pass graph=False")
+        return GraphedTrainStep(setup, optimizer)
+    return _eager_step(setup, optimizer)
+
+
+def _eager_step(setup: TrainSetup, optimizer):
     loss_and_grads = make_loss_and_grads(setup)
 
     def train_step(state: TrainState, aux: gm.GaussianAux, batch, knn_cache: KnnCache):
@@ -490,6 +538,179 @@ def make_train_step(setup: TrainSetup, optimizer):
         return TrainState(params, opt_state, iteration + 1), aux2, metrics
 
     return train_step
+
+
+_KNN_FIELDS = ("pi", "inv", "nbr", "w", "coef", "rev_ptr", "rev_pair")   # what the step reads
+
+
+class GraphedTrainStep:
+    """The train step as a CUDA graph captured per key and replayed: the
+    port's `jax.jit(train_step)`.
+
+    Each call is "prepare, then replay, then return the static state":
+      * the inputs are copied into static buffers, each unless it is that
+        buffer already: the state and aux this step returned need no copy;
+        the state a densify step returns, a new KNN cache (its reverse
+        adjacency padded to the graph's Cp*K in-edges) and the batch get one
+        copy on the card;
+      * the update's schedule and bias corrections (`Optimizer.update_table`)
+        and the iteration, which the deformation reads, go to the card
+        through pinned memory (utils/graphs.py `PinnedScalars`);
+      * the key is the step's Python branches (`StepBranches`: the active SH
+        degree, the SSIM gate, the depth-normal term, the COLMAP gate) and
+        every input's shape; a new key is run once eagerly on a side stream
+        and captured (utils/graphs.py `GraphCache`); a known one is replayed;
+      * the graph ends by writing the new parameters, Adam moments and aux
+        statistics into the static buffers, and the metrics into its own.
+    The returned state, aux and metrics ARE those static buffers: the next
+    call writes into them, as a donated `jax.jit` argument would be. Keep a
+    copy (`clone`) of anything needed after the next step.
+
+    A new input signature (other shapes) gets new static buffers, and the
+    graphs captured on the old ones are dropped.
+
+    On a CPU state the same prepare, body and return run eagerly, without
+    a graph (the CPU has none): bit for bit the eager step."""
+
+    def __init__(self, setup: TrainSetup, optimizer):
+        check_supported(setup)
+        self.setup, self.optimizer = setup, optimizer
+        self.loss_and_grads = make_loss_and_grads(setup)
+        self.graphs = None           # GraphCache, made at the first card call
+        self._static = None          # the static buffers of one input signature
+        self._signature = None
+
+    def __call__(self, state: TrainState, aux: gm.GaussianAux, batch, knn_cache: KnnCache):
+        on_card = aux.alive.is_cuda
+        named = self._inputs(state, aux, batch, knn_cache)
+        iteration = int(state.iteration)
+        key = (step_branches(self.setup, iteration, batch), self._shapes(named))
+        st = self._prepare(key[1], named, state, aux, batch, knn_cache)
+        scalars = torch.cat([self.optimizer.update_table(state.opt_state, aux.alive.device)
+                             .reshape(-1), torch.tensor([float(iteration)])])
+        st["scalars"].write(scalars)
+        body = self._body(st, key[0], iteration)
+        if on_card:
+            if self.graphs is None:
+                from ..utils.graphs import GraphCache
+                self.graphs = GraphCache(aux.alive.device, "train step")
+            metrics = self.graphs.run(key, body)
+        else:
+            metrics = body()
+        opt_state = {g: AdamState(state.opt_state[g].count + 1, st["mu"][g], st["nu"][g])
+                     for g in GROUPS}
+        return TrainState(st["params_tree"], opt_state, iteration + 1), st["aux"], metrics
+
+    def key(self, state, aux, batch, knn_cache) -> tuple:
+        """(StepBranches, the inputs' shapes and dtypes): the graph a call
+        replays."""
+        return (step_branches(self.setup, int(state.iteration), batch),
+                self._shapes(self._inputs(state, aux, batch, knn_cache)))
+
+    @staticmethod
+    def _inputs(state, aux, batch, knn_cache) -> dict:
+        """{name: tensor} of every tensor the step reads."""
+        named = {f"params/{p}": t for p, t in flatten_params(state.params).items()}
+        for g in GROUPS:
+            named.update({f"mu/{g}/{p}": t for p, t in state.opt_state[g].mu.items()})
+            named.update({f"nu/{g}/{p}": t for p, t in state.opt_state[g].nu.items()})
+        named.update({f"aux/{f}": getattr(aux, f) for f in aux._fields})
+        named.update({f"batch/{k}": v for k, v in batch.items()
+                      if isinstance(v, torch.Tensor)})
+        graphs = [knn_cache.graph] + ([] if knn_cache.t_graph is knn_cache.graph
+                                      else [knn_cache.t_graph])
+        for i, gr in enumerate(graphs):
+            named.update({f"knn{i}/{f}": getattr(gr, f) for f in _KNN_FIELDS})
+        return named
+
+    @staticmethod
+    def _shapes(named: dict) -> tuple:
+        out = []
+        for name, t in named.items():
+            # the reverse adjacency's length changes at every refresh: its
+            # static buffer holds the most it can need, Cp*K in-edges
+            shape = (0,) if name.endswith("/rev_pair") else tuple(t.shape)
+            out.append((name, shape, t.dtype))
+        return tuple(out)
+
+    def _prepare(self, signature, named, state, aux, batch, knn_cache) -> dict:
+        """The static buffers, with this call's inputs copied in."""
+        if signature != self._signature:
+            # new shapes (or the first call): new buffers, and the graphs
+            # that read and write the old ones go
+            self._static = self._allocate(named, state, aux, batch, knn_cache)
+            self._signature = signature
+            if self.graphs is not None:
+                self.graphs.clear()
+        from ..utils.graphs import copy_in
+        st = self._static
+        for name, t in named.items():
+            copy_in(st["flat"][name], t)
+        return st
+
+    @staticmethod
+    def _allocate(named, state, aux, batch, knn_cache) -> dict:
+        from ..utils.graphs import PinnedScalars
+        flat = {}
+        for name, t in named.items():
+            if name.endswith("/rev_pair"):
+                nbr = named[name.replace("rev_pair", "nbr")]
+                flat[name] = torch.zeros(nbr.numel(), dtype=t.dtype, device=t.device)
+            else:
+                flat[name] = torch.empty_like(t, memory_format=torch.contiguous_format)
+        params = {p[len("params/"):]: t for p, t in flat.items() if p.startswith("params/")}
+        mu = {g: {p: flat[f"mu/{g}/{p}"] for p in state.opt_state[g].mu} for g in GROUPS}
+        nu = {g: {p: flat[f"nu/{g}/{p}"] for p in state.opt_state[g].nu} for g in GROUPS}
+
+        def graph_of(i, gr):
+            return gr._replace(**{f: flat[f"knn{i}/{f}"] for f in _KNN_FIELDS})
+        graph = graph_of(0, knn_cache.graph)
+        t_graph = (graph if knn_cache.t_graph is knn_cache.graph
+                   else graph_of(1, knn_cache.t_graph))
+        dev = aux.alive.device
+        return {
+            "flat": flat, "params": params, "params_tree": unflatten_params(params),
+            "mu": mu, "nu": nu,
+            "aux": aux._replace(**{f: flat[f"aux/{f}"] for f in aux._fields}),
+            "batch": {k: flat.get(f"batch/{k}", v) for k, v in batch.items()},
+            "cache": KnnCache(graph, t_graph),
+            "scalars": PinnedScalars(len(GROUPS) * 3 + 1, dev),
+        }
+
+    def _body(self, st: dict, br: StepBranches, iteration: int):
+        """The step on the static buffers, writing its results back into
+        them; returns the metrics. Everything it reads from the host is
+        baked in per key: `br`, the shapes, the batch's host bools."""
+        setup, optimizer = self.setup, self.optimizer
+        scalars = st["scalars"].values
+        table = scalars[:len(GROUPS) * 3].view(len(GROUPS), 3)
+        it = scalars[len(GROUPS) * 3]
+        batch = dict(st["batch"], use_ssim=br.use_ssim)
+        if setup.colmap_supervision:
+            batch["pcd_valid"] = br.colmap
+
+        def body():
+            params, aux = st["params_tree"], st["aux"]
+            opt_state = {g: AdamState(0, st["mu"][g], st["nu"][g]) for g in GROUPS}
+            # the branches are the key's: the iteration passed here only
+            # selects them again, the deformation reads `it`
+            _, metrics, grads, vs_grad, radii, visible = self.loss_and_grads(
+                params, aux, batch, st["cache"], iteration, device_iteration=it)
+            new_params, new_opt = optimizer.update(grads, opt_state, params, table=table)
+            aux2 = add_densification_stats(aux, vs_grad, visible, radii)
+            for p, t in flatten_params(new_params).items():
+                st["params"][p].copy_(t)
+            for g in GROUPS:
+                for p in st["mu"][g]:
+                    st["mu"][g][p].copy_(new_opt[g].mu[p])
+                    st["nu"][g][p].copy_(new_opt[g].nu[p])
+            for f in aux._fields:
+                new, old = getattr(aux2, f), getattr(aux, f)
+                if new is not old:
+                    old.copy_(new)
+            return metrics
+
+        return body
 
 
 def make_densify_step(opt_cfg: OptimizationConfig, percent_dense: float,

@@ -40,10 +40,14 @@ bit-identical on a rerun. The strip exchange's pieces (parallel/
 tile_sharded.py): K1 and K2 at a strip's ray origin (half_w, half_h off the
 image centre) under the same rules, and the pack's binning with K4 over 2, 4
 and 8 strips (grid_x = 1) and its K3 backward, card against CPU bit for bit
-(the sums within 1e-6 of the largest).
+(the sums within 1e-6 of the largest). The captured CUDA graphs
+(utils/graphs.py): the graphed train step and frames against their eager
+forms, bit for bit, with the kernels a graph runs counted on the card from
+a device trace (`cuda_lib.DeviceLaunches`), since a replay calls no wrapper.
 """
 
 import math
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -939,3 +943,243 @@ def test_strip_pack_on_card_matches_cpu(dev, g, n):
     assert launched == 1
     assert torch.equal(bc, bh) and dc == dh
     assert float((gc - gh).abs().max()) <= 1e-6 * float(gh.abs().max())
+
+
+# --- the step and the frame as captured CUDA graphs ----------------------------
+
+GRAPH_W, GRAPH_H, GRAPH_N, GRAPH_CAP = 96, 64, 1500, 2048
+
+
+def graph_problem(dev, pair_capacity=1 << 15):
+    """A small cloud (scene()'s, with embeddings and 3D-filter scales) at
+    net_width 32, its train setup and state at iteration 9, its KNN cache."""
+    from ed3dgs_torch.config.params import DeformHiddenConfig, OptimizationConfig
+    from ed3dgs_torch.convert import gaussians_from_numpy
+    from ed3dgs_torch.train import trainer
+
+    (means, scales, q, opac, shs, _), cam = scene(GRAPH_N, GRAPH_W, GRAPH_H, seed=3)
+    rng = np.random.default_rng(4)
+    fields = {"xyz": means, "features_dc": shs[:, :1], "features_rest": shs[:, 1:],
+              "scaling": np.log(scales), "rotation": q,
+              "opacity": np.log(opac / (1 - opac))[:, None],
+              "embedding": rng.normal(0, 0.1, (GRAPH_N, 32)).astype(np.float32),
+              "filter_3d": rng.uniform(5e-4, 1.5e-3, (GRAPH_N, 1)).astype(np.float32)}
+    params, aux = gaussians_from_numpy(fields, capacity=GRAPH_CAP, device=dev)
+    hidden = DeformHiddenConfig(net_width=32, defor_depth=1, min_embeddings=5,
+                                max_embeddings=20, deform_from_iter=0, c2f_temporal_iter=100)
+    opt = OptimizationConfig()
+    raster = RasterConfig(width=GRAPH_W, height=GRAPH_H, focal_x=cam.focal_x,
+                          focal_y=cam.focal_y, pair_capacity=pair_capacity, chunk=64)
+    setup = trainer.TrainSetup(raster=raster, hidden=hidden, batch_size=2, kernel_size=0.1,
+                               lambda_dssim=0.2, reg_coef=1.0, coef_tv_temporal=1e-3,
+                               radegs_from_iter=11, num_down_emb=5, sh_degree=3)
+    state, optimizer = trainer.init_train_state(params, hidden, opt, 2.0, seed=0)
+    state = state._replace(iteration=9)
+    cache = trainer.update_knn_cache(params, aux)
+    return cam, setup, state, aux, optimizer, cache
+
+
+def graph_batch(cam, dev, i, ssim):
+    rng = np.random.default_rng(50 + i)
+    rep = lambda a: torch.as_tensor(np.repeat(np.asarray(a, np.float32)[None], 2, 0),  # noqa: E731
+                                    device=dev)
+    return {"gt_image": torch.as_tensor(rng.uniform(0, 1, (2, 3, GRAPH_H, GRAPH_W))
+                                        .astype(np.float32), device=dev),
+            "viewmatrix": rep(cam.world_view), "projmatrix": rep(cam.full_proj),
+            "campos": rep(cam.campos),
+            "time": torch.tensor([0.13 + 0.1 * i, 0.71], device=dev),
+            "cam_no": torch.tensor([1, 2], device=dev), "use_ssim": ssim}
+
+
+def step_tensors(state, aux, metrics) -> dict:
+    from ed3dgs_torch.train.optim import flatten_params
+    out = {f"params/{k}": v for k, v in flatten_params(state.params).items()}
+    for g, st in state.opt_state.items():
+        out.update({f"mu/{g}/{k}": v for k, v in st.mu.items()})
+        out.update({f"nu/{g}/{k}": v for k, v in st.nu.items()})
+    out.update({f"aux/{k}": v for k, v in aux._asdict().items()})
+    out.update({f"metrics/{k}": v for k, v in metrics.items()})
+    return out
+
+
+def wrapper_counts() -> dict:
+    """{"module.wrapper": launches counted by the wrapper}."""
+    import importlib
+    out = {}
+    for w in set(cuda_lib.KERNEL_SYMBOLS.values()):
+        mod, fn = w.split(".")
+        out[w] = getattr(importlib.import_module(f"ed3dgs_torch.ops.{mod}"), fn).launches
+    return out
+
+
+def test_graphed_step_equals_the_eager_step(dev):
+    """The graphed step against the eager one from one state, bit for bit
+    after every step: across SSIM on and off and the depth-normal term
+    (from iteration 11), a densify step's state and a new KNN cache copied
+    in, and a pair-capacity change (a new step, captured anew). Replays run
+    under sync debug mode "error" and launch K1-K7 on the card (counted
+    from a device trace) as an eager step does; the wrappers count only the
+    first, eager run of a key (a capture launches nothing)."""
+    from ed3dgs_torch.config.params import OptimizationConfig
+    from ed3dgs_torch.train import trainer
+
+    cam, setup, state, aux, optimizer, cache = graph_problem(dev)
+    eager = trainer.make_train_step(setup, optimizer, graph=False)
+    graphed = trainer.make_train_step(setup, optimizer)
+    assert isinstance(graphed, trainer.GraphedTrainStep)
+    densify = trainer.make_densify_step(OptimizationConfig(), 0.01, 2.0)
+    e, g = (state, aux), (state, aux)
+    counts = {"rasterize_cuda.rasterize_forward": 2, "rasterize_cuda.rasterize_backward": 2,
+              "segment_sum.segment_sum_rows": 2, "binning_scan.fused_bin_scans": 2,
+              "relayout.unpack_image": 2, "relayout.pack_image": 2, "knn_loss.knn_rows": 1,
+              "knn_loss.knn_reverse": 1, "segment_sum.segment_sum_rows_packed": 0}
+    replayed = []
+    for i, ssim in enumerate((True, False, True, True, True, False, False, False)):
+        if i == 4:        # densify, then the filter and KNN refreshes
+            out = [densify(s[0], s[1], torch.Generator(device=dev).manual_seed(1), 1e-9)
+                   for s in (e, g)]
+            e, g = (out[0][0], out[0][1]), (out[1][0], out[1][1])
+            assert int(out[0][2]) + int(out[0][3]) > 0
+            cache = trainer.update_knn_cache(e[0].params["gaussians"], e[1])
+        if i == 6:        # the pair capacity grows: a new step
+            setup = replace(setup, raster=replace(setup.raster, pair_capacity=1 << 16))
+            eager = trainer.make_train_step(setup, optimizer, graph=False)
+            graphed = trainer.make_train_step(setup, optimizer)
+        b = graph_batch(cam, dev, i, ssim)
+        es, ea, em = eager(e[0], e[1], b, cache)
+        replay = graphed.graphs is not None and graphed.key(g[0], g[1], b, cache) in graphed.graphs
+        before = wrapper_counts()
+        torch.cuda.synchronize()
+        with cuda_lib.DeviceLaunches() as traced:
+            if replay:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                gs, ga, gm = graphed(g[0], g[1], b, cache)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        after = wrapper_counts()
+        assert traced.counts == counts, i
+        assert {k: after[k] - before[k] for k in after} == (
+            dict.fromkeys(counts, 0) if replay else counts), i
+        want, got = step_tensors(es, ea, em), step_tensors(gs, ga, gm)
+        differ = [k for k in want if not torch.equal(want[k], got[k])]
+        assert not differ, (i, differ[:8])
+        assert es.iteration == gs.iteration
+        replayed.append(replay)
+        e = (es, ea)
+        g = (gs, ga)
+    # step 4 replays on the densified state and the new cache; step 6, the
+    # new step, captures again; step 7 replays its graph
+    assert replayed == [False, False, False, True, True, False, False, True]
+    assert len(graphed.graphs.captures) == 1 and graphed.graphs.pool_bytes > 0
+
+
+def test_graphed_step_across_batch_sizes(dev):
+    """Batches of 2, 2, 1, 2 and 2 cameras: each new input signature gets
+    new static buffers and drops the graphs of the old ones, so the return
+    to 2 captures anew instead of replaying a graph on freed buffers; every
+    step equals the eager step bit for bit."""
+    from ed3dgs_torch.train import trainer
+
+    cam, setup, state, aux, optimizer, cache = graph_problem(dev)
+    # past the depth-normal term's start: every step takes the same branches,
+    # so only the batch's shapes tell the keys apart
+    state = state._replace(iteration=setup.radegs_from_iter + 1)
+    eager = trainer.make_train_step(setup, optimizer, graph=False)
+    graphed = trainer.make_train_step(setup, optimizer)
+    e, g = (state, aux), (state, aux)
+    for i, n_cam in enumerate((2, 2, 1, 2, 2)):
+        b = graph_batch(cam, dev, i, True)
+        b = {k: v[:n_cam] if isinstance(v, torch.Tensor) else v for k, v in b.items()}
+        es, ea, em = eager(e[0], e[1], b, cache)
+        replay = graphed.graphs is not None and graphed.key(g[0], g[1], b, cache) in graphed.graphs
+        assert replay == (i in (1, 4)), i
+        gs, ga, gm = graphed(g[0], g[1], b, cache)
+        want, got = step_tensors(es, ea, em), step_tensors(gs, ga, gm)
+        differ = [k for k in want if not torch.equal(want[k], got[k])]
+        assert not differ, (i, n_cam, differ[:8])
+        e, g = (es, ea), (gs, ga)
+    assert len(graphed.graphs.captures) == 3 and len(graphed.graphs.graphs) == 1
+
+
+def test_capture_of_a_host_read_raises(dev, monkeypatch):
+    """A step that reads a device value on the host runs its first, eager
+    call and then raises at capture: it never falls back to the eager step."""
+    from ed3dgs_torch.train import losses, trainer
+    from ed3dgs_torch.utils.graphs import GraphCaptureError
+
+    cam, setup, state, aux, optimizer, cache = graph_problem(dev)
+    orig = losses.opacity_mean_loss
+
+    def reads(opacity, alive):
+        out = orig(opacity, alive)
+        return out + 0.0 * float(out)     # a host read of a device value
+    monkeypatch.setattr(losses, "opacity_mean_loss", reads)
+    graphed = trainer.make_train_step(setup, optimizer)
+    with pytest.raises(GraphCaptureError) as err:
+        graphed(state, aux, graph_batch(cam, dev, 0, True), cache)
+    assert err.value.__cause__ is not None
+    assert not graphed.graphs.graphs
+
+
+def test_graphed_frames_equal_render(dev, tmp_path, monkeypatch):
+    """tools.render's renderer (a graph per tongue filter) and the viewer's
+    handler (a graph per resolution) against `FrameRenderer(graph=False)`
+    (render() op by op) on the same calls, bit for bit; each graphed frame
+    launches K1 once on the card (counted from a device trace)."""
+    import argparse
+
+    from torch_offline_model import SET, make_model
+
+    from ed3dgs_torch import tools
+    from ed3dgs_torch.tools import add_model_flags, load_trained, viewer
+    from ed3dgs_torch.tools import render as render_tool
+
+    compared = []
+
+    class AgainstEager:
+        """The tool's FrameRenderer, each call held against the eager one."""
+
+        def __init__(self, *a, **k):
+            self.graphed = tools.FrameRenderer(*a, **k)
+            self.eager = tools.FrameRenderer(*a, graph=False, **k)
+
+        def __call__(self, *a, **k):
+            want = self.eager(*a, **k)
+            with cuda_lib.DeviceLaunches() as traced:
+                got = self.graphed(*a, **k)
+            assert traced.counts["rasterize_cuda.rasterize_forward"] == 1
+            for key, v in want.items():
+                assert torch.equal(v, got[key]), (a[0], key)
+            compared.append(a[0])
+            return got
+
+    _, _, flags = make_model(str(tmp_path))
+    renderers = {}
+
+    def keep(out_dir, name, cams, renderer, *a):
+        renderers.setdefault(name, (cams, renderer))
+        return {}
+    monkeypatch.setattr(render_tool, "render_set", keep)
+    monkeypatch.setattr(render_tool, "FrameRenderer", AgainstEager)
+    monkeypatch.setattr(viewer, "FrameRenderer", AgainstEager)
+    render_tool.main(flags + ["--skip_video", "--device", "cuda", "--set"] + SET)
+    for name, (cams, renderer) in renderers.items():
+        for cam in cams[:3]:
+            for tf in (None, "only"):
+                renderer(cam, tongue_filter=tf)
+    assert set(compared) == {"full", "only"}
+
+    p = argparse.ArgumentParser()
+    add_model_flags(p)
+    cfg, sc, dparams = load_trained(p.parse_args(flags + ["--device", "cuda", "--set"] + SET),
+                                    "cuda")
+    handle = viewer.make_handler(cfg, sc, dparams, 0.3)
+    m = sc.train_cameras[0].matrices()
+    compared.clear()
+    for w, h in ((64, 64), (80, 50), (64, 64)):
+        req = {"width": w, "height": h, "fovx": 1.0, "fovy": 0.8,
+               "world_view": np.asarray(m.world_view, np.float64),
+               "full_proj": np.asarray(m.full_proj, np.float64)}
+        assert handle(req).shape == (3, h, w)
+    assert compared == [(64, 64), (80, 50), (64, 64)]

@@ -123,6 +123,24 @@ def test_temporal_embedding_matches_jax(cur, t):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-7)
 
 
+@pytest.mark.parametrize("cur", [41, 150])
+@pytest.mark.parametrize("t", [0.0, 0.5, 1.0, 0.5034])
+def test_temporal_embedding_time_gradient_matches_jax(cur, t):
+    """d(embedding . v)/dt, also where the reflection folds (t = 0: JAX's
+    |x| has gradient +1 at 0, as the reference's grid_sample reflection,
+    where `torch.abs` would give 0), on a whole row (t = 0.5) and at the
+    last row (t = 1, where the interpolation's weight is 0 in both)."""
+    rng = np.random.default_rng(1)
+    weight = rng.normal(0, 0.01, (150, 256)).astype(np.float32)
+    v = rng.normal(0, 1, 256).astype(np.float32)
+    want = float(jax.grad(lambda x: jnp.dot(jd.temporal_embedding(
+        jnp.asarray(weight), x, cur), jnp.asarray(v)))(jnp.float32(t)))
+    x = torch.tensor(t, requires_grad=True)
+    torch.dot(td.temporal_embedding(torch.as_tensor(weight), x, cur), torch.as_tensor(v)).backward()
+    assert (want != 0.0) == (t < 1.0)
+    np.testing.assert_allclose(float(x.grad), want, rtol=1e-5, atol=0)
+
+
 def test_c2f_num_embeddings_and_anneal_start():
     jcfg = JHidden(min_embeddings=30, max_embeddings=150, c2f_temporal_iter=20000)
     tcfg = DeformHiddenConfig(**dataclasses.asdict(jcfg))

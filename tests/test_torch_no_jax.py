@@ -48,7 +48,8 @@ for name in ("ed3dgs_torch.train.trainer", "ed3dgs_torch.train.optim",
              "ed3dgs_torch.tools.prepare_radegs", "ed3dgs_torch.tools.nersemble_utils",
              "ed3dgs_torch.parallel", "ed3dgs_torch.parallel.mesh",
              "ed3dgs_torch.parallel.comm", "ed3dgs_torch.parallel.multihost",
-             "ed3dgs_torch.parallel.tile_sharded", "ed3dgs_torch.parallel.sharded"):
+             "ed3dgs_torch.parallel.tile_sharded", "ed3dgs_torch.parallel.sharded",
+             "ed3dgs_torch.utils.graphs"):
     assert name in names, name
 print(len(names))
 """

@@ -15,6 +15,7 @@ pairs; the scene's tiles hold far fewer, so the cap does not bind here.
 
 import math
 import os
+import re
 
 import numpy as np
 import pytest
@@ -144,6 +145,25 @@ def test_encode_orders_keys_as_the_coordinates():
     torch.testing.assert_close(ts.decode(keys), ijk)
     lex = np.lexsort(ijk.numpy().T[::-1])
     np.testing.assert_array_equal(np.argsort(keys.numpy(), kind="stable"), lex)
+
+
+def test_encode_at_the_key_range_boundary():
+    """Coordinates up to 2^20 - 1 either way round-trip, in order, with the
+    keys the JAX package's `_encode` gives them; at 2^20 either way (where
+    the JAX encoder's keys collide, as `(0, 2^20, 0)` and `(1, -2^20, 0)`
+    do) the port raises, naming the coordinate."""
+    edge = (1 << 20) - 1
+    ijk = torch.tensor([[-edge, -edge, -edge], [-edge, 0, edge], [0, 0, 0], [0, edge, -edge],
+                        [edge, -edge, 0], [edge, edge, edge]])
+    keys = ts.encode(ijk)
+    torch.testing.assert_close(ts.decode(keys), ijk)
+    assert bool((keys[1:] > keys[:-1]).all())
+    np.testing.assert_array_equal(keys.numpy(), js._encode(ijk.numpy()))
+    for bad in ([0, 1 << 20, 0], [1, -(1 << 20), 0], [0, 0, -(1 << 20)], [1 << 20, 0, 0]):
+        with pytest.raises(ValueError, match=re.escape(str(tuple(bad)))):
+            ts.encode(torch.cat([ijk, torch.tensor([bad])]))
+    assert js._encode(np.array([[0, 1 << 20, 0]]))[0] == js._encode(
+        np.array([[1, -(1 << 20), 0]]))[0]
 
 
 @pytest.fixture(scope="module")

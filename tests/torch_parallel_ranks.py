@@ -270,8 +270,8 @@ def parallel_step_rank(rank, world, problem):
             "ssim", "tv_loss", "depth_normal", "pcd_loss", "tongue_l1", "tongue_emb",
             "tongue_rgb", "wo_tongue_rgb")}
 
-    scan = make_train_step(replace(setup, mesh=mesh, batch_mode="scan"), optimizer)
-    vmap = make_train_step(replace(setup, mesh=mesh, batch_mode="vmap"), optimizer)
+    scan = make_train_step(replace(setup, mesh=mesh, batch_mode="scan"), optimizer, graph=False)
+    vmap = make_train_step(replace(setup, mesh=mesh, batch_mode="vmap"), optimizer, graph=False)
     (sa, aa, ma), (sb, ab, mb) = (f(state_l, aux_l, batch_l, cache) for f in (scan, vmap))
     res["vmap_equals_scan"] = (
         all(torch.equal(x, y) for x, y in zip(sa.params["gaussians"], sb.params["gaussians"]))
