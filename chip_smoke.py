@@ -23,9 +23,16 @@ chunk 128):
 3. drives the training loop of the JAX package's tools/train.py at the
    config's reg_coef (1.0) and knn_coverage_target (0.95): the 3D filter
    from `compute_3d_filter` over the bench camera and four around it;
+   X1 (`ops/knn.py` `knn` on the card, csrc/knn.cu) against `knn_plain` on
+   the refresh's own input (the main graph's 100,352 points, dead slots
+   parked on the far shell, k = 20), distances and indices equal by
+   torch.equal, then on X1_EDGES (ties, distances below zero, N = k + 1,
+   ragged N, k = 1, 3, 20, 31), k = 32 refused; both timed as in 1, with
+   X1's registers, CTAs per SM and bound;
    `refresh_knn_cache` (its wall time, final buckets, overflow, far demand
    and the trainer's coverage measure) and its two halves timed apart (the
-   neighbour search `_cache_inputs`, the graph preparation `_prepare_cache`);
+   neighbour search `_cache_inputs`, the graph preparation `_prepare_cache`),
+   and its cache held tensor for tensor to one built through `knn_plain`;
    `init_train_state` ->
    `make_train_step(..., graph=False)` (the eager step) and
    `make_train_step` (the default: a CUDA graph captured per key and
@@ -39,13 +46,14 @@ chunk 128):
    be bit-identical, each replay runs under sync debug mode "error" and
    every graphed step must launch K1-K7 on the card as an eager step does.
    A replay calls no kernel wrapper, so the graphed paths' launches are
-   counted from a device trace (torch.profiler's CUDA activity, each
-   kernel by its symbol: ops/cuda_lib.py `DeviceLaunches`), and the
-   wrappers count only eager launches (a capture launches nothing); (c)
+   counted on the card by the kernels themselves (each adds one to its
+   wrapper's counter when it runs: csrc/launch_count.cuh, read by
+   ops/cuda_lib.py `DeviceLaunches`), and the wrappers count only eager
+   launches (a capture launches nothing); (c)
    five steps at iteration 20,000 (deformation, coarse-to-fine, SH 3, the
    KNN regulariser and the depth-normal term live; SSIM on two of them),
-   eager, graphed with no tracer for the times, and graphed again under
-   the device trace (the main path), all from the same state (the metrics
+   eager and graphed (the main path, its launches read from the device
+   counters), from the same state (the metrics
    bit-identical). Every count is set to 0 just before each five: K1-K5b
    must have risen by steps x batch, K6 and K7 by exactly one per step, K8
    (no production caller) not at all.
@@ -63,7 +71,8 @@ chunk 128):
    (the unfolded path) and reports the segment_sum stage of each. Then
    `make_densify_step` at the config's gradient threshold (n_cloned,
    n_split, the alive count, its time) or, where nothing reaches it, at the
-   99.9th percentile of the same statistics, the filter and KNN refreshes,
+   99.9th percentile of the same statistics, the filter and KNN refreshes
+   (every count set to 0 before the densify step: X1 must launch once),
    and two more steps eager and graphed from the densified state (copied
    into the graphed step's static buffers with the new KNN cache), counted
    as the five were and bit-identical;
@@ -94,8 +103,9 @@ chunk 128):
    the step and the test render as CUDA graphs; the line gives the
    captures and the ms each iteration's first read of the step's results
    waited); every count is set to 0 just before and K1-K7 must each have
-   launched on the card (device trace, lapped every CLI_LAP steps), K6
-   and K7 once a step. Then it resumes
+   launched on the card (device counters), K6
+   and K7 once a step, X1 once for the initial scales, once for the first
+   KNN refresh and once a densify event. Then it resumes
    from the checkpoint for 20 iterations (the state it loads must equal
    the file's arrays bit for bit) and reloads the saved model through
    `convert.load_model` (its render must equal the in-memory state's bit
@@ -115,8 +125,9 @@ chunk 128):
    test renders, `tools.mesh_extract.main` at timestep 0 (the three train
    views, eight binary steps) and `tools.evaluate_mesh.main` against the
    scene's own point cloud. Every count is set to 0 just before the
-   window: K1 and K5a must have launched on the card (device trace) once
-   per frame and mask rendered, K4 also once per integration. It prints a `serve` JSON line: frames per split, the
+   window: K1 and K5a must have launched on the card (device counters) once
+   per frame and mask rendered, K4 also once per integration, X1 once (the
+   tetra points' outlier filter). It prints a `serve` JSON line: frames per split, the
    tool's FPS, the median render ms (after a synchronise) and PNG-save ms
    a frame, the launches, PSNR/SSIM/LPIPS from results.json, the tetra
    point count, the Delaunay, SDF and whole extraction seconds, the mesh's
@@ -135,8 +146,12 @@ chunk 128):
    done);
 8. the `offline` phase, on the same scene and model:
    `tools.mesh_extract_tsdf.main` at timestep 0 (the three train views),
-   sparse at the default voxel of 0.002 and dense at OFFLINE_DENSE_VOXEL,
-   each view's masked depth and colour fused again on the CPU and compared
+   sparse at the default voxel of 0.002 with its views rendered through
+   `tools.FrameRenderer`'s graph (the default) and dense at
+   OFFLINE_DENSE_VOXEL with them rendered eagerly (`FrameRenderer(graph=
+   False)`, render() op by op): the two runs' masked depths and colours
+   equal bit for bit, their render ms a view printed side by side; each
+   view's masked depth and colour fused again on the CPU and compared
    (block keys and rows, the fields, the (voxel, view) projections the two
    devices put on another pixel, the faces); `tools.gaussians_to_mesh.main`
    at timesteps 0-1 as configured, then at float32 activations on the card
@@ -150,9 +165,10 @@ chunk 128):
    `prepare_colmap.convert_poses_to_colmap_db`, `nersemble_utils
    pose-bounds`, `seg-color`, `render-mesh`) on a 2-camera, 2-timestep
    raw capture of PNG frames it writes. Every count is set to 0 before
-   the TSDF tool and again before the viewer's requests: K1, K4 and K5a
-   must each have launched once per view and (on the card, device trace)
-   per request rendered. It
+   each TSDF run and again before the viewer's requests: K1, K4 and K5a
+   must each have launched once in the graphed TSDF run (its capture's
+   eager run; a replay calls no wrapper), once per view in the eager one
+   and (on the card, device counters) once per request rendered. It
    prints an `offline` JSON line; it fails on a launch count that
    differs, or a comparison past the bounds below;
 9. the `multi` phase (ed3dgs_torch/parallel/): two ranks that share
@@ -179,13 +195,15 @@ to DIR/chip_smoke.json (default smoke_out/ in the checkout), with the
 profiles and nvcc's register report beside it. The last seven lines of
 standard output are the `cli`, `serve`, `offline` and `multi` JSON lines,
 the card as nvidia-smi names it, the kernels' JSON line and the result
-line. Any failure exits non-zero before the result line.
+line. The kernels line lists K1-K8 and X1; X1's launches are those of the
+densify step and refreshes in 3 (its own path: the search runs at a
+refresh, not in a step), and it also carries its `cli` and `serve` counts.
+Any failure exits non-zero before the result line.
 Needs one CUDA device; refuses to run without one.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import math
@@ -252,6 +270,15 @@ BF16_ATOL, BF16_MAX_DIFFERING = 1e-6, 1e-3
 # K3 (and K8, the same kernel) against its plain version: both round a
 # float64-exact sum once.
 K2_REL, K3_REL = 1e-4, 1e-6
+# X1 (the k-NN) against knn_plain: distances and indices equal by
+# torch.equal, no tolerance (both round every operation once in float32 and
+# order by the same integer key), on the refresh's input and on X1_EDGES:
+# (cloud, N, k) with ties, distances below zero, N = k + 1, N not a multiple
+# of the CTA's 256 rows, and k = 1, 3, 20, 31; k = X1_REFUSED must raise.
+X1_EDGES = (("duplicated", 1200, 20), ("cancelling", 600, 20), ("uniform", 21, 20),
+            ("uniform", 1000, 3), ("uniform", 500, 1), ("uniform", 1000, 31))
+X1_REFUSED = 32
+X1_OPS_PER_PAIR = 7          # three for the cross term, add, double, subtract, compare
 # K6 -> K7 against the plain chain: the kernel reduces d2 by a shuffle
 # butterfly and the loss by CTA partials, torch.sum in another order; every
 # other operation is the same. The loss within KNN_LOSS_REL, every row of
@@ -283,7 +310,6 @@ CLI_SET = ["deform_from_iter=50", "densify_from_iter=100", "densify_until_iter=2
            "densification_interval=50", "radegs_regularization_from_iter=0",
            "min_embeddings=4", "max_embeddings=8"]
 CLI_WINDOW = 100             # iterations a loss / PSNR window averages
-CLI_LAP = 25                 # steps between two laps of the cli phase's device trace
 # The serve phase: the tools on the cli phase's model. The train (24 views)
 # and video splits are cut to SERVE_FRAMES frames; the test split has 8.
 SERVE_FRAMES = 16
@@ -358,6 +384,9 @@ KERNELS = {
     "K8": dict(name="segment_sum_rows_packed", route="cuda",
                source="ed3dgs_torch/csrc/segment_sum.cu",
                replaces="ed3dgs_tpu/ops/segment_sum.py:228"),
+    # no pallas_call: the counterpart of the jitted XLA function knn
+    "X1": dict(name="knn", route="cuda", source="ed3dgs_torch/csrc/knn.cu",
+               replaces="ed3dgs_tpu/ops/knn.py:39"),
 }
 
 
@@ -397,6 +426,53 @@ def bench_cloud(n: int, seed: int = 0) -> dict:
         "tongue_class": np.zeros((n, 1)),
     }
     return {k: np.asarray(v, np.float32) for k, v in fields.items()}
+
+
+def x1_cloud(kind: str, n: int, seed: int = 0) -> np.ndarray:
+    """An X1 edge case's cloud: uniform in a box around z = 2; n // 3 points
+    three times over, shuffled (ties at distance 0); or within ~1e-3 of (60,
+    -40, 90), where |a|^2 + |b|^2 - 2ab cancels to rounding noise, often
+    below zero."""
+    rng = np.random.default_rng(seed)
+    if kind == "cancelling":
+        return (np.float32([60.0, -40.0, 90.0])
+                + rng.uniform(-1e-3, 1e-3, (n, 3)).astype(np.float32))
+    m = n // 3 if kind == "duplicated" else n
+    pts = (rng.uniform(-1, 1, (m, 3)) * [1.0, 0.7, 1.5] + [0, 0, 2]).astype(np.float32)
+    return pts[rng.permutation(np.repeat(np.arange(m), 3))] if kind == "duplicated" else pts
+
+
+def x1_against_plain(torch, pts, k: int) -> tuple:
+    """X1 (`knn` on the card) and `knn_plain` on the same points: (equal by
+    torch.equal, distances and indices; largest |d2 difference| where the
+    indices agree, else inf)."""
+    from ed3dgs_torch.ops import knn
+    d2, idx = knn.knn(pts, k=k)
+    pd2, pidx = knn.knn_plain(pts, k=k)
+    same_idx = torch.equal(idx, pidx)
+    same = same_idx and torch.equal(d2.view(torch.int32), pd2.view(torch.int32))
+    err = float((d2 - pd2).abs().max()) if same_idx else float("inf")
+    return same, err
+
+
+def caches_equal(torch, a, b) -> list:
+    """The fields (path names) in which two KNN caches differ, tensor for
+    tensor (dtype, shape and every bit)."""
+    differ = []
+    for gname in a._fields:
+        ga, gb = getattr(a, gname), getattr(b, gname)
+        for f in ga._fields:
+            x, y = getattr(ga, f), getattr(gb, f)
+            if isinstance(x, torch.Tensor):
+                same = (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                        and x.shape == y.shape
+                        and torch.equal(x.reshape(-1).view(torch.uint8),
+                                        y.reshape(-1).view(torch.uint8)))
+            else:
+                same = x == y
+            if not same:
+                differ.append(f"{gname}.{f}")
+    return differ
 
 
 def bench_camera(width: int, height: int, eye=(0.0, 0.0, 0.0)):
@@ -483,40 +559,22 @@ def recorder(seen, module, attr, key):
     return lambda: setattr(module, attr, orig)
 
 
-# each counter's kernel wrapper, as ops/cuda_lib.py KERNEL_SYMBOLS names it
+# each counter's kernel wrapper, as ops/cuda_lib.py LAUNCH_SLOTS names it
 WRAPPER_OF = {"K1": "rasterize_cuda.rasterize_forward", "K2": "rasterize_cuda.rasterize_backward",
               "K3": "segment_sum.segment_sum_rows", "K4": "binning_scan.fused_bin_scans",
               "K5a": "relayout.unpack_image", "K5b": "relayout.pack_image",
               "K6": "knn_loss.knn_rows", "K7": "knn_loss.knn_reverse",
-              "K8": "segment_sum.segment_sum_rows_packed"}
+              "K8": "segment_sum.segment_sum_rows_packed", "X1": "knn.knn"}
 
 
-def traced_launches(trace, keys) -> dict:
+def card_launches(trace, keys) -> dict:
     """{K: launches that ran on the card} from a closed
-    cuda_lib.DeviceLaunches trace (a replayed graph calls no wrapper, so
-    only the trace sees its kernels); fails where the trace holds no kernel
-    at all, since then nothing was measured."""
-    if trace.kernels == 0:
-        fail("the device trace holds no kernel: launches on the card were not measured")
+    cuda_lib.DeviceLaunches window (a replayed graph calls no wrapper, so
+    only the kernels' own counters see its launches); fails where no device
+    had counters, since then nothing was measured."""
+    if not trace.armed:
+        fail("no launch counters on the card: launches were not measured")
     return {k: trace.counts[WRAPPER_OF[k]] for k in keys}
-
-
-class LappedStep:
-    """A train step that laps `trace` every CLI_LAP calls (the long cli run
-    stays within the tracer's buffers); the step's attributes show through."""
-
-    def __init__(self, step, trace, calls):
-        self.step, self.trace, self.calls = step, trace, calls
-
-    def __getattr__(self, name):
-        return getattr(self.step, name)
-
-    def __call__(self, *args):
-        out = self.step(*args)
-        self.calls[0] += 1
-        if self.calls[0] % CLI_LAP == 0:
-            self.trace.lap()
-        return out
 
 
 def profile_window(torch, fn, out_path):
@@ -624,26 +682,19 @@ def cli_phase(torch, counters, bare_step_ms, tmp):
             "--configs", os.path.join(REPO, "configs", "nersemble", "default.py"),
             "--duration", str(CLI_FRAMES), "--test_every", str(CLI_TEST_EVERY),
             "--quiet", "--seed", "0", "--device", DEVICE]
-    # the run's launches on the card from a device trace (the tool replays
-    # graphs, which call no wrapper), lapped every CLI_LAP steps
-    keys = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7")
-    make_step, calls = trainer.make_train_step, [0]
+    # the run's launches on the card from the device counters (the tool
+    # replays graphs, which call no wrapper)
+    keys = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "X1")
     for fn in counters.values():
         fn.launches = 0
-    trace = cuda_lib.DeviceLaunches()
-    trainer.make_train_step = lambda *a, **k: LappedStep(make_step(*a, **k), trace, calls)
-    try:
-        t0 = time.perf_counter()
-        with trace:
-            scene, state, aux, log = train_tool.main(
-                argv + ["--iterations", str(CLI_ITERS), "--checkpoint_iterations",
-                        str(CLI_CKPT), "--set", *CLI_SET])
-        out["train_s"] = time.perf_counter() - t0
-    finally:
-        trainer.make_train_step = make_step
-    launches = traced_launches(trace, keys)
+    t0 = time.perf_counter()
+    with cuda_lib.DeviceLaunches() as trace:
+        scene, state, aux, log = train_tool.main(
+            argv + ["--iterations", str(CLI_ITERS), "--checkpoint_iterations",
+                    str(CLI_CKPT), "--set", *CLI_SET])
+    out["train_s"] = time.perf_counter() - t0
+    launches = card_launches(trace, keys)
     wrapped = {k: counters[k].launches for k in keys}
-    out["trace_kernels"] = trace.kernels
 
     # resume from the checkpoint: the state it loads is the file's
     ckpt = os.path.join(model_dir, f"chkpnt{CLI_CKPT}.npz")
@@ -724,18 +775,22 @@ def cli_phase(torch, counters, bare_step_ms, tmp):
         resume_loss_last=float(rlog["loss"][-1]) if rlog["loss"] else None,
         graph_captures=log["graph_captures"],
         resume_same=bool(resume_same), reload_render_identical=bool(reload_same),
-        launches=launches, wrapper_counts=wrapped, trace_laps=calls[0] // CLI_LAP,
+        launches=launches, wrapper_counts=wrapped,
         scene_dir=scene_dir, model_dir=model_dir, argv=argv)
     print("cli: " + ", ".join(f"{k}={v}" for k, v in out.items()
                               if k not in ("densify", "argv")), flush=True)
     bad = [k for k, v in launches.items() if v == 0]
     if bad:
         fail(f"cli: kernels {bad} did not launch during the phase")
-    # one KNN loss and B cameras' gradient kernels a step: a trace that
-    # dropped events would break these
+    # one KNN loss and B cameras' gradient kernels a step
     if not (launches["K6"] == launches["K7"] == n and launches["K2"] % n == 0
             and launches["K2"] == launches["K3"] == launches["K5b"]):
-        fail(f"cli: {n} steps launched {launches} on the card (device trace)")
+        fail(f"cli: {n} steps launched {launches} on the card (device counters)")
+    # X1: the initial scales (create_from_points' 3-NN), the first KNN
+    # refresh and one refresh a densify event
+    if launches["X1"] != 2 + len(log["densify"]):
+        fail(f"cli: X1 launched {launches['X1']} times, not once for the initial scales, the "
+             f"first refresh and each of {len(log['densify'])} densify events")
     if not all(math.isfinite(x) for x in log["loss"] + rlog["loss"]):
         fail("cli: a loss is not finite")
     if not out["psnr_last"] > out["psnr_first"]:
@@ -777,9 +832,9 @@ def serve_phase(torch, counters, cli):
             "--duration", str(CLI_FRAMES), "--iteration", str(CLI_ITERS), "--device", DEVICE]
     sets = ["--set", *CLI_SET]
     out = {}
-    # the render tool for its times, with no tracer; then again inside the
-    # window whose launches on the card a device trace counts (the tool
-    # replays a graph per frame, which calls no wrapper)
+    # the render tool for its times; then again inside the window whose
+    # launches on the card the device counters count (the tool replays a
+    # graph per frame, which calls no wrapper)
     t0 = time.perf_counter()
     stats = render_tool.main(argv + ["--max_frames", str(SERVE_FRAMES)] + sets)
     out["render_s"] = time.perf_counter() - t0
@@ -793,7 +848,7 @@ def serve_phase(torch, counters, cli):
         fn.launches = 0
     trace = cuda_lib.DeviceLaunches().__enter__()
     stats = render_tool.main(argv + ["--max_frames", str(SERVE_FRAMES)] + sets)
-    out["render_ms_median_traced"] = float(np.median(
+    out["render_ms_median_counted"] = float(np.median(
         [ms for v in stats.values() for ms in v["render_ms"]]))
     if {k: v["frames"] for k, v in stats.items()} != frames:
         fail("serve: the traced render run rendered other frames")
@@ -817,11 +872,13 @@ def serve_phase(torch, counters, cli):
                extract_s=mstats["total_s"], vertices=n_verts, faces=n_faces,
                sdf_evaluations=mstats["sdf_evaluations"], masks=masks)
     trace.__exit__(None, None, None)
-    launches = traced_launches(trace, ("K1", "K4", "K5a"))
+    launches = card_launches(trace, ("K1", "K4", "K5a", "X1"))
     n_frames = sum(frames.values())
-    expected = {"K1": n_frames + masks, "K4": n_frames + 2 * masks, "K5a": n_frames + masks}
+    # X1 once: the tetra points' outlier filter at the one timestep
+    expected = {"K1": n_frames + masks, "K4": n_frames + 2 * masks, "K5a": n_frames + masks,
+                "X1": 1}
     out.update(launches=launches, expected_launches=expected,
-               wrapper_counts={k: counters[k].launches for k in ("K1", "K4", "K5a")})
+               wrapper_counts={k: counters[k].launches for k in ("K1", "K4", "K5a", "X1")})
 
     verts, faces = read_mesh_ply(os.path.join(model_dir, "meshes", "00000", "recon.ply"))
     gt_dir = os.path.join(os.path.dirname(model_dir), "gt")
@@ -989,6 +1046,7 @@ def offline_phase(torch, counters, cli):
     comparison past its bound."""
     import argparse
     import contextlib
+    import functools
     import io
     import sqlite3
     import threading
@@ -1000,11 +1058,10 @@ def offline_phase(torch, counters, cli):
     from ed3dgs_torch.mesh.tsdf_sparse import fuse_volume_sparse
     from ed3dgs_torch.ops import cuda_lib
     from ed3dgs_torch.ops.rasterize import RasterConfig
-    from ed3dgs_torch.render import RenderSettings
     from ed3dgs_torch.render.network_gui import ViewerServer
-    from ed3dgs_torch.tools import (add_model_flags, gaussians_to_mesh, load_trained,
-                                    mesh_extract_tsdf, mesh_video, nersemble_utils,
-                                    prepare_colmap, prepare_data, render_eval, viewer)
+    from ed3dgs_torch.tools import (FrameRenderer, add_model_flags, gaussians_to_mesh,
+                                    load_trained, mesh_extract_tsdf, mesh_video,
+                                    nersemble_utils, prepare_colmap, prepare_data, viewer)
 
     t_phase = time.perf_counter()
     scene_dir, model_dir = cli["scene_dir"], cli["model_dir"]
@@ -1020,20 +1077,44 @@ def offline_phase(torch, counters, cli):
     for fn in counters.values():
         fn.launches = 0
 
-    # ---- TSDF: the tool on the card, then the same inputs fused on the CPU
+    # ---- TSDF: the tool on the card, its views rendered through
+    # FrameRenderer's graph (sparse); then again with the views rendered
+    # eagerly, render() op by op as the tool did before (dense): the same
+    # views' masked depths and colours must be equal bit for bit. Then the
+    # same inputs fused on the CPU
     t0 = time.perf_counter()
     sp = mesh_extract_tsdf.main(argv(DEVICE, "--engine", "sparse"))
     out["tsdf_s"] = time.perf_counter() - t0
-    dn = mesh_extract_tsdf.main(argv(DEVICE, "--engine", "dense", "--voxel_size",
-                                     str(OFFLINE_DENSE_VOXEL)))
     sync()
-    views = sp["views"] + dn["views"]
-    tsdf_launches = {k: counters[k].launches for k in ("K1", "K4", "K5a")}
+    graphed_counts = {k: counters[k].launches for k in ("K1", "K4", "K5a")}
+    for fn in counters.values():
+        fn.launches = 0
+    mesh_extract_tsdf.FrameRenderer = functools.partial(FrameRenderer, graph=False)
+    try:
+        dn = mesh_extract_tsdf.main(argv(DEVICE, "--engine", "dense", "--voxel_size",
+                                         str(OFFLINE_DENSE_VOXEL)))
+    finally:
+        mesh_extract_tsdf.FrameRenderer = FrameRenderer
+    sync()
+    eager_counts = {k: counters[k].launches for k in ("K1", "K4", "K5a")}
+    # the graphed run's wrappers count its key's first, eager run (a replay
+    # calls none): the replays' own work shows in the views it returns
+    views_equal = (sp["views"] == dn["views"] and all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for xs, ys in zip(sp["inputs"][:2], dn["inputs"][:2]) for a, b in zip(xs, ys)))
     print(f"offline: TSDF on the card: sparse {sp['blocks']} blocks, {sp['faces']} faces, "
           f"fuse {sp['fuse_s']:.2f} s, extract {sp['extract_s']:.2f} s; dense "
-          f"{dn['voxels']} voxels", flush=True)
-    if tsdf_launches != {k: views for k in tsdf_launches}:
-        bad.append(f"TSDF launches {tsdf_launches}, {views} views rendered")
+          f"{dn['voxels']} voxels, {dn['faces']} faces; render ms a view graphed "
+          f"{[round(x, 3) for x in sp['render_ms']]} (the first captures), eager "
+          f"{[round(x, 3) for x in dn['render_ms']]}; graphed views' masked depths and colours "
+          f"equal to the eager ones bit for bit={views_equal}; wrapper counts graphed "
+          f"{graphed_counts}, eager {eager_counts}", flush=True)
+    if not views_equal:
+        bad.append("TSDF: the graphed views' depths or colours differ from the eager ones")
+    if graphed_counts != {k: 1 for k in graphed_counts} or \
+            eager_counts != {k: dn["views"] for k in eager_counts}:
+        bad.append(f"TSDF launches: graphed run {graphed_counts} (want 1 each: the capture's "
+                   f"eager run), eager run {eager_counts} ({dn['views']} views)")
 
     def to_cpu(inputs):
         depths, colors, wvs, focals = inputs
@@ -1076,7 +1157,10 @@ def offline_phase(torch, counters, cli):
                   if dvol.dims == dn["volume"].dims else float("inf"))
     dense_faces_equal = bool(np.array_equal(dn["mesh"][1], df))
     out["tsdf"] = dict(
-        views=sp["views"], render_ms_per_view=float(np.median(sp["render_ms"] + dn["render_ms"])),
+        views=sp["views"], render_ms_per_view=float(np.median(sp["render_ms"])),
+        eager_render_ms_per_view=float(np.median(dn["render_ms"])),
+        render_ms=sp["render_ms"], eager_render_ms=dn["render_ms"],
+        graphed_equals_eager=bool(views_equal),
         fuse_s=sp["fuse_s"], extract_s=sp["extract_s"], cpu_fuse_s=cpu_fuse_s,
         blocks=sp["blocks"], voxels=sp["voxels"], vertices=sp["vertices"], faces=sp["faces"],
         same_blocks=bool(same_blocks), moved_projections=moved, projections=projections,
@@ -1085,7 +1169,7 @@ def offline_phase(torch, counters, cli):
                    vertices=dn["vertices"], faces=dn["faces"], fuse_s=dn["fuse_s"],
                    extract_s=dn["extract_s"], field_max_diff=dense_diff,
                    faces_equal=dense_faces_equal),
-        launches=tsdf_launches)
+        wrapper_counts=dict(graphed=graphed_counts, eager=eager_counts))
     if not same_blocks:
         bad.append("TSDF: the card's blocks differ from the CPU's (keys or row order)")
     elif moved > TSDF_MAX_MOVED * projections:
@@ -1155,8 +1239,8 @@ def offline_phase(torch, counters, cli):
     port = server.listener.getsockname()[1]
     for fn in counters.values():
         fn.launches = 0
-    # the requests' launches on the card from a device trace: the handler
-    # replays a graph per size, which calls no wrapper
+    # the requests' launches on the card from the device counters: the
+    # handler replays a graph per size, which calls no wrapper
     trace = cuda_lib.DeviceLaunches().__enter__()
     thread = threading.Thread(target=server.serve_forever, args=(handle,),
                               kwargs={"verify": "offline", "max_requests": len(msgs)},
@@ -1187,21 +1271,21 @@ def offline_phase(torch, counters, cli):
         thread.join(timeout=120)
         server.close()
         trace.__exit__(None, None, None)
-    viewer_launches = traced_launches(trace, ("K1", "K4", "K5a"))
+    viewer_launches = card_launches(trace, ("K1", "K4", "K5a"))
     rendered = len(VIEWER_SIZES)
     if viewer_launches != {k: rendered for k in viewer_launches}:
         bad.append(f"viewer launches {viewer_launches}, {rendered} requests rendered")
-    f32t = dict(dtype=torch.float32, device=DEVICE)
+    eager = FrameRenderer(cfg.hidden, torch.ones(3, dtype=torch.float32, device=DEVICE),
+                          sh_degree=cfg.model.sh_degree, kernel_size=cfg.model.kernel_size,
+                          disable_filter3d=cfg.model.disable_filter3D,
+                          num_down_emb=cfg.hidden.min_embeddings, graph=False)
     equal = []
     for (w, h), (img, verify) in zip(VIEWER_SIZES, replies):
         rcfg = RasterConfig(width=w, height=h, focal_x=w / (2 * np.tan(cam.fovx / 2)),
                             focal_y=h / (2 * np.tan(cam.fovy / 2)),
                             pair_capacity=cfg.opt.pair_capacity, chunk=cfg.opt.raster_chunk)
-        s = RenderSettings(torch.as_tensor(m.world_view, **f32t),
-                           torch.as_tensor(m.full_proj, **f32t),
-                           torch.as_tensor(np.linalg.inv(m.world_view)[:3, 3], **f32t),
-                           torch.tensor(0.0, **f32t), None)
-        want = render_eval(cfg, scene, dparams, s, rcfg, torch.ones(3, **f32t))["render"]
+        want = eager("check", (scene.params, scene.aux, dparams), rcfg, m.world_view,
+                     m.full_proj, np.linalg.inv(m.world_view)[:3, 3], 0.0)["render"]
         want = (torch.clamp(want, 0, 1).permute(1, 2, 0) * 255).to(torch.uint8)
         equal.append(img == want.cpu().numpy().tobytes() and verify == b"offline")
     empty_ok = len(replies) == len(msgs) and replies[-1] == (b"", b"offline")
@@ -1623,8 +1707,8 @@ def graph_against_eager(torch, eager, step, state, aux, cache, cam, B, setup, co
     term through 3 after, SSIM on and off: after every step every metric,
     parameter, Adam moment and aux statistic must be bit-identical, every
     replay must run under sync debug mode "error", and every graphed step
-    must launch K1-K7 on the card as often as an eager step (counted from a
-    device trace), while the wrappers count only a key's first, eager run
+    must launch K1-K7 on the card as often as an eager step (the device
+    counters), while the wrappers count only a key's first, eager run
     (a replay calls none, a capture launches nothing). Returns the numbers
     it printed."""
     from ed3dgs_torch.ops import cuda_lib
@@ -1645,7 +1729,7 @@ def graph_against_eager(torch, eager, step, state, aux, cache, cam, B, setup, co
                 g_state, g_aux, gm = step(g_state, g_aux, b, cache)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-        launches = traced_launches(trace, counters)
+        launches = card_launches(trace, counters)
         wrapped = {k: fn.launches for k, fn in counters.items()}
         want, got = state_tensors(e_state, e_aux, em), state_tensors(g_state, g_aux, gm)
         differ = [k for k in want if not (want[k].dtype == got[k].dtype
@@ -1654,7 +1738,7 @@ def graph_against_eager(torch, eager, step, state, aux, cache, cam, B, setup, co
         print(f"graphed against eager, iteration {it} SSIM {ssim} depth-normal "
               f"{it >= setup.radegs_from_iter}: {'replay' if replay else 'capture'}, "
               f"{len(want)} tensors, differing {len(differ)} {differ[:6]}, launches on "
-              f"the card (device trace) {launches}, counted by the wrappers {wrapped}",
+              f"the card (device counters) {launches}, counted by the wrappers {wrapped}",
               flush=True)
         out["steps"].append(dict(iteration=it, ssim=ssim, replay=replay, differing=differ,
                                  launches=launches, wrapper_counts=wrapped,
@@ -1678,8 +1762,8 @@ def frame_against_eager(torch, params, aux, dparams, hidden, model, rcfg, bg, ca
     """tools.FrameRenderer's graph against render() op by op on the bench
     frame at FRAME_TIMES: every output bit-identical; both timed by CUDA
     events (FRAME_REPS frames each, after one of each). Each graphed frame
-    of the comparison must launch K1, K4 and K5a once on the card (counted
-    from a device trace)."""
+    of the comparison must launch K1, K4 and K5a once on the card (the
+    device counters)."""
     from ed3dgs_torch.ops import cuda_lib
     from ed3dgs_torch.tools import FRAME_OUTPUTS, FrameRenderer
     kw = dict(sh_degree=model.sh_degree, kernel_size=model.kernel_size,
@@ -1695,7 +1779,7 @@ def frame_against_eager(torch, params, aux, dparams, hidden, model, rcfg, bg, ca
         want = frame(eager, t)
         with cuda_lib.DeviceLaunches() as trace:
             got = frame(graphed, t)
-        launches.append(traced_launches(trace, ("K1", "K4", "K5a")))
+        launches.append(card_launches(trace, ("K1", "K4", "K5a")))
         differ += [(t, k) for k in FRAME_OUTPUTS if not torch.equal(want[k], got[k])]
     times = {}
     for name, fr in (("eager", eager), ("graphed", graphed)):
@@ -1759,8 +1843,9 @@ def main():
     from ed3dgs_torch.convert import gaussians_from_numpy
     from ed3dgs_torch.models.deformation import deform_forward, init_deform_params
     from ed3dgs_torch.models.gaussians import compute_3d_filter, create_from_points, get_features
-    from ed3dgs_torch.ops import (binning, binning_scan, cuda_lib, knn_loss, rasterize,
+    from ed3dgs_torch.ops import (binning, binning_scan, cuda_lib, knn, knn_loss, rasterize,
                                   rasterize_cuda, relayout, segment_sum)
+    from ed3dgs_torch.train import trainer as trainer_mod
     from ed3dgs_torch.render import raster_config_from_camera, render, settings_from_camera
     from ed3dgs_torch.train.trainer import (KNN_CAPS_DEFAULT, KNN_K, _cache_inputs,
                                             _prepare_cache, init_train_state,
@@ -2014,7 +2099,71 @@ def main():
           f"wall, filter {float(f3d.min()):.3e}..{float(f3d.max()):.3e}", flush=True)
     if not bool(torch.isfinite(aux.filter_3d).all()) or float(f3d.min()) <= 0:
         fail("compute_3d_filter gave non-finite or non-positive scales")
+
+    # X1 on the refresh's own input (the main graph's points, dead slots
+    # parked on the far shell, as _cache_inputs hands them to the search)
+    # against knn_plain, then on the edge cases
+    seen = {}
+    restore = recorder(seen, trainer_mod, "knn_op", "X1")
+    try:
+        _cache_inputs(params, aux, False, KNN_K)
+    finally:
+        restore()
+    (x1_pts,), x1_kw = seen["X1"]
+    x1_k = x1_kw["k"]
+    same_x1, err_x1 = x1_against_plain(torch, x1_pts, x1_k)
+    n_x1 = x1_pts.shape[0]
+    print(f"X1 knn on the refresh's input: {tuple(x1_pts.shape)} k={x1_k} "
+          f"(far shell: {n_x1 - int(aux.alive.sum())} rows); equal to knn_plain by "
+          f"torch.equal (distances and indices)={same_x1}, max_abs_err={err_x1}", flush=True)
+    if not same_x1:
+        fail("X1 disagrees with knn_plain on the refresh's input")
+    edges_x1 = []
+    for kind, n, k_e in X1_EDGES:
+        same, err = x1_against_plain(torch, torch.as_tensor(x1_cloud(kind, n), device=DEVICE),
+                                        k_e)
+        edges_x1.append(dict(cloud=kind, n=n, k=k_e, equal=same))
+        if not same:
+            fail(f"X1 disagrees with knn_plain on the {kind} cloud, N={n}, k={k_e} "
+                 f"(max_abs_err {err})")
+    refused = None
+    try:
+        knn.knn(x1_pts[:100], k=X1_REFUSED)
+    except ValueError as e:
+        refused = str(e)
+    if refused is None:
+        fail(f"X1 took k={X1_REFUSED} (k + 1 > {knn.MAX_K1})")
+    print(f"  X1 edge cases equal to knn_plain: "
+          f"{[(e['cloud'], e['n'], e['k']) for e in edges_x1]}; k={X1_REFUSED} raises: "
+          f"{refused}", flush=True)
+    ms_x1 = time_ms(torch, lambda: knn.knn(x1_pts, k=x1_k), 10, flush)
+    plain_x1 = time_ms(torch, lambda: knn.knn_plain(x1_pts, k=x1_k), 2, flush)
+    # reads the points once, writes the k nearest's distances and indices;
+    # N^2 pairs of X1_OPS_PER_PAIR fp32 operations
+    b_x1, by_x1 = bound(n_x1 * 3 * 4 + n_x1 * x1_k * (4 + 8), n_x1 * n_x1 * X1_OPS_PER_PAIR)
+    info_x1 = knn.kernel_info(x1_k)
+    print(f"  X1 {ms_x1:.4f} ms (bound {b_x1:.4f} ms, {by_x1}), knn_plain {plain_x1:.1f} ms; "
+          f"{info_x1}", flush=True)
+    rows["X1"] = dict(KERNELS["X1"], max_abs_err=err_x1, ms=ms_x1, plain_ms=plain_x1,
+                      bound_ms=b_x1, bound_by=by_x1, library_ms=None, n=n_x1, k=x1_k,
+                      edge_cases=edges_x1, **info_x1)
+    del seen
+
     knn_cache, knn_info = refresh_knn(params, aux)
+    # the cache built through X1 against one built through knn_plain at the
+    # buckets the refresh settled on, tensor for tensor
+    trainer_mod.knn_op = knn.knn_plain
+    try:
+        plain_inputs = _cache_inputs(params, aux, False, KNN_K)
+    finally:
+        trainer_mod.knn_op = knn.knn
+    differ = caches_equal(torch, knn_cache, _prepare_cache(
+        plain_inputs, knn_caps["spill_a"], knn_caps["spill_b"], knn_caps["far"]))
+    print(f"  the KNN cache through X1 against one through knn_plain: differing fields "
+          f"{differ}", flush=True)
+    if differ:
+        fail(f"the KNN cache built through X1 differs from knn_plain's: {differ}")
+    del plain_inputs
     # the refresh's two halves, each ending in a synchronise: the neighbour
     # search (knn_op, inside _cache_inputs) and the graph preparation at the
     # buckets the refresh settled on
@@ -2065,9 +2214,10 @@ def main():
                 "K3": segment_sum.segment_sum_rows, "K4": binning_scan.fused_bin_scans,
                 "K5a": relayout.unpack_image, "K5b": relayout.pack_image,
                 "K6": knn_loss.knn_rows, "K7": knn_loss.knn_reverse,
-                "K8": segment_sum.segment_sum_rows_packed}
+                "K8": segment_sum.segment_sum_rows_packed, "X1": knn.knn}
     # launches per step: one per camera of the blend path, one KNN loss
-    # (the tongue graph is off), none of K8 (no production caller)
+    # (the tongue graph is off), none of K8 (no production caller) and none
+    # of X1 (the search runs at a refresh, between steps)
     per_step = {k: (B if k in ("K1", "K2", "K3", "K4", "K5a", "K5b") else
                     1 if k in ("K6", "K7") else 0) for k in counters}
 
@@ -2091,14 +2241,12 @@ def main():
         """The steps of `batches` with every count set to 0 just before;
         fails unless each kernel rose by its per-step launches, as its
         wrapper counts them (count="wrappers": the eager step, whose every
-        call launches) or as a device trace sees them on the card
-        (count="trace": the graphed step, whose replays call no wrapper);
-        count=None checks none (a run for its times, with no tracer)."""
+        call launches) or as the device counters see them on the card
+        (count="device": the graphed step, whose replays call no wrapper)."""
         for fn in counters.values():
             fn.launches = 0
         out, events, enqueue_ms, mallocs = [], [], [], []
-        trace = cuda_lib.DeviceLaunches() if count == "trace" else contextlib.nullcontext()
-        trace.__enter__()
+        trace = cuda_lib.DeviceLaunches().__enter__()
         t_host = time.perf_counter()
         for b in batches:
             start = torch.cuda.Event(enable_timing=True)
@@ -2116,12 +2264,11 @@ def main():
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t_host) * 1e3 / len(batches)
         trace.__exit__(None, None, None)
-        launches = (traced_launches(trace, counters) if count == "trace" else
-                    {k: fn.launches for k, fn in counters.items()} if count else None)
-        print(f"train path, {what}: {len(batches)} steps: launches "
-              f"{launches if count else 'not counted'}"
-              + (" (device trace)" if count == "trace" else ""), flush=True)
-        for k, n in (launches or {}).items():
+        launches = (card_launches(trace, counters) if count == "device" else
+                    {k: fn.launches for k, fn in counters.items()})
+        print(f"train path, {what}: {len(batches)} steps: launches {launches}"
+              + (" (device counters)" if count == "device" else ""), flush=True)
+        for k, n in launches.items():
             if n != per_step[k] * len(batches):
                 fail(f"{k} launched {n} times in {len(batches)} steps of batch {B} ({what})")
         for i, m in enumerate(out):
@@ -2140,24 +2287,18 @@ def main():
               + f"; new device allocations (cudaMalloc) in each step {mallocs}", flush=True)
         return state, taux, out, step_ms, host_ms, launches, enqueue_ms
 
-    # (c) the same five steps from one state: eager, graphed for the times
-    # (no tracer), then graphed under the device trace that counts its
-    # launches (the main path: the default the tools run)
+    # (c) the same five steps from one state: eager, then graphed (the main
+    # path: the default the tools run)
     start_state, start_aux = state, taux
     _, _, losses_e, step_ms_e, host_ms_e, _, enqueue_e = run_steps(
         eager, start_state, start_aux, batches, "eager, after the first refresh")
-    _, _, losses_u, step_ms, step_host_ms, _, enqueue_g = run_steps(
-        step, start_state, start_aux, batches, "graphed, after the first refresh, for the times",
-        count=None)
-    state, taux, losses, step_ms_traced, _, train_launches, _ = run_steps(
+    state, taux, losses, step_ms, step_host_ms, train_launches, enqueue_g = run_steps(
         step, start_state, start_aux, batches, "graphed, after the first refresh (main path)",
-        count="trace")
-    same5 = all(torch.equal(a[k], b[k]) and torch.equal(a[k], c[k])
-                for a, b, c in zip(losses_e, losses_u, losses) for k in a)
+        count="device")
+    same5 = all(torch.equal(a[k], b[k]) for a, b in zip(losses_e, losses) for k in a)
     print(f"  five steps eager against graphed: every metric bit-identical={same5}; median "
           f"ms by events eager {float(np.median(step_ms_e)):.3f}, graphed "
-          f"{float(np.median(step_ms)):.3f} (under the device trace "
-          f"{float(np.median(step_ms_traced)):.3f}); host ms to return eager "
+          f"{float(np.median(step_ms)):.3f}; host ms to return eager "
           f"{float(np.median(enqueue_e)):.3f}, graphed {float(np.median(enqueue_g)):.3f}",
           flush=True)
     if not same5:
@@ -2186,7 +2327,7 @@ def main():
     print(f"  captures of the train step: {len(caps)} keys, seconds each "
           f"{[round(c[1], 3) for c in caps]}, pool bytes {step.graphs.pool_bytes} "
           f"(each: {[c[2] for c in caps]})", flush=True)
-    result.update(train_step_ms=step_ms, train_step_ms_traced=step_ms_traced,
+    result.update(train_step_ms=step_ms,
                   train_host_ms_per_step=step_host_ms,
                   train_step_ms_eager=step_ms_e, train_host_ms_per_step_eager=host_ms_e,
                   train_enqueue_ms_graphed=enqueue_g, train_enqueue_ms_eager=enqueue_e,
@@ -2195,7 +2336,7 @@ def main():
                   emb_losses=[float(m["emb_loss"]) for m in losses],
                   train_captures=dict(keys=len(caps), seconds=[c[1] for c in caps],
                                       pool_bytes=step.graphs.pool_bytes))
-    del losses, losses_e, losses_u, batches
+    del losses, losses_e, batches
 
     # (d) the frame: FrameRenderer's graph against render() op by op
     result["frame_graph"] = frame_against_eager(torch, params, aux, dparams, hidden, model,
@@ -2252,6 +2393,10 @@ def main():
           f"{float(mean_grad.max()):.3e}; {int((mean_grad >= thr).sum())} at or above the "
           f"config's threshold {thr}; {CAPACITY - n_before} free slots", flush=True)
     densified = []
+    # the densification cadence's launches: every count set to 0 here, read
+    # after the KNN refresh (X1 once: one search, the tongue graph is off)
+    for fn in counters.values():
+        fn.launches = 0
     # the config's threshold; if that finds nothing hot (random targets give
     # small screen-space gradients), the 99.9th percentile of the same
     # statistics instead, so that the full-size step clones or splits
@@ -2288,6 +2433,10 @@ def main():
     torch.cuda.synchronize()
     filter2_ms = (time.perf_counter() - t0) * 1e3
     knn_cache, knn_info2 = refresh_knn(state.params["gaussians"], taux)
+    cadence_launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"  densify, filter and KNN refresh: launches {cadence_launches}", flush=True)
+    if cadence_launches["X1"] != 1:
+        fail(f"the KNN refresh after densify launched X1 {cadence_launches['X1']} times, not once")
     more = [make_batch(torch, cam, B, 0.35 + 0.2 * i, False, 400 + i, DEVICE)
             for i in range(MORE_STEPS)]
     # the densified state and the new KNN cache copied into the graphed
@@ -2297,7 +2446,7 @@ def main():
     e_params = {k: v.clone() for k, v in e_state.params["gaussians"]._asdict().items()}
     del e_state
     state, taux, losses2, step_ms2, host_ms2, launches2, _ = run_steps(
-        step, state, taux, more, "graphed, after densify and the refreshes", count="trace")
+        step, state, taux, more, "graphed, after densify and the refreshes", count="device")
     same2 = (all(torch.equal(a[k], b[k]) for a, b in zip(losses2e, losses2) for k in a)
              and all(torch.equal(e_params[k], v)
                      for k, v in state.params["gaussians"]._asdict().items()))
@@ -2307,7 +2456,8 @@ def main():
     if not same2:
         fail("after densify the graphed step differs from the eager step")
     result["densify"] = dict(steps=densified, extent=extent, filter_ms=filter2_ms,
-                             knn_refresh=knn_info2, steps_after_ms=step_ms2,
+                             knn_refresh=knn_info2, launches=cadence_launches,
+                             steps_after_ms=step_ms2,
                              steps_after_host_ms=host_ms2, launches_after=launches2,
                              graphed_equals_eager=same2)
     del losses2, losses2e, more, e_params
@@ -2684,9 +2834,13 @@ def main():
     del snap
 
     order = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "K8")
-    # the main path's launches: the train run's and the multi phase's ranks'
+    # the main path's launches: the train run's and the multi phase's ranks';
+    # X1's: the densify step and refreshes of 3, beside its cli and serve counts
     kernel_rows = [dict(rows[k], launches=train_launches[k] + result["multi"]["launches"][k])
                    for k in order]
+    kernel_rows.append(dict(rows["X1"], launches=result["densify"]["launches"]["X1"],
+                            cli_launches=result["cli"]["launches"]["X1"],
+                            serve_launches=result["serve"]["launches"]["X1"]))
     result["kernels"] = kernel_rows
     result["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -2696,9 +2850,9 @@ def main():
                 "decode_ms_per_frame",
                 "stager_wait_ms_per_iter", "loss_first", "loss_last", "psnr_first", "psnr_last",
                 "test_psnr", "points_start", "points_end", "densify_events", "capacity_changes",
-                "graph_captures", "launches", "trace_laps", "trace_kernels")
+                "graph_captures", "launches")
     print(json.dumps({"cli": {k: result["cli"][k] for k in cli_keys}}), flush=True)
-    serve_keys = ("frames", "fps", "render_ms_median", "render_ms_median_traced",
+    serve_keys = ("frames", "fps", "render_ms_median", "render_ms_median_counted",
                   "save_ms_median", "launches", "psnr",
                   "ssim", "lpips_vgg", "lpips_alex", "float_test_psnr", "cli_test_psnr",
                   "tetra_points",

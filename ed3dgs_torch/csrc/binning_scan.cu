@@ -39,6 +39,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -116,6 +118,7 @@ scan_decode(const int* __restrict__ dv, const int* __restrict__ dpk,
             const int* __restrict__ total_ptr, int* __restrict__ key,
             unsigned long long* __restrict__ state, int K, int grid_x, int num_tiles,
             int rank_bits, int b) {
+  count_launch(SLOT_BIN_SCANS);
   __shared__ int tile_sh;
   __shared__ unsigned prefix_sh[2];
   if (threadIdx.x == 0) tile_sh = (int)atomicAdd(reinterpret_cast<unsigned*>(state), 1u);

@@ -69,6 +69,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int E = 32;                   // embedding width
@@ -97,6 +99,7 @@ knn_rows(const float* __restrict__ emb, const int* __restrict__ nbr,
          const float* __restrict__ w, const float* __restrict__ coef,
          float* __restrict__ de, float* __restrict__ s_out,
          float* __restrict__ partials, int K) {
+  count_launch(SLOT_KNN_ROWS);
   constexpr int L = L6, V = Q / L, GROUPS = THREADS / L;
   extern __shared__ int tiles[];
   __shared__ float row_loss[R6];
@@ -194,6 +197,7 @@ knn_rows_wide(const float* __restrict__ emb, const int* __restrict__ nbr,
               const float* __restrict__ w, const float* __restrict__ coef,
               float* __restrict__ de, float* __restrict__ s_out,
               float* __restrict__ partials, int K, int ns) {
+  count_launch(SLOT_KNN_ROWS);
   constexpr int L = L6, V = Q / L, GROUPS = THREADS / L;
   extern __shared__ int tiles[];
   __shared__ float row_loss[R6];
@@ -296,6 +300,7 @@ __global__ void __launch_bounds__(THREADS, K7_CTAS)
 knn_reverse(const float* __restrict__ emb, const float* __restrict__ s,
             const float* __restrict__ de, const int* __restrict__ rev_ptr,
             const int* __restrict__ rev_pair, float* __restrict__ out, int K, int ns) {
+  count_launch(SLOT_KNN_REVERSE);
   constexpr int L = L7, GROUPS = THREADS / L, JPG = R7 / GROUPS;
   static_assert(L == Q, "one float4 of a row per lane");
   __shared__ int2 edge[CHUNK];   // a chunk of in-edges: (source rank, bits of -s)

@@ -66,6 +66,7 @@
 // ed3dgs_backward_blend_info (printed by chip_smoke.py).
 
 #include "blend_common.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -206,6 +207,7 @@ backward_blend(const float* __restrict__ payload, const int* __restrict__ tile_s
                int* __restrict__ live_chunks, float* __restrict__ tchk,
                float* __restrict__ ttot, float* __restrict__ tmed, int grid_x, int gxp,
                int chunk, int cap, float focal_x, float focal_y, float half_w, float half_h) {
+  count_launch(SLOT_BACKWARD_BLEND);
   extern __shared__ float4 smem4[];
   Stage st;
   st.raw = reinterpret_cast<float*>(smem4);

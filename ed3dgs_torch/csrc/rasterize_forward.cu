@@ -53,6 +53,7 @@
 // Build without --use_fast_math and with -fmad=false (see ops/cuda_lib.py).
 
 #include "blend_common.cuh"
+#include "launch_count.cuh"
 
 namespace {
 
@@ -71,6 +72,7 @@ forward_blend(const float* __restrict__ payload, const int* __restrict__ tile_st
               const int* __restrict__ tile_count, float* __restrict__ out, int grid_x,
               int gxp, int chunk, int cap, float focal_x, float focal_y, float half_w,
               float half_h) {
+  count_launch(SLOT_FORWARD_BLEND);
   extern __shared__ float4 smem4[];
   Stage st;
   st.raw = reinterpret_cast<float*>(smem4);

@@ -23,11 +23,14 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 __global__ void __launch_bounds__(256)
 unpack(const float4* __restrict__ in, float4* __restrict__ out, int gy, int gxp,
        int C, long n4) {
+  count_launch(SLOT_UNPACK);
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
   const int W4 = gxp * 4;          // float4s per output row (gxp*16 / 4)
@@ -46,6 +49,7 @@ unpack(const float4* __restrict__ in, float4* __restrict__ out, int gy, int gxp,
 __global__ void __launch_bounds__(256)
 pack(const float4* __restrict__ in, float4* __restrict__ out, int gy, int gxp, int C,
      long n4) {
+  count_launch(SLOT_PACK);
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
   // i = ((((ty * gxp) + tx) * C + c) * 16 + y) * 4 + x4

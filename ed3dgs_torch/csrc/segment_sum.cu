@@ -45,6 +45,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int WARPS = 8;
@@ -91,6 +93,9 @@ __global__ void __launch_bounds__(THREADS, 8)
 segment_sum(const float* __restrict__ rows, const int* __restrict__ idx,
             const int* __restrict__ starts, const int* __restrict__ ends,
             float* __restrict__ out, int S, int F) {
+  // the gathered instance is K3's kernel; the plain one K8's (no path calls
+  // K3 without an index)
+  count_launch(GATHER ? SLOT_SEGMENT_SUM : SLOT_SEGMENT_SUM_ROWS);
   __shared__ int long_seg[WARPS];
   __shared__ double red[WARPS][MAX_F];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;

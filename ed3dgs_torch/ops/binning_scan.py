@@ -71,7 +71,7 @@ def fused_bin_scans(dv, dpk, total, *, grid_x: int, num_tiles: int,
     tiles = (K + SCAN_TILE - 1) // SCAN_TILE
     scratch = cuda_lib.zeroed("binning_scan", 8 * (2 + 2 * tiles), dv)
     with torch.cuda.device(dv.device):
-        err = cuda_lib.lib("binning_scan").ed3dgs_fused_bin_scans(
+        err = cuda_lib.kernels("binning_scan", dv).ed3dgs_fused_bin_scans(
             dv.data_ptr(), dpk.data_ptr(), total.data_ptr(), key.data_ptr(),
             scratch.data_ptr(), K, grid_x, num_tiles, rank_bits, b,
             cuda_lib.stream_of(dv))

@@ -18,7 +18,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import threading
@@ -46,10 +45,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t of its launches (0 = success)
 SIGNATURES = {
     "binning_scan": {
+        "ed3dgs_set_launch_counters": [_P],     # int64 [len(LAUNCH_SLOTS)]
         # dv, dpk, total, key, state, K, grid_x, num_tiles, rank_bits, b, stream
         "ed3dgs_fused_bin_scans": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "rasterize_forward": {
+        "ed3dgs_set_launch_counters": [_P],     # int64 [len(LAUNCH_SLOTS)]
         # payload, tile_start, tile_count, out, num_tiles, grid_x, gxp,
         # chunk, cap, focal_x, focal_y, half_w, half_h, stream
         "ed3dgs_forward_blend": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -58,6 +59,7 @@ SIGNATURES = {
         "ed3dgs_forward_blend_info": [_I, _P, _P, _P],
     },
     "rasterize_backward": {
+        "ed3dgs_set_launch_counters": [_P],     # int64 [len(LAUNCH_SLOTS)]
         # payload, tile_start, tile_count, packed, cot, dpay, live_chunks,
         # tchk, ttot, tmed, num_tiles, grid_x, gxp, chunk, cap, focal_x,
         # focal_y, half_w, half_h, stream
@@ -67,24 +69,34 @@ SIGNATURES = {
         "ed3dgs_backward_blend_info": [_I, _P, _P, _P],
     },
     "segment_sum": {
+        "ed3dgs_set_launch_counters": [_P],     # int64 [len(LAUNCH_SLOTS)]
         # rows, starts, ends, out, S, F, stream
         "ed3dgs_segment_sum": [_P, _P, _P, _P, _I, _I, _P],
         # src, idx, starts, ends, out, S, F, stream
         "ed3dgs_segment_sum_gathered": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
     "relayout": {
+        "ed3dgs_set_launch_counters": [_P],     # int64 [len(LAUNCH_SLOTS)]
         # packed, out, gy, gxp, C, stream
         "ed3dgs_unpack_image": [_P, _P, _I, _I, _I, _P],
         # img, packed, gy, gxp, C, stream
         "ed3dgs_pack_image": [_P, _P, _I, _I, _I, _P],
     },
     "knn_loss": {
+        "ed3dgs_set_launch_counters": [_P],     # int64 [len(LAUNCH_SLOTS)]
         # emb, nbr, w, coef, de, s, partials, Cp, E, K, stream
         "ed3dgs_knn_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         # emb, s, de, rev_ptr, rev_pair, out, Cp, E, K, stream
         "ed3dgs_knn_reverse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         # which (0 K6, 1 K7), K, *registers, *shared bytes, *local bytes, *CTAs per SM
         "ed3dgs_knn_info": [_I, _I, _P, _P, _P, _P],
+    },
+    "knn": {
+        "ed3dgs_set_launch_counters": [_P],     # int64 [len(LAUNCH_SLOTS)]
+        # points, cloud scratch, d2, idx, n, k + 1, stream
+        "ed3dgs_knn": [_P, _P, _P, _P, _I, _I, _P],
+        # k + 1, *registers, *shared bytes, *local bytes, *CTAs per SM
+        "ed3dgs_knn_info": [_I, _P, _P, _P, _P],
     },
     "png_unfilter": {            # host code (csrc/png_unfilter.cpp)
         # filtered rows, out, height, row bytes, bytes per pixel
@@ -240,70 +252,75 @@ def count_launch(wrapper):
     """One launch of `wrapper`'s kernel, counted in `wrapper.launches`:
     each wrapper calls this right after its launch. A launch recorded into
     a CUDA graph capture runs nothing and is not counted; the kernels a
-    graph replays, which call no wrapper, are counted on the device by
+    graph replays, which call no wrapper, are counted on the card by
     `DeviceLaunches`."""
     if not torch.cuda.is_current_stream_capturing():
         wrapper.launches += 1
 
 
-# each kernel's symbol (csrc/*.cu, all in an anonymous namespace) -> the
-# wrapper that launches it. K3's instance without an index is also K8's
-# kernel; it is counted on K8, as no path calls K3 without an index.
-KERNEL_SYMBOLS = {
-    "forward_blend": "rasterize_cuda.rasterize_forward",
-    "backward_blend": "rasterize_cuda.rasterize_backward",
-    "segment_sum<true>": "segment_sum.segment_sum_rows",
-    "segment_sum<false>": "segment_sum.segment_sum_rows_packed",
-    "scan_decode": "binning_scan.fused_bin_scans",
-    "unpack": "relayout.unpack_image",
-    "pack": "relayout.pack_image",
-    "knn_rows": "knn_loss.knn_rows",
-    "knn_rows_wide": "knn_loss.knn_rows",
-    "knn_reverse<false>": "knn_loss.knn_reverse",
-    "knn_reverse<true>": "knn_loss.knn_reverse",
-}
-_SYMBOL = re.compile(r"(?:void )?\(anonymous namespace\)::(\w+(?:<[^>(]*>)?)\(")
+# the launch counters' slots, in the order of csrc/launch_count.cuh
+# `LaunchSlot`: the wrapper each kernel counts for. K3's kernel without an
+# index counts for K8, as no path calls K3 without one.
+LAUNCH_SLOTS = ("rasterize_cuda.rasterize_forward", "rasterize_cuda.rasterize_backward",
+                "segment_sum.segment_sum_rows", "segment_sum.segment_sum_rows_packed",
+                "binning_scan.fused_bin_scans", "relayout.unpack_image", "relayout.pack_image",
+                "knn_loss.knn_rows", "knn_loss.knn_reverse", "knn.knn")
+_COUNTERS = {}      # device -> int64 [len(LAUNCH_SLOTS)] on the card, never freed
+_ARMED = set()      # (library, device) whose kernels count into _COUNTERS[device]
+
+
+def kernels(name: str, like: torch.Tensor) -> ctypes.CDLL:
+    """The library `name` (built and loaded at first use), its kernels
+    counting their launches on `like`'s device: the first call for a device
+    makes the device's counters and points the library at them. Like
+    `zeroed`, it makes nothing during a CUDA graph capture: the captured
+    function must have run once before (utils/graphs.py does)."""
+    handle = lib(name)
+    dev = like.device
+    if (name, dev) not in _ARMED:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{name}: launch counters not set up on {dev} during a CUDA "
+                               "graph capture: run the function once before capturing it")
+        counters = _COUNTERS.get(dev)
+        if counters is None:
+            counters = _COUNTERS[dev] = torch.zeros(len(LAUNCH_SLOTS), dtype=torch.int64,
+                                                    device=dev)
+        with torch.cuda.device(dev):
+            check_launch(handle.ed3dgs_set_launch_counters(counters.data_ptr()),
+                         f"{name}: ed3dgs_set_launch_counters")
+        _ARMED.add((name, dev))
+    return handle
 
 
 class DeviceLaunches:
     """The launches of the port's kernels that ran on the card, read from
-    a device trace (torch.profiler's CUDA activity): each kernel of
-    KERNEL_SYMBOLS counted by its symbol, the kernels of replayed CUDA
-    graphs included. `with DeviceLaunches() as d: ...`, then `d.counts`:
-    {"module.wrapper": launches}. `lap()` closes the trace taken so far
-    (the card synchronises) and opens the next, so that a long window stays
-    within the tracer's buffers."""
+    the kernels' own counters (csrc/launch_count.cuh: each kernel adds one
+    to its wrapper's slot when it runs), so the kernels of replayed CUDA
+    graphs, which call no wrapper, are counted too. `with DeviceLaunches()
+    as d: ...`, then `d.counts`: {"module.wrapper": launches} over the
+    window; the card synchronises at both ends. `armed` is False where no
+    device had counters at the window's end: nothing was measured."""
 
     def __init__(self):
-        self.counts = dict.fromkeys(sorted(set(KERNEL_SYMBOLS.values())), 0)
-        self.kernels = 0        # every kernel in the trace, the port's or not
-        self._prof = None
+        self.counts = dict.fromkeys(LAUNCH_SLOTS, 0)
+        self.armed = False
+        self._start = {}
 
     def __enter__(self):
-        self._open()
+        self._start = self._read()
         return self
 
     def __exit__(self, *exc):
-        self._close()
+        end = self._read()
+        for dev, values in end.items():
+            before = self._start.get(dev, [0] * len(LAUNCH_SLOTS))
+            for slot, a, b in zip(LAUNCH_SLOTS, before, values):
+                self.counts[slot] += b - a
+        self.armed = bool(end)
 
-    def lap(self):
-        self._close()
-        self._open()
+    @staticmethod
+    def _read() -> dict:
+        for dev in _COUNTERS:
+            torch.cuda.synchronize(dev)
+        return {dev: c.tolist() for dev, c in _COUNTERS.items()}
 
-    def _open(self):
-        from torch.profiler import ProfilerActivity, profile
-        self._prof = profile(activities=[ProfilerActivity.CUDA])
-        self._prof.__enter__()
-
-    def _close(self):
-        from torch.autograd import DeviceType
-        prof, self._prof = self._prof, None
-        prof.__exit__(None, None, None)
-        for e in prof.profiler.kineto_results.events():
-            name = e.name()
-            if e.device_type() != DeviceType.CUDA or name.startswith(("Memcpy", "Memset")):
-                continue
-            self.kernels += 1
-            m = _SYMBOL.match(name)
-            if m is not None and m.group(1) in KERNEL_SYMBOLS:
-                self.counts[KERNEL_SYMBOLS[m.group(1)]] += 1

@@ -1,26 +1,32 @@
 """Exact k-nearest neighbours of a point cloud (port of ed3dgs_tpu/ops/knn.py).
 
-`knn` gives every point its k nearest other points by blocked pairwise
-squared distances, |a|^2 + |b|^2 - 2 a.b; `mean_sqdist_3nn` is the
-reference's distCUDA2 (the mean squared distance to the 3 nearest
-neighbours, which sizes the initial Gaussian scales). The KNN embedding
-regulariser's graph (train/trainer.py `update_knn_cache`) is built from
-`knn` every densification refresh.
+`knn` gives every point its k nearest other points by pairwise squared
+distances, |a|^2 + |b|^2 - 2 a.b; `mean_sqdist_3nn` is the reference's
+distCUDA2 (the mean squared distance to the 3 nearest neighbours, which
+sizes the initial Gaussian scales). The KNN embedding regulariser's graph
+(train/trainer.py `update_knn_cache`) is built from `knn` every
+densification refresh, and the tetrahedra mesh's outlier filter
+(mesh/tetra.py) takes its neighbours from it.
 
-The JAX package leaves this to XLA (a matmul and top_k), not to a Pallas
-kernel, so plain PyTorch computes it here. Two choices keep it equal to the
+The JAX package leaves this to XLA (a jitted matmul and top_k, not a Pallas
+kernel). On a CUDA tensor `knn` launches X1 (csrc/knn.cu), which forms the
+chains with once-rounded float32 fused multiply-adds and keeps each row's
+k+1 smallest keys in registers; on a CPU tensor it runs `knn_plain`, plain
+PyTorch that computes the same numbers. Both routes then drop the
+self-match the same way (`_drop_self`). Two choices keep them equal to the
 JAX package's result:
 
 - The squared norms and the inner-dimension-3 cross term are fused
   multiply-add chains, each product and sum rounded once to float32, as XLA
-  evaluates this dot and this reduction on the CPU. The chains are formed in
-  float64 (a product of two float32 values is exact there) and rounded once
-  to float32: where the float64 sum is inexact and lands on a float32
+  evaluates this dot and this reduction on the CPU. PyTorch has no such
+  fused multiply-add on tensors, so `knn_plain` forms the chains in float64
+  (a product of two float32 values is exact there) and rounds once to
+  float32: where the float64 sum is inexact and lands on a float32
   rounding midpoint, it first steps towards its exact value (TwoSum), so no
   second rounding ties the other way. Small inputs (the COLMAP loss's
   squared norms) take that step on every element and never wait for the
-  device; the large blocks gather their few midpoints first. No matmul is used, so the global TF32
-  flags cannot move a neighbour.
+  device; the large blocks gather their few midpoints first. No matmul is
+  used, so the global TF32 flags cannot move a neighbour.
 - Neighbours are taken in (distance, index) order: the k+1 smallest of an
   int64 key that holds the distance's order-preserving bits above the
   index, so equal distances (dead slots parked on a far shell) resolve to
@@ -29,7 +35,11 @@ JAX package's result:
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from . import cuda_lib
 
 
 _MID_MASK = (1 << 29) - 1   # float64 mantissa bits below float32's last
@@ -90,11 +100,21 @@ def _order_key(d2: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return (bits << 32) | index
 
 
-def knn(points: torch.Tensor, k: int = 3, block_size: int = 1024):
-    """Exact k-NN for every point, excluding itself.
+def _drop_self(d2: torch.Tensor, idx: torch.Tensor, k: int):
+    """The k nearest of each row's k+1, without the row itself: the
+    self-match is found by index (distance 0, but equal distances may
+    precede it), moved to the end, and the first k kept."""
+    index = torch.arange(idx.shape[0], device=idx.device)
+    is_self = idx == index[:, None]
+    order = torch.argsort(is_self.to(torch.int32), dim=1, stable=True)
+    d2 = torch.gather(d2, 1, order)[:, :k]
+    idx = torch.gather(idx, 1, order)[:, :k]
+    return d2, idx
 
-    points: [N, 3] (N >= k+1). Returns (sqdists [N, k] float32, indices
-    [N, k] int64) of the k nearest other points, nearest first."""
+
+def knn_plain(points: torch.Tensor, k: int = 3, block_size: int = 1024):
+    """`knn` in plain PyTorch, on any device: blocks of `block_size` rows,
+    each row's keys against every point, torch.topk of the k+1 smallest."""
     n = points.shape[0]
     points = points.to(torch.float32)
     sq = _dot3(points, points)                                   # [N]
@@ -108,14 +128,63 @@ def knn(points: torch.Tensor, k: int = 3, block_size: int = 1024):
         idx = key & 0xFFFFFFFF
         d2s.append(torch.gather(d2, 1, idx))
         idxs.append(idx)
-    d2, idx = torch.cat(d2s), torch.cat(idxs)
-    # drop the self-match by index (distance 0, but equal distances may
-    # precede it): move it to the end and keep the first k
-    is_self = idx == index[:, None]
-    order = torch.argsort(is_self.to(torch.int32), dim=1, stable=True)
-    d2 = torch.gather(d2, 1, order)[:, :k]
-    idx = torch.gather(idx, 1, order)[:, :k]
-    return d2, idx
+    return _drop_self(torch.cat(d2s), torch.cat(idxs), k)
+
+
+MAX_K1 = 32     # X1 keeps at most 32 keys a row (k <= 31)
+
+
+def _check_k(n: int, k: int):
+    if not 0 <= k < MAX_K1:
+        raise ValueError(f"the k-NN kernel keeps at most {MAX_K1} neighbours a point, self "
+                         f"included (k + 1 <= {MAX_K1}), got k={k}")
+    if n < k + 1:
+        raise ValueError(f"k-NN of {n} points at k={k} needs at least k + 1 = {k + 1} points")
+    if n >= 1 << 30:
+        raise ValueError(f"the k-NN kernel takes fewer than 2^30 points, got {n}")
+
+
+def kernel_info(k: int) -> dict:
+    """The X1 instance that serves k: registers per thread, shared memory
+    per CTA, local (spilled) bytes per thread and resident CTAs per SM, as
+    the card reports them."""
+    _check_k(k + 1, k)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    err = cuda_lib.lib("knn").ed3dgs_knn_info(k + 1, *(ctypes.addressof(v) for v in out))
+    cuda_lib.check_launch(err, "ed3dgs_knn_info")
+    return dict(registers=out[0].value, smem_bytes=out[1].value, spill_bytes=out[2].value,
+                ctas_per_sm=out[3].value)
+
+
+def knn(points: torch.Tensor, k: int = 3, block_size: int = 1024):
+    """Exact k-NN for every point, excluding itself.
+
+    points: [N, 3] (N >= k+1). Returns (sqdists [N, k] float32, indices
+    [N, k] int64) of the k nearest other points, nearest first. On a CUDA
+    tensor X1 (csrc/knn.cu, k + 1 <= 32) finds each row's k+1 nearest,
+    self included; on a CPU tensor `knn_plain` does (`block_size` sets its
+    blocks; X1's result does not depend on it)."""
+    if not points.is_cuda:
+        return knn_plain(points, k, block_size)
+    points = points.to(torch.float32).contiguous()
+    cuda_lib.check_cuda(points, "points", torch.float32, 2)
+    n = points.shape[0]
+    if points.shape[1] != 3:
+        raise ValueError(f"points must be [N, 3], got {tuple(points.shape)}")
+    _check_k(n, k)
+    d2 = torch.empty((n, k + 1), dtype=torch.float32, device=points.device)
+    idx = torch.empty((n, k + 1), dtype=torch.int64, device=points.device)
+    cloud = torch.empty((n, 4), dtype=torch.float32, device=points.device)
+    with torch.cuda.device(points.device):
+        err = cuda_lib.kernels("knn", points).ed3dgs_knn(points.data_ptr(), cloud.data_ptr(),
+                                             d2.data_ptr(), idx.data_ptr(), n, k + 1,
+                                             cuda_lib.stream_of(points))
+    cuda_lib.check_launch(err, "knn")
+    cuda_lib.count_launch(knn)
+    return _drop_self(d2, idx, k)
+
+
+knn.launches = 0
 
 
 def far_shell(n: int, device) -> torch.Tensor:

@@ -348,7 +348,7 @@ def knn_rows(emb_r: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor, coef: torc
     s = torch.empty_like(w)
     partials = torch.empty(Cp // ROWS_PER_BLOCK, dtype=torch.float32, device=emb_r.device)
     with torch.cuda.device(emb_r.device):
-        err = cuda_lib.lib("knn_loss").ed3dgs_knn_rows(
+        err = cuda_lib.kernels("knn_loss", emb_r).ed3dgs_knn_rows(
             emb_r.data_ptr(), nbr.data_ptr(), w.data_ptr(), coef.data_ptr(), de.data_ptr(),
             s.data_ptr(), partials.data_ptr(), Cp, E, K, cuda_lib.stream_of(emb_r))
     cuda_lib.check_launch(err, "knn_rows")
@@ -380,7 +380,7 @@ def knn_reverse(emb_r: torch.Tensor, s: torch.Tensor, de: torch.Tensor,
         raise ValueError("de must be 16-byte aligned (the kernel reads it as float4)")
     out = torch.empty_like(emb_r)
     with torch.cuda.device(emb_r.device):
-        err = cuda_lib.lib("knn_loss").ed3dgs_knn_reverse(
+        err = cuda_lib.kernels("knn_loss", emb_r).ed3dgs_knn_reverse(
             emb_r.data_ptr(), s.data_ptr(), de.data_ptr(), rev_ptr.data_ptr(),
             rev_pair.data_ptr(), out.data_ptr(), Cp, E, K, cuda_lib.stream_of(emb_r))
     cuda_lib.check_launch(err, "knn_reverse")

@@ -331,7 +331,7 @@ def rasterize_forward(pair_payload, tile_start, tile_count, *, grid_x: int,
     out = torch.empty((grid_y, gxp, OUT_PAD, PIX), dtype=torch.float32,
                       device=pair_payload.device)
     with torch.cuda.device(pair_payload.device):
-        err = cuda_lib.lib("rasterize_forward").ed3dgs_forward_blend(
+        err = cuda_lib.kernels("rasterize_forward", pair_payload).ed3dgs_forward_blend(
             pair_payload.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
             out.data_ptr(), num_tiles, grid_x, gxp, chunk,
             chunk * MAX_CHUNKS, focal_x, focal_y, *_half(width, height, half_w, half_h),
@@ -544,7 +544,7 @@ def rasterize_backward(pair_payload, tile_start, tile_count, packed, cot, *,
     tchk = torch.empty((3, 2 * num_tiles + (K + chunk - 1) // chunk + 1, PIX),
                        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = cuda_lib.lib("rasterize_backward").ed3dgs_backward_blend(
+        err = cuda_lib.kernels("rasterize_backward", pair_payload).ed3dgs_backward_blend(
             pair_payload.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
             packed.data_ptr(), cot.data_ptr(), dpay.data_ptr(), clive.data_ptr(),
             tchk[0].data_ptr(), tchk[1].data_ptr(), tchk[2].data_ptr(), num_tiles, grid_x,

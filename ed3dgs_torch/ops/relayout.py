@@ -51,7 +51,7 @@ def unpack_image(packed: torch.Tensor) -> torch.Tensor:
     out = torch.empty((C, gy * TILE, gxp * TILE), dtype=torch.float32,
                       device=packed.device)
     with torch.cuda.device(packed.device):
-        err = cuda_lib.lib("relayout").ed3dgs_unpack_image(
+        err = cuda_lib.kernels("relayout", packed).ed3dgs_unpack_image(
             packed.data_ptr(), out.data_ptr(), gy, gxp, C,
             cuda_lib.stream_of(packed))
     cuda_lib.check_launch(err, "unpack_image")
@@ -81,7 +81,7 @@ def pack_image(img: torch.Tensor) -> torch.Tensor:
     gy, gxp = H // TILE, W // TILE
     out = torch.empty((gy, gxp, C, PIX), dtype=torch.float32, device=img.device)
     with torch.cuda.device(img.device):
-        err = cuda_lib.lib("relayout").ed3dgs_pack_image(
+        err = cuda_lib.kernels("relayout", img).ed3dgs_pack_image(
             img.data_ptr(), out.data_ptr(), gy, gxp, C, cuda_lib.stream_of(img))
     cuda_lib.check_launch(err, "pack_image")
     cuda_lib.count_launch(pack_image)

@@ -115,7 +115,7 @@ def _launch(rows: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
     cuda_lib.check_cuda(ends, "ends", torch.int32, 1)
     S, F = starts.shape[0], rows.shape[1]
     out = torch.empty((S, F), dtype=torch.float32, device=rows.device)
-    lib = cuda_lib.lib("segment_sum")
+    lib = cuda_lib.kernels("segment_sum", rows)
     with torch.cuda.device(rows.device):
         if idx is None:
             err = lib.ed3dgs_segment_sum(rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),

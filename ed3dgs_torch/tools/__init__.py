@@ -56,22 +56,6 @@ def add_model_flags(p) -> None:
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE")
 
 
-def render_eval(cfg, scene, dparams, settings, rcfg, bg):
-    """`render()` as the offline tools call it, without gradients: every
-    schedule done (iteration 10**9) and the fewest embeddings."""
-    import torch
-
-    from ..render import render
-
-    model, hidden = cfg.model, cfg.hidden
-    with torch.no_grad():
-        return render(scene.params, scene.aux, dparams, hidden, settings, rcfg, bg,
-                      iteration=10 ** 9, sh_degree=model.sh_degree,
-                      kernel_size=model.kernel_size, disable_filter3d=model.disable_filter3D,
-                      num_down_emb_c=hidden.min_embeddings,
-                      num_down_emb_f=hidden.min_embeddings)
-
-
 # the render() outputs a FrameRenderer returns
 FRAME_OUTPUTS = ("render", "mask", "expected_coord", "median_coord", "expected_depth",
                  "median_depth", "normal", "tongue_mask", "num_pairs", "tile_overflow",

@@ -6,8 +6,10 @@ Usage:
   python -m ed3dgs_torch.tools.mesh_extract_tsdf -m <model_dir> -s <scene_dir> \
       [--timestep_index 0] [--engine sparse|dense] [--voxel_size 0.002]
 
-Renders every train view at a timestep with `render()` (K1, K4 and K5a on
-the card), masks its median depth by the rendered alpha and the GT mask,
+Renders every train view at a timestep through `tools.FrameRenderer` (on
+the card a CUDA graph captured once and replayed a view, as the JAX tool
+jits `render_view`; K1, K4 and K5a), masks its median depth by the
+rendered alpha and the GT mask,
 fuses the views into a TSDF volume on the same device (`mesh/tsdf_sparse.py`,
 the default, or the dense `mesh/tsdf.py`) and writes
 <model_dir>/recon_tsdf.ply. It runs on the card unless `--device cpu` is
@@ -25,7 +27,7 @@ import time
 
 import numpy as np
 
-from . import add_model_flags, load_trained, render_eval
+from . import FrameRenderer, add_model_flags, load_trained
 
 
 def main(argv=None):
@@ -52,7 +54,6 @@ def main(argv=None):
     from ..mesh import tsdf
     from ..mesh.tsdf_sparse import fuse_volume_sparse
     from ..ops.rasterize import RasterConfig
-    from ..render import RenderSettings
 
     device = resolve_device(args.device)
     cfg, scene, dparams = load_trained(args, device)
@@ -65,18 +66,22 @@ def main(argv=None):
     rcfg = RasterConfig(width=m0.width, height=m0.height, focal_x=m0.focal_x,
                         focal_y=m0.focal_y, pair_capacity=opt.pair_capacity,
                         chunk=opt.raster_chunk)
-    f32 = dict(dtype=torch.float32, device=device)
-    bg = torch.ones(3, **f32)
+    bg = torch.ones(3, dtype=torch.float32, device=device)
+    # one graph for the views (one raster config), as the JAX tool jits one
+    # render_view; its outputs are overwritten by the next view, so the
+    # depth is cloned and the colours copied by the clamp
+    frame = FrameRenderer(cfg.hidden, bg, sh_degree=model.sh_degree,
+                          kernel_size=model.kernel_size,
+                          disable_filter3d=model.disable_filter3D,
+                          num_down_emb=cfg.hidden.min_embeddings)
+    trained = (scene.params, scene.aux, dparams)
 
     depths, colors, wvs, focals, render_ms = [], [], [], [], []
     for view in views:
         m = view.matrices()
-        s = RenderSettings(torch.as_tensor(m.world_view, **f32),
-                           torch.as_tensor(m.full_proj, **f32),
-                           torch.as_tensor(m.campos, **f32), torch.tensor(view.time, **f32), None)
         sync()
         t0 = time.perf_counter()
-        out = render_eval(cfg, scene, dparams, s, rcfg, bg)
+        out = frame("view", trained, rcfg, m.world_view, m.full_proj, m.campos, view.time)
         depth = out["median_depth"][0].clone()
         depth[out["mask"][0] < args.alpha_thres] = 0.0
         gt_mask = view.alpha_mask

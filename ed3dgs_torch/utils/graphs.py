@@ -28,8 +28,8 @@ falls back to running eagerly.
 
 A replay calls no kernel wrapper, and a wrapper called during a capture
 launches nothing and counts nothing (ops/cuda_lib.py `count_launch`): the
-kernels a replay runs are counted from a device trace
-(ops/cuda_lib.py `DeviceLaunches`).
+kernels a replay runs count themselves on the card
+(csrc/launch_count.cuh, read by ops/cuda_lib.py `DeviceLaunches`).
 
 `PinnedScalars` stages a few float32 values a graph reads (a learning rate,
 an iteration) through pinned host memory, so that writing them before a

@@ -114,7 +114,8 @@ def build(cuda_lib, source: str, variants: dict, prefix: str) -> dict:
         cu = cuda_lib.BUILD_DIR / f"variant_{prefix}_{name}.cu"
         cu.write_text(src)
         so = cu.with_suffix(".so")
-        cmd = [cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, "-o", str(so), str(cu)]
+        cmd = [cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, f"-I{cuda_lib.CSRC}", "-o", str(so),
+               str(cu)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
     libs = {}

@@ -29,7 +29,10 @@ terms are otherwise the same operations), and bit-identical from run to run,
 also on the smallest table, at a rank with thousands of in-edges and at K = 1
 and 32, and for embeddings narrower than 32 or wider (E = 48, 64, 100: run
 zero-padded to whole 32-column slabs); the shapes they do not take raise
-ValueError. The host PNG unfilter (not a kernel, built with g++) against its
+ValueError. X1 (the k-NN, csrc/knn.cu) against `knn_plain` bit for bit,
+distances and indices, on ties, distances below zero, N = k + 1, ragged N,
+k from 1 to 31 and the KNN refresh's 100,352-point input, one launch a
+call; k + 1 > 32 raises ValueError. The host PNG unfilter (not a kernel, built with g++) against its
 numpy version, byte for byte. Beside the kernels, the serving modules that
 run on the card: `integrate_points` (K4 bins its tiles) within 1e-5 of the
 CPU's, the mesh evaluation's float64 closest points within 1e-6, LPIPS
@@ -43,7 +46,8 @@ and 8 strips (grid_x = 1) and its K3 backward, card against CPU bit for bit
 (the sums within 1e-6 of the largest). The captured CUDA graphs
 (utils/graphs.py): the graphed train step and frames against their eager
 forms, bit for bit, with the kernels a graph runs counted on the card from
-a device trace (`cuda_lib.DeviceLaunches`), since a replay calls no wrapper.
+the kernels' own launch counters on the card (`cuda_lib.DeviceLaunches`),
+since a replay calls no wrapper.
 """
 
 import math
@@ -417,14 +421,80 @@ def test_packed_segment_sum_is_the_k3_kernel(dev):
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
+def knn_cloud(case, n, seed=0):
+    """The k-NN's clouds, as tests/test_torch_knn.py makes them: uniform in
+    a box around z = 2; n // 3 points three times over, shuffled (ties at
+    distance 0); within ~1e-3 of (60, -40, 90), where |a|^2 + |b|^2 - 2ab
+    cancels to rounding noise (often below zero); or the refresh's input,
+    the last 352 rows parked on the far shell."""
+    rng = np.random.default_rng(seed)
+
+    def uniform(m):
+        return (rng.uniform(-1, 1, (m, 3)) * [1.0, 0.7, 1.5] + [0, 0, 2]).astype(np.float32)
+    if case == "uniform":
+        return uniform(n)
+    if case == "duplicated":
+        return uniform(n // 3)[rng.permutation(np.repeat(np.arange(n // 3), 3))]
+    if case == "cancelling":
+        return (np.float32([60.0, -40.0, 90.0])
+                + rng.uniform(-1e-3, 1e-3, (n, 3)).astype(np.float32))
+    pts = uniform(n)
+    pts[n - 352:] = knn.far_shell(n, "cpu").numpy()[n - 352:]
+    return pts
+
+
+@pytest.mark.parametrize("case,n,k", [
+    ("uniform", 2200, 20), ("uniform", 700, 3), ("duplicated", 1200, 20),
+    ("cancelling", 600, 20), ("uniform", 21, 20), ("uniform", 500, 1),
+    ("uniform", 1000, 31), ("uniform", 257, 8), ("far-shell", 100_352, 20)])
+def test_knn_kernel_matches_plain(dev, case, n, k):
+    """X1 (csrc/knn.cu) against `knn_plain` on the card, distances and
+    indices bit for bit: ties (equal distances to the lower index),
+    distances below zero, N = k + 1, N not a multiple of the CTA's 256
+    rows, k from 1 to 31, and the KNN refresh's 100,352-point input. One
+    `knn` call is one launch, by its wrapper and on the card (the device
+    counters); on the smaller clouds the CPU's plain version agrees too."""
+    pts = torch.as_tensor(knn_cloud(case, n), device=dev)
+    before = knn.knn.launches
+    with cuda_lib.DeviceLaunches() as traced:
+        d2, idx = knn.knn(pts, k=k)
+        torch.cuda.synchronize()
+    assert knn.knn.launches == before + 1 and traced.counts["knn.knn"] == 1
+    want = [knn.knn_plain(pts, k=k)]
+    if n <= 2200:
+        want.append(knn.knn_plain(pts.cpu(), k=k))
+    for pd2, pidx in want:
+        assert torch.equal(idx.cpu(), pidx.cpu())
+        assert torch.equal(d2.cpu().view(torch.int32), pd2.cpu().view(torch.int32))
+    again = knn.knn(pts, k=k)
+    assert torch.equal(again[0], d2) and torch.equal(again[1], idx)
+    if case == "cancelling":
+        assert float((d2 < 0).float().mean()) > 0.1
+
+
+def test_knn_kernel_refuses_what_it_does_not_take(dev):
+    """k + 1 > 32 and N < k + 1 raise ValueError, launching nothing."""
+    pts = torch.rand(100, 3, device=dev)
+    before = knn.knn.launches
+    with pytest.raises(ValueError, match="k \\+ 1 <= 32"):
+        knn.knn(pts, k=32)
+    with pytest.raises(ValueError, match="at least k \\+ 1"):
+        knn.knn(pts[:5], k=5)
+    with pytest.raises(ValueError, match=r"\[N, 3\]"):
+        knn.knn(pts[:, :2], k=3)
+    assert knn.knn.launches == before
+    assert knn.kernel_info(31)["registers"] > 0
+
+
 def knn_graph_case(dev, C, K, spatial, caps, seed=0, hub=False, E=32):
     """A KNN graph on the card: neighbours by position (the trainer's kind)
     or at random (no locality: the far and spill lists fill up); with `hub`,
-    every row's slot 0 points at Gaussian 0."""
+    every row's slot 0 points at Gaussian 0. Past X1's 31 neighbours the
+    positions' neighbours come from its plain version (the same result)."""
     g = torch.Generator(dev).manual_seed(seed)
     pts = torch.rand(C, 3, device=dev, generator=g) * 2 - 1
     if spatial:
-        d2, idx = knn.knn(pts, k=K)
+        d2, idx = (knn.knn if K < knn.MAX_K1 else knn.knn_plain)(pts, k=K)
         w = torch.exp(-20.0 * d2)
     else:
         idx = torch.randint(0, C, (C, K), device=dev, generator=g)
@@ -1006,7 +1076,7 @@ def wrapper_counts() -> dict:
     """{"module.wrapper": launches counted by the wrapper}."""
     import importlib
     out = {}
-    for w in set(cuda_lib.KERNEL_SYMBOLS.values()):
+    for w in cuda_lib.LAUNCH_SLOTS:
         mod, fn = w.split(".")
         out[w] = getattr(importlib.import_module(f"ed3dgs_torch.ops.{mod}"), fn).launches
     return out
@@ -1018,7 +1088,7 @@ def test_graphed_step_equals_the_eager_step(dev):
     (from iteration 11), a densify step's state and a new KNN cache copied
     in, and a pair-capacity change (a new step, captured anew). Replays run
     under sync debug mode "error" and launch K1-K7 on the card (counted
-    from a device trace) as an eager step does; the wrappers count only the
+    by the device counters) as an eager step does; the wrappers count only the
     first, eager run of a key (a capture launches nothing)."""
     from ed3dgs_torch.config.params import OptimizationConfig
     from ed3dgs_torch.train import trainer
@@ -1032,7 +1102,8 @@ def test_graphed_step_equals_the_eager_step(dev):
     counts = {"rasterize_cuda.rasterize_forward": 2, "rasterize_cuda.rasterize_backward": 2,
               "segment_sum.segment_sum_rows": 2, "binning_scan.fused_bin_scans": 2,
               "relayout.unpack_image": 2, "relayout.pack_image": 2, "knn_loss.knn_rows": 1,
-              "knn_loss.knn_reverse": 1, "segment_sum.segment_sum_rows_packed": 0}
+              "knn_loss.knn_reverse": 1, "segment_sum.segment_sum_rows_packed": 0,
+              "knn.knn": 0}
     replayed = []
     for i, ssim in enumerate((True, False, True, True, True, False, False, False)):
         if i == 4:        # densify, then the filter and KNN refreshes
@@ -1126,7 +1197,7 @@ def test_graphed_frames_equal_render(dev, tmp_path, monkeypatch):
     """tools.render's renderer (a graph per tongue filter) and the viewer's
     handler (a graph per resolution) against `FrameRenderer(graph=False)`
     (render() op by op) on the same calls, bit for bit; each graphed frame
-    launches K1 once on the card (counted from a device trace)."""
+    launches K1 once on the card (counted by the device counters)."""
     import argparse
 
     from torch_offline_model import SET, make_model

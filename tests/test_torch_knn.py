@@ -5,7 +5,10 @@ clouds.
 Bounds: neighbour indices equal on every row and squared distances equal
 bit for bit (the port forms the same fused multiply-add chains as XLA's CPU
 dot and reduction); with dead slots parked on the far shell, equal too
-(ties among shell points resolve to the lower index in both). The 3-NN
+(ties among shell points resolve to the lower index in both), and on
+duplicated points, on points whose |a|^2 + |b|^2 - 2ab cancels below zero,
+at N = k + 1 and at k = 1. On a CPU tensor `knn` is `knn_plain` (the
+kernel's plain version) bit for bit. The 3-NN
 mean, the initial scales and the 3D filter at rtol 1e-5 (the mean of three
 and the camera transform are summed in another order); masks exactly.
 """
@@ -34,10 +37,39 @@ def uniform_cloud(n, seed, dead=0):
     return pts, np.arange(n) < n - dead
 
 
-@pytest.mark.parametrize("n,k,dead,block", [(2200, 20, 0, 1024), (700, 3, 0, 256),
-                                            (1500, 20, 300, 1024)])
-def test_knn_matches_jax(n, k, dead, block):
-    pts, mask = uniform_cloud(n, seed=n, dead=dead)
+def duplicated_cloud(n, seed):
+    """n points that are n // 3 points three times over, shuffled: every
+    point has two others at distance exactly 0 (the lower index first)."""
+    rng = np.random.default_rng(seed)
+    base, _ = uniform_cloud(n // 3, seed)
+    return base[rng.permutation(np.repeat(np.arange(n // 3), 3))]
+
+
+def cancelling_cloud(n, seed):
+    """n points within ~1e-3 of (60, -40, 90): |a|^2 ~ 1.3e4, whose float32
+    spacing (~1e-3) dwarfs the true squared distances (~1e-6), so
+    |a|^2 + |b|^2 - 2ab cancels to rounding noise, often below zero."""
+    rng = np.random.default_rng(seed)
+    return (np.float32([60.0, -40.0, 90.0])
+            + rng.uniform(-1e-3, 1e-3, (n, 3)).astype(np.float32))
+
+
+CLOUDS = {"uniform": lambda n, seed: uniform_cloud(n, seed)[0],
+          "duplicated": duplicated_cloud, "cancelling": cancelling_cloud}
+
+
+@pytest.mark.parametrize("n,k,dead,block,cloud", [
+    pytest.param(2200, 20, 0, 1024, "uniform", id="2200-20-0-1024"),
+    pytest.param(700, 3, 0, 256, "uniform", id="700-3-0-256"),
+    pytest.param(1500, 20, 300, 1024, "uniform", id="1500-20-300-1024"),
+    pytest.param(1200, 20, 0, 256, "duplicated", id="duplicated-ties"),
+    pytest.param(600, 20, 0, 256, "cancelling", id="cancelling-below-zero"),
+    pytest.param(21, 20, 0, 1024, "uniform", id="n-equals-k-plus-1"),
+    pytest.param(500, 1, 0, 256, "uniform", id="k-1"),
+])
+def test_knn_matches_jax(n, k, dead, block, cloud):
+    pts = CLOUDS[cloud](n, n)
+    mask = np.arange(n) < n - dead
     if dead:   # the trainer's parking of dead slots (update_knn_cache)
         shell = np.asarray(1e3 + 1e-3 * jnp.arange(n, dtype=jnp.float32)[:, None])
         np.testing.assert_array_equal(tknn.far_shell(n, "cpu").numpy(), shell)
@@ -48,6 +80,25 @@ def test_knn_matches_jax(n, k, dead, block):
     np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
     np.testing.assert_array_equal(td2.numpy(), np.asarray(jd2))
     assert not (tidx.numpy() == np.arange(n)[:, None]).any()      # self dropped
+    if cloud == "duplicated":   # each point's two copies first, lower index first
+        same = (pts[tidx.numpy()[:, :2]] == pts[:, None]).all(-1)
+        assert same.all() and (td2.numpy()[:, :2] == 0).all()
+        assert (tidx.numpy()[:, 0] < tidx.numpy()[:, 1]).all()
+    if cloud == "cancelling":
+        assert (td2.numpy() < 0).mean() > 0.1
+
+
+def test_knn_on_the_cpu_is_the_plain_version():
+    """On a CPU tensor `knn` is `knn_plain`, bit for bit, and launches
+    nothing."""
+    pts = torch.as_tensor(cancelling_cloud(300, 3))
+    before = tknn.knn.launches
+    for k, block in ((20, 128), (3, 1024)):
+        d2, idx = tknn.knn(pts, k=k, block_size=block)
+        pd2, pidx = tknn.knn_plain(pts, k=k, block_size=block)
+        assert torch.equal(idx, pidx)
+        assert torch.equal(d2.view(torch.int32), pd2.view(torch.int32))
+    assert tknn.knn.launches == before
 
 
 @pytest.mark.parametrize("masked", [False, True])
