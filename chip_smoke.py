@@ -27,8 +27,12 @@ chunk 128):
    the refresh's own input (the main graph's 100,352 points, dead slots
    parked on the far shell, k = 20), distances and indices equal by
    torch.equal, then on X1_EDGES (ties, distances below zero, N = k + 1,
-   ragged N, k = 1, 3, 20, 31), k = 32 refused; both timed as in 1, with
-   X1's registers, CTAs per SM and bound;
+   ragged N, k = 1, 3, 20, 31, clusters, collinear points, an offset
+   cloud), k = 32 refused; both timed as in 1, with X1's registers, CTAs
+   per SM, tiles visited a warp (mean, max) and pairs evaluated; its bound
+   from the inputs (bytes, and the N (k + 1) pairs of the answer), and
+   beside it the bound over the pairs evaluated and over all N^2; X1 timed
+   again on X1_BIG points;
    `refresh_knn_cache` (its wall time, final buckets, overflow, far demand
    and the trainer's coverage measure) and its two halves timed apart (the
    neighbour search `_cache_inputs`, the graph preparation `_prepare_cache`),
@@ -274,11 +278,19 @@ K2_REL, K3_REL = 1e-4, 1e-6
 # torch.equal, no tolerance (both round every operation once in float32 and
 # order by the same integer key), on the refresh's input and on X1_EDGES:
 # (cloud, N, k) with ties, distances below zero, N = k + 1, N not a multiple
-# of the CTA's 256 rows, and k = 1, 3, 20, 31; k = X1_REFUSED must raise.
+# of a warp's 32 queries or a tile's 128 points, k = 1, 3, 20, 31, clusters of very different
+# density, collinear points (flat tile boxes) and a cloud far from the
+# origin; k = X1_REFUSED must raise.
 X1_EDGES = (("duplicated", 1200, 20), ("cancelling", 600, 20), ("uniform", 21, 20),
-            ("uniform", 1000, 3), ("uniform", 500, 1), ("uniform", 1000, 31))
+            ("uniform", 1000, 3), ("uniform", 500, 1), ("uniform", 1000, 31),
+            ("clusters", 2200, 20), ("collinear", 1500, 20), ("offset", 2200, 20))
 X1_REFUSED = 32
-X1_OPS_PER_PAIR = 7          # three for the cross term, add, double, subtract, compare
+# flops a pair as the fp32 peak counts them: fmul 1, two fma 4, add 1,
+# doubling 1, subtract 1 (the compare none)
+X1_FLOPS_PER_PAIR = 8
+# X1 is also timed on a cloud 4x the refresh's: uniform in the bench box,
+# 4 x 352 rows on the far shell
+X1_BIG = 401_408
 # K6 -> K7 against the plain chain: the kernel reduces d2 by a shuffle
 # butterfly and the loss by CTA partials, torch.sum in another order; every
 # other operation is the same. The loss within KNN_LOSS_REL, every row of
@@ -429,17 +441,42 @@ def bench_cloud(n: int, seed: int = 0) -> dict:
 
 
 def x1_cloud(kind: str, n: int, seed: int = 0) -> np.ndarray:
-    """An X1 edge case's cloud: uniform in a box around z = 2; n // 3 points
-    three times over, shuffled (ties at distance 0); or within ~1e-3 of (60,
-    -40, 90), where |a|^2 + |b|^2 - 2ab cancels to rounding noise, often
-    below zero."""
+    """An X1 edge case's cloud, made by tests/torch_knn_clouds.py (loaded by
+    path), so that the card tests and this run check the same clouds."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_knn_clouds", os.path.join(REPO, "tests", "torch_knn_clouds.py"))
+    clouds = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(clouds)
+    return clouds.knn_cloud(kind, n, seed)
+
+
+def x1_big_cloud(torch, knn, seed: int = 5):
+    """X1_BIG points uniform in the bench box (bench_cloud's means), the
+    last 4 x 352 rows parked on the far shell, on the card."""
     rng = np.random.default_rng(seed)
-    if kind == "cancelling":
-        return (np.float32([60.0, -40.0, 90.0])
-                + rng.uniform(-1e-3, 1e-3, (n, 3)).astype(np.float32))
-    m = n // 3 if kind == "duplicated" else n
-    pts = (rng.uniform(-1, 1, (m, 3)) * [1.0, 0.7, 1.5] + [0, 0, 2]).astype(np.float32)
-    return pts[rng.permutation(np.repeat(np.arange(m), 3))] if kind == "duplicated" else pts
+    pts = np.stack([rng.uniform(-1.0, 1.0, X1_BIG), rng.uniform(-0.7, 0.7, X1_BIG),
+                    rng.uniform(1.2, 3.5, X1_BIG)], 1).astype(np.float32)
+    pts = torch.as_tensor(pts, device=DEVICE)
+    dead = 4 * 352
+    pts[-dead:] = knn.far_shell(X1_BIG, DEVICE)[-dead:]
+    return pts
+
+
+def x1_visits(torch, knn, pts, k: int) -> dict:
+    """X1's tile skip on `pts` (one extra launch through `knn.tile_visits`):
+    tiles scanned by a warp for its 32 queries (mean, max) and their share
+    of all tiles, and the pairs evaluated for the live rows."""
+    v = knn.tile_visits(pts, k).cpu().double()
+    n = pts.shape[0]
+    tiles = knn.layout()
+    nt = -(-n // tiles["tile"])
+    rows = torch.clamp(n - tiles["group"] * torch.arange(v.shape[0], dtype=torch.float64),
+                       max=tiles["group"])
+    return dict(tiles=nt, tiles_mean=float(v[:, 0].mean()), tiles_max=int(v[:, 0].max()),
+                share_mean=float(v[:, 0].mean()) / nt, share_max=float(v[:, 0].max()) / nt,
+                pairs=int((rows * v[:, 1]).sum()), pairs_share=float((rows * v[:, 1]).sum())
+                / (n * n))
 
 
 def x1_against_plain(torch, pts, k: int) -> tuple:
@@ -2138,15 +2175,37 @@ def main():
           f"{refused}", flush=True)
     ms_x1 = time_ms(torch, lambda: knn.knn(x1_pts, k=x1_k), 10, flush)
     plain_x1 = time_ms(torch, lambda: knn.knn_plain(x1_pts, k=x1_k), 2, flush)
-    # reads the points once, writes the k nearest's distances and indices;
-    # N^2 pairs of X1_OPS_PER_PAIR fp32 operations
-    b_x1, by_x1 = bound(n_x1 * 3 * 4 + n_x1 * x1_k * (4 + 8), n_x1 * n_x1 * X1_OPS_PER_PAIR)
+    # the bound from the inputs alone: the points read once, the k nearest's
+    # distances and indices written once, and X1_FLOPS_PER_PAIR for each of
+    # the N (k + 1) pairs the answer holds. Beside it, as diagnostics, the
+    # same flops over the pairs X1 evaluated (the tiles its skip left in)
+    # and over all N^2 pairs (the JAX function's work)
+    visits_x1 = x1_visits(torch, knn, x1_pts, x1_k)
+    x1_bytes = n_x1 * 3 * 4 + n_x1 * x1_k * (4 + 8)
+    b_x1, by_x1 = bound(x1_bytes, n_x1 * (x1_k + 1) * X1_FLOPS_PER_PAIR)
+    seen_x1, _ = bound(x1_bytes, visits_x1["pairs"] * X1_FLOPS_PER_PAIR)
+    all_x1, _ = bound(x1_bytes, n_x1 * n_x1 * X1_FLOPS_PER_PAIR)
     info_x1 = knn.kernel_info(x1_k)
-    print(f"  X1 {ms_x1:.4f} ms (bound {b_x1:.4f} ms, {by_x1}), knn_plain {plain_x1:.1f} ms; "
-          f"{info_x1}", flush=True)
+    print(f"  X1 {ms_x1:.4f} ms (bound {b_x1:.4f} ms, {by_x1}; over the {visits_x1['pairs']} "
+          f"pairs evaluated {seen_x1:.4f} ms, over all N^2 pairs {all_x1:.4f} ms), knn_plain "
+          f"{plain_x1:.1f} ms; "
+          f"tiles visited a warp: mean {visits_x1['tiles_mean']:.2f} "
+          f"({visits_x1['share_mean']:.4f} of {visits_x1['tiles']}), max "
+          f"{visits_x1['tiles_max']} ({visits_x1['share_max']:.4f}); {info_x1}", flush=True)
+    big = x1_big_cloud(torch, knn)
+    ms_big = time_ms(torch, lambda: knn.knn(big, k=x1_k), 5, flush)
+    visits_big = x1_visits(torch, knn, big, x1_k)
+    print(f"  X1 at {X1_BIG} points (bench box, {4 * 352} on the far shell): {ms_big:.4f} ms, "
+          f"{ms_big / ms_x1:.2f}x the {n_x1}-point time; tiles visited a warp: mean "
+          f"{visits_big['tiles_mean']:.2f} ({visits_big['share_mean']:.4f} of "
+          f"{visits_big['tiles']}), max {visits_big['tiles_max']}; pairs "
+          f"{visits_big['pairs']}", flush=True)
+    del big
     rows["X1"] = dict(KERNELS["X1"], max_abs_err=err_x1, ms=ms_x1, plain_ms=plain_x1,
                       bound_ms=b_x1, bound_by=by_x1, library_ms=None, n=n_x1, k=x1_k,
-                      edge_cases=edges_x1, **info_x1)
+                      evaluated_pairs_bound_ms=seen_x1, all_pairs_bound_ms=all_x1,
+                      visits=visits_x1, big_n=X1_BIG,
+                      big_ms=ms_big, big_visits=visits_big, edge_cases=edges_x1, **info_x1)
     del seen
 
     knn_cache, knn_info = refresh_knn(params, aux)

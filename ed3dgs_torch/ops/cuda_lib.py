@@ -93,10 +93,15 @@ SIGNATURES = {
     },
     "knn": {
         "ed3dgs_set_launch_counters": [_P],     # int64 [len(LAUNCH_SLOTS)]
-        # points, cloud scratch, d2, idx, n, k + 1, stream
-        "ed3dgs_knn": [_P, _P, _P, _P, _I, _I, _P],
+        # points, box lo, box hi, codes, n, stream
+        "ed3dgs_knn_codes": [_P, _P, _P, _P, _I, _P],
+        # points, order, cloud, orig, tile boxes, super-tile boxes, d2, idx,
+        # visits (or null), n, k + 1, stream
+        "ed3dgs_knn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
         # k + 1, *registers, *shared bytes, *local bytes, *CTAs per SM
         "ed3dgs_knn_info": [_I, _P, _P, _P, _P],
+        # *points a tile, *tiles a super-tile, *queries a warp
+        "ed3dgs_knn_layout": [_P, _P, _P],
     },
     "png_unfilter": {            # host code (csrc/png_unfilter.cpp)
         # filtered rows, out, height, row bytes, bytes per pixel

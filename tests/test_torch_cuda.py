@@ -31,8 +31,10 @@ and 32, and for embeddings narrower than 32 or wider (E = 48, 64, 100: run
 zero-padded to whole 32-column slabs); the shapes they do not take raise
 ValueError. X1 (the k-NN, csrc/knn.cu) against `knn_plain` bit for bit,
 distances and indices, on ties, distances below zero, N = k + 1, ragged N,
-k from 1 to 31 and the KNN refresh's 100,352-point input, one launch a
-call; k + 1 > 32 raises ValueError. The host PNG unfilter (not a kernel, built with g++) against its
+k from 1 to 31, the KNN refresh's 100,352-point input, clusters,
+collinear points, an offset cloud and pairs at the skip bound's margin,
+one launch a call and no host-device wait; its Morton codes equal the
+plain version's; k + 1 > 32 raises ValueError. The host PNG unfilter (not a kernel, built with g++) against its
 numpy version, byte for byte. Beside the kernels, the serving modules that
 run on the card: `integrate_points` (K4 bins its tiles) within 1e-5 of the
 CPU's, the mesh evaluation's float64 closest points within 1e-6, LPIPS
@@ -62,6 +64,7 @@ from ed3dgs_torch.data.cameras import look_at_camera
 from ed3dgs_torch.ops import (binning, binning_scan, cuda_lib, knn, knn_loss, rasterize_cuda,
                               relayout, segment_sum)
 from ed3dgs_torch.ops.rasterize import RasterConfig, rasterize
+from torch_knn_clouds import knn_cloud
 
 pytestmark = pytest.mark.cuda
 
@@ -421,39 +424,22 @@ def test_packed_segment_sum_is_the_k3_kernel(dev):
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
-def knn_cloud(case, n, seed=0):
-    """The k-NN's clouds, as tests/test_torch_knn.py makes them: uniform in
-    a box around z = 2; n // 3 points three times over, shuffled (ties at
-    distance 0); within ~1e-3 of (60, -40, 90), where |a|^2 + |b|^2 - 2ab
-    cancels to rounding noise (often below zero); or the refresh's input,
-    the last 352 rows parked on the far shell."""
-    rng = np.random.default_rng(seed)
-
-    def uniform(m):
-        return (rng.uniform(-1, 1, (m, 3)) * [1.0, 0.7, 1.5] + [0, 0, 2]).astype(np.float32)
-    if case == "uniform":
-        return uniform(n)
-    if case == "duplicated":
-        return uniform(n // 3)[rng.permutation(np.repeat(np.arange(n // 3), 3))]
-    if case == "cancelling":
-        return (np.float32([60.0, -40.0, 90.0])
-                + rng.uniform(-1e-3, 1e-3, (n, 3)).astype(np.float32))
-    pts = uniform(n)
-    pts[n - 352:] = knn.far_shell(n, "cpu").numpy()[n - 352:]
-    return pts
-
-
 @pytest.mark.parametrize("case,n,k", [
     ("uniform", 2200, 20), ("uniform", 700, 3), ("duplicated", 1200, 20),
     ("cancelling", 600, 20), ("uniform", 21, 20), ("uniform", 500, 1),
-    ("uniform", 1000, 31), ("uniform", 257, 8), ("far-shell", 100_352, 20)])
+    ("uniform", 1000, 31), ("uniform", 257, 8), ("far-shell", 100_352, 20),
+    ("clusters", 2200, 20), ("collinear", 1500, 20), ("offset", 2200, 20),
+    ("margin", 2048, 20), ("clusters", 20_000, 3)])
 def test_knn_kernel_matches_plain(dev, case, n, k):
     """X1 (csrc/knn.cu) against `knn_plain` on the card, distances and
     indices bit for bit: ties (equal distances to the lower index),
-    distances below zero, N = k + 1, N not a multiple of the CTA's 256
-    rows, k from 1 to 31, and the KNN refresh's 100,352-point input. One
-    `knn` call is one launch, by its wrapper and on the card (the device
-    counters); on the smaller clouds the CPU's plain version agrees too."""
+    distances below zero, N = k + 1, N not a multiple of a warp's 32
+    queries or of a tile's 128 points, k from 1 to 31, the KNN refresh's 100,352-point input, clusters
+    of very different density, collinear points (flat tile boxes), a cloud
+    far from the origin and pairs at the skip bound's rounding margin
+    (tests/torch_knn_clouds.py). One `knn` call is one launch, by its
+    wrapper and on the card (the device counters); on the smaller clouds
+    the CPU's plain version agrees too."""
     pts = torch.as_tensor(knn_cloud(case, n), device=dev)
     before = knn.knn.launches
     with cuda_lib.DeviceLaunches() as traced:
@@ -470,6 +456,41 @@ def test_knn_kernel_matches_plain(dev, case, n, k):
     assert torch.equal(again[0], d2) and torch.equal(again[1], idx)
     if case == "cancelling":
         assert float((d2 < 0).float().mean()) > 0.1
+
+
+def test_knn_kernel_skips_tiles_and_sorts_like_the_plain_version(dev):
+    """X1's Morton codes equal `morton_codes_plain`'s and the built library
+    reports the plain mirrors' tile layout; on the refresh's input (far
+    shell included) each warp scans its own tile and at most all of them,
+    and on average a small share (the skip at work); the launch is counted
+    once."""
+    pts = torch.as_tensor(knn_cloud("far-shell", 100_352), device=dev)
+    assert torch.equal(knn.morton_codes(pts).cpu(), knn.morton_codes_plain(pts.cpu()))
+    tiles = knn.layout()
+    assert tiles == dict(tile=knn.TILE, super=knn.SUPER, group=knn.GROUP)
+    before = knn.knn.launches
+    visits = knn.tile_visits(pts, 20).cpu()
+    assert knn.knn.launches == before + 1
+    nt = -(-100_352 // tiles["tile"])
+    assert visits.shape == (100_352 // tiles["group"], 2)
+    assert bool((visits[:, 0] >= 1).all()) and bool((visits[:, 0] <= nt).all())
+    assert int(visits[:, 1].max()) <= 100_352
+    assert float(visits[:, 0].double().mean()) < 0.2 * nt
+
+
+def test_knn_kernel_adds_no_host_wait(dev):
+    """`knn` on the card under sync debug mode "error": no host-device wait
+    (the sort, the scratch and the launches are all enqueued)."""
+    pts = torch.as_tensor(knn_cloud("far-shell", 20_000), device=dev)
+    knn.knn(pts, k=20)       # builds and arms the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d2, idx = knn.knn(pts, k=20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pd2, pidx = knn.knn_plain(pts, k=20)
+    assert torch.equal(idx, pidx) and torch.equal(d2.view(torch.int32), pd2.view(torch.int32))
 
 
 def test_knn_kernel_refuses_what_it_does_not_take(dev):

@@ -2,10 +2,11 @@
 ops/cuda_lib.py `DeviceLaunches`), checked where the CPU can check them: the
 header's slots in the order of `cuda_lib.LAUNCH_SLOTS`, each naming the
 wrapper it counts for; every kernel of every CUDA source counting into its
-wrapper's slot (X1's prologue, which every X1 call also launches, counts
-nothing); every CUDA library exporting the setter; and `DeviceLaunches` with
-no counters on any device measuring nothing. What the counters count on the
-card is held in tests/test_torch_cuda.py and chip_smoke.py.
+wrapper's slot (X1's Morton-code and staging kernels, which every X1 call
+also launches, count nothing); every CUDA library exporting the setter; and
+`DeviceLaunches` with no counters on any device measuring nothing. What the
+counters count on the card is held in tests/test_torch_cuda.py and
+chip_smoke.py.
 """
 
 import importlib
@@ -24,7 +25,8 @@ KERNEL_SLOT = {
     "segment_sum": "GATHER ? SLOT_SEGMENT_SUM : SLOT_SEGMENT_SUM_ROWS",
     "scan_decode": "SLOT_BIN_SCANS", "unpack": "SLOT_UNPACK", "pack": "SLOT_PACK",
     "knn_rows": "SLOT_KNN_ROWS", "knn_rows_wide": "SLOT_KNN_ROWS",
-    "knn_reverse": "SLOT_KNN_REVERSE", "knn_select": "SLOT_KNN", "knn_prologue": None,
+    "knn_reverse": "SLOT_KNN_REVERSE", "knn_select": "SLOT_KNN", "knn_codes": None,
+    "knn_stage": None,
 }
 
 
