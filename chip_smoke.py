@@ -74,8 +74,12 @@ chunk 128):
    the inverse pair permutation (as shipped) and with the gather before K3
    (the unfolded path) and reports the segment_sum stage of each. Then
    `make_densify_step` at the config's gradient threshold (n_cloned,
-   n_split, the alive count, its time) or, where nothing reaches it, at the
-   99.9th percentile of the same statistics, the filter and KNN refreshes
+   n_split, the alive count) or, where nothing reaches it, at the 99.9th
+   percentile of the same statistics: eager (graph=False), then graphed
+   (the default, a CUDA graph per input signature) twice, each from the
+   same state with a generator of the same seed, the graphed results
+   bit-identical to the eager ones (parameters, aux, every Adam moment,
+   n_cloned, n_split), each timed by CUDA events; the filter and KNN refreshes
    (every count set to 0 before the densify step: X1 must launch once),
    and two more steps eager and graphed from the densified state (copied
    into the graphed step's static buffers with the new KNN cache), counted
@@ -180,14 +184,19 @@ chunk 128):
    after its densify: (a) `render(mesh=...)` of one frame over a gauss
    pair (the strip exchange) against `render()` in one process; (b) three
    steps at data=1 x gauss=2 with the strip exchange, batch 1; (c) three
-   steps at data=2 x gauss=1, gspmd, batch 2: each rank's gathered state
+   steps at data=2 x gauss=1, gspmd, batch 2, both eager (graph=False:
+   gloo's collectives cannot be captured; the NCCL graph needs a card a
+   rank, scripts/torch_multi_gpu.py --check): each rank's gathered state
    after the first step held to the single-process step from the same
    state, and every step's loss and PSNR to the single-process run's;
    (d) `python -m torch.distributed.run --nproc_per_node 2 -m
    ed3dgs_torch.tools.train --mesh data=1,gauss=2 --comms strip
    --share_device --dist_backend gloo` for MULTI_CLI_ITERS iterations on
    the cli phase's scene, its checkpoint reloaded and rendered in one
-   process (a test PSNR). Each sub-phase sets every count to 0 just before
+   process (a test PSNR); (e) the sharded step graphed in a world of one
+   on this card (a Mesh(1, 1): the gspmd and strip code captured without a
+   collective), gspmd and strip, against graph=False over (b)'s batches,
+   bit for bit, each step timed. Each of (a)-(c) sets every count to 0 just before
    it and reads it just after: each rank must launch exactly the kernels a
    step needs (K1-K7). It prints each rank's launches, the collectives'
    bytes a step by kind, the steps' host ms on the shared card (a cost,
@@ -1481,7 +1490,8 @@ def multi_rank(rank, world, path):
 
     def run(mesh, setup_m, batches):
         st, ax = shard_train_state(mesh, state, aux)
-        step = make_sharded_train_step(setup_m, optimizer, mesh)
+        # eager: gloo's collectives cannot be captured in a CUDA graph
+        step = make_sharded_train_step(setup_m, optimizer, mesh, graph=False)
         reset()
         metrics, ms, first = [], [], None
         for b in batches:
@@ -1691,9 +1701,61 @@ def multi_phase(torch, snap, cli, tmp):
         fail("multi (d): the reloaded checkpoint does not render")
     out["cli"] = dict(seconds=out["cli_s"], test_psnr=psnr, alive=int(caux.alive.sum()),
                       rows=rows)
+    out["e"] = mesh_graph_check(torch, snap, one)
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"multi: phase {out['wall_s']:.1f} s (world {out['world_s']:.1f} s, torchrun "
           f"{out['cli_s']:.1f} s)", flush=True)
+    return out
+
+
+def mesh_graph_check(torch, snap, batches) -> dict:
+    """(e) of the multi phase: the sharded step's graph on this one card, in
+    a world of one (a Mesh(1, 1): no collective runs, so gloo's limits do
+    not apply, and the NCCL graph itself needs a card a rank:
+    scripts/torch_multi_gpu.py). For gspmd and strip, the graphed sharded
+    step (the default) against the eager one (graph=False) from the same
+    state over `batches` (SSIM on the first: two keys, the last step
+    replays), every state tensor and metric bit for bit, each step timed by
+    CUDA events. Fails on a capture that fails or a tensor that differs."""
+    from dataclasses import replace
+
+    from ed3dgs_torch.parallel.mesh import Mesh
+    from ed3dgs_torch.parallel.sharded import make_sharded_train_step
+
+    mesh = Mesh(1, 1)
+    out = {}
+    for comms in ("gspmd", "strip"):
+        runs = {}
+        for graph in (False, True):
+            step = make_sharded_train_step(replace(snap["setup"], comms=comms),
+                                           snap["optimizer"], mesh, graph=graph)
+            s, a = snap["state"], snap["aux"]
+            tensors, events = [], []
+            for b in batches:
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                s, a, m = step(s, a, b, snap["cache"])
+                e1.record()
+                events.append((e0, e1))
+                tensors.append({k: v.detach().clone() for k, v in state_tensors(s, a, m).items()})
+            torch.cuda.synchronize()
+            runs[graph] = dict(tensors=tensors, ms=[e0.elapsed_time(e1) for e0, e1 in events],
+                               captures=len(step.graphs.captures) if graph and step.graphs
+                               else 0)
+            del step, s, a, m
+        differ = [sorted(k for k in e if not torch.equal(e[k], g[k]))
+                  for e, g in zip(runs[False]["tensors"], runs[True]["tensors"])]
+        out[comms] = dict(bit_for_bit=[not d for d in differ], graphed_ms=runs[True]["ms"],
+                          eager_ms=runs[False]["ms"], captures=runs[True]["captures"])
+        print(f"multi (e) the sharded step graphed in a world of one, {comms}: bit-identical to "
+              f"eager a step {out[comms]['bit_for_bit']}, ms a step (CUDA events) graphed "
+              f"{[round(x, 3) for x in runs[True]['ms']]} eager "
+              f"{[round(x, 3) for x in runs[False]['ms']]}, captures "
+              f"{runs[True]['captures']}", flush=True)
+        if any(differ):
+            fail(f"multi (e): the graphed sharded step ({comms}) differs from the eager one: "
+                 f"{[d[:6] for d in differ]}")
+        del runs
     return out
 
 
@@ -1723,6 +1785,19 @@ def count_waits(torch, fn) -> list:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     return waits
+
+
+def densify_tensors(torch, state, aux, n_cloned, n_split) -> dict:
+    """Clones of what a densify step returns: the cloud, its aux, every
+    Adam moment and count, and the clone and split counts."""
+    out = {f"params/{k}": v for k, v in state.params["gaussians"]._asdict().items()}
+    for g, st in state.opt_state.items():
+        out.update({f"mu/{g}/{k}": v for k, v in st.mu.items()})
+        out.update({f"nu/{g}/{k}": v for k, v in st.nu.items()})
+        out[f"count/{g}"] = torch.tensor(st.count)
+    out.update({f"aux/{k}": v for k, v in aux._asdict().items()})
+    out.update(n_cloned=n_cloned, n_split=n_split)
+    return {k: v.detach().clone() for k, v in out.items()}
 
 
 def state_tensors(state, aux, metrics) -> dict:
@@ -2443,6 +2518,7 @@ def main():
            - TRAIN_ITERATION * (opt.densify_grad_threshold_fine_init
                                 - opt.densify_grad_threshold_after) / opt.densify_until_iter)
     densify_step = make_densify_step(opt, opt.percent_dense, extent)
+    densify_eager = make_densify_step(opt, opt.percent_dense, extent, graph=False)
     n_before = int(taux.alive.sum())
     mean_grad = (taux.xyz_grad_accum / taux.denom.clamp_min(1.0))[taux.alive & (taux.denom > 0)]
     q = torch.quantile(mean_grad, torch.tensor([0.5, 0.99, 0.999], device=mean_grad.device))
@@ -2458,32 +2534,62 @@ def main():
         fn.launches = 0
     # the config's threshold; if that finds nothing hot (random targets give
     # small screen-space gradients), the 99.9th percentile of the same
-    # statistics instead, so that the full-size step clones or splits
+    # statistics instead, so that the full-size step clones or splits. At
+    # each threshold the eager densify step, then the graphed one twice (its
+    # very first call runs eagerly and captures, later ones replay), each
+    # from the same state with a generator of the same seed: bit for bit
     state0, taux0 = state, taux
-    for what, t in (("config", thr), ("99.9th percentile", q[2])):
+
+    def timed(fn, t):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        state, taux, n_c, n_s = densify_step(
-            state0, taux0, torch.Generator(device=DEVICE).manual_seed(0), t)
+        out = fn(state0, taux0, torch.Generator(device=DEVICE).manual_seed(0), t)
         end.record()
         torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
+        return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+    for what, t in (("config", thr), ("99.9th percentile", q[2])):
+        (e_state, e_aux, e_c, e_s), e_ms, e_host = timed(densify_eager, t)
+        want = densify_tensors(torch, e_state, e_aux, e_c, e_s)
+        del e_state, e_aux
+        runs = []
+        for run in ("graphed", "graphed again"):
+            (state, taux, n_c, n_s), ms, host_ms = timed(densify_step, t)
+            got = densify_tensors(torch, state, taux, n_c, n_s)
+            differ = sorted(k for k in want if not torch.equal(want[k], got[k]))
+            runs.append(dict(run=run, ms=ms, host_ms=host_ms, differ=differ))
+            del got
         n_after = int(taux.alive.sum())
+        same = not any(r["differ"] for r in runs)
         print(f"densify step at the {what} threshold {t:.3e} (percent_dense "
               f"{opt.percent_dense}, extent {extent:.4f}): n_cloned {int(n_c)}, n_split "
-              f"{int(n_s)}, alive {n_before} -> {n_after} of {CAPACITY}; "
-              f"{start.elapsed_time(end):.3f} ms (CUDA events), host wall {host_ms:.3f} ms",
-              flush=True)
+              f"{int(n_s)}, alive {n_before} -> {n_after} of {CAPACITY}; eager "
+              f"{e_ms:.3f} ms (CUDA events), host wall {e_host:.3f} ms; graphed: "
+              + "; ".join(f"{r['run']} {r['ms']:.3f} ms (events), host wall "
+                          f"{r['host_ms']:.3f} ms" for r in runs)
+              + f"; graphed bit-identical to eager (params, aux, moments, counts)={same}"
+              + "".join(f"; {r['run']} differs in {r['differ'][:6]}" for r in runs
+                        if r["differ"]), flush=True)
+        if not same:
+            fail("the graphed densify step differs from the eager one")
         if n_after != n_before + int(n_c) + int(n_s):
             fail("the densify step lost count of the Gaussians it added")
         densified.append(dict(threshold=t, n_cloned=int(n_c), n_split=int(n_s),
                               alive_before=n_before, alive_after=n_after,
-                              ms=start.elapsed_time(end), host_ms=host_ms))
+                              ms=runs[1]["ms"], host_ms=runs[1]["host_ms"], eager_ms=e_ms,
+                              eager_host_ms=e_host, first_call_ms=runs[0]["ms"],
+                              first_call_host_ms=runs[0]["host_ms"],
+                              graphed_equals_eager=same))
+        del want
         if n_after > n_before:
             break
+    captures = densify_step.graphs.captures
+    print(f"  densify graph: {len(captures)} capture(s), "
+          f"{sum(c[1] for c in captures):.3f} s with their eager runs, pool "
+          f"{densify_step.graphs.pool_bytes} bytes", flush=True)
     if n_after == n_before:
         fail("no densify step cloned or split")
     del state0, taux0

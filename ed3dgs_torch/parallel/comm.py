@@ -12,6 +12,14 @@ contracts from it: the sharded step all-reduces its gradients and gathers
 nothing larger than the projected payload; the strip render exchanges each
 camera's payload in one all-to-all and never all-gathers it.
 
+A captured step (train/trainer.py `GraphedTrainStep`) calls these
+functions twice for a new key, in its eager first run and while the CUDA
+graph is recorded, and not at all when it replays the graph. The ledger
+records the first run only (nothing while the current stream captures);
+the step keeps those records per key and appends them again on each
+replay (`Ledger.replay`), marked `replayed`, so that a graphed and an
+eager run of the same steps leave the same collectives in the ledger.
+
   * `all_to_all(x, mesh, axis, tag)`: x [n*k, ...] split in n equal row
     blocks, block j to rank j of the axis. Its backward is the same
     exchange of the cotangent (the reverse all-to-all).
@@ -33,7 +41,7 @@ world whose ranks share a card moves its tensors as they are.
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.distributed as dist
@@ -51,6 +59,7 @@ class Record:
     bytes: int      # the result's bytes on this rank
     tag: str
     backward: bool  # called from autograd's backward
+    replayed: bool = False   # appended for a replay of a captured graph
 
 
 class Ledger:
@@ -65,7 +74,14 @@ class Ledger:
     def add(self, kind, axis, t: torch.Tensor, tag, backward=False):
         if tag not in TAGS:
             raise ValueError(f"tag {tag!r}: want one of {TAGS}")
+        if t.is_cuda and torch.cuda.is_current_stream_capturing():
+            return      # a graph being recorded: its eager first run was counted
         self.records.append(Record(kind, axis, t.numel() * t.element_size(), tag, backward))
+
+    def replay(self, records):
+        """Append `records` (a captured graph's collectives, from its eager
+        first run) as the collectives of one replay of that graph."""
+        self.records.extend(replace(r, replayed=True) for r in records)
 
     def summary(self) -> dict:
         """{kind: {tag: {"count", "bytes", "max_bytes"}}}."""

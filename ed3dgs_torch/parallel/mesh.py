@@ -38,7 +38,8 @@ class Mesh:
     `shape` is {"data": D, "gauss": G}; `d` and `g` are this rank's position;
     `group(axis)` is the process group of the ranks that differ from this
     one only along `axis` ("world" for all of them), or None where that
-    group is this process alone."""
+    group is this process alone; `backend` is the world's torch.distributed
+    backend ("nccl" or "gloo"), None for a lone process."""
 
     def __init__(self, data: int = 1, gauss: int = 1):
         rank, world = _world()
@@ -49,8 +50,10 @@ class Mesh:
         self.rank = rank
         self.d, self.g = divmod(rank, gauss)
         self._groups = {"data": None, "gauss": None, "world": None}
+        self.backend = None
         if world == 1:
             return
+        self.backend = dist.get_backend()
         self._groups["world"] = dist.group.WORLD
         for d in range(data):
             grp = dist.new_group([d * gauss + g for g in range(gauss)])

@@ -82,14 +82,19 @@ def shard_knn_cache(mesh: Mesh, cache):
     return cache
 
 
-def make_sharded_train_step(setup, optimizer, mesh: Mesh):
+def make_sharded_train_step(setup, optimizer, mesh: Mesh, graph: bool = True):
     """The train step of `setup` on `mesh`: (state, aux, batch, knn_cache) ->
     (state, aux, metrics) on this rank's shards (shard_train_state,
-    shard_batch, shard_knn_cache); the metrics are global."""
+    shard_batch, shard_knn_cache); the metrics are global. graph=True (the
+    default, as the JAX function always jits) captures each rank's step
+    with its collectives as a CUDA graph per key on the card (NCCL only:
+    a gloo mesh on the card raises) and runs the same path eagerly on the
+    CPU; graph=False is the eager step (train/trainer.py
+    `make_train_step`)."""
     from dataclasses import replace
 
     from ..train.trainer import make_train_step
-    return make_train_step(replace(setup, mesh=mesh), optimizer, graph=False)
+    return make_train_step(replace(setup, mesh=mesh), optimizer, graph=graph)
 
 
 def gathered_rasterize(proj, tongue, bg, cfg, mesh: Mesh):

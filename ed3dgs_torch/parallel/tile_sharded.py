@@ -157,10 +157,12 @@ def _strip_raster(payload, depth, valid, rect_min, rect_max, bg, *, cfg: RasterC
     lrect_min = torch.stack([r_rmin[:, 0], lmin_y], 1)
     lrect_max = torch.stack([r_rmax[:, 0], lmax_y], 1)
 
-    # mean2d to strip-local pixels; rays keep the full image's origin
+    # mean2d to strip-local pixels; rays keep the full image's origin. The
+    # shift's one-hot is made on the device: a captured step copies nothing
+    # from the host
     y0p = float(y0t * TILE)
-    shift = torch.zeros(F, dtype=torch.float32, device=payload.device)
-    shift[PAYLOAD_SLICES["mean2d"].start + 1] = 1.0
+    shift = (torch.arange(F, device=payload.device)
+             == PAYLOAD_SLICES["mean2d"].start + 1).to(torch.float32)
     r_payload = r_payload - shift * y0p
     out = rasterize_rows(r_payload, r_depth, tiles > 0, lrect_min, lrect_max, tiles, bg,
                          replace(cfg, height=strip_rows * TILE), grid_x=grid_x,

@@ -15,12 +15,17 @@ train step (train/trainer.py), moves the pair capacity with the pair demand
 graph on the reference's cadences (train.py:123-452).
 
 It runs on the card unless `--device cpu` is passed; without a GPU the
-default raises. On the card the step and the test render replay CUDA graphs
-captured per key (trainer.GraphedTrainStep, tools.FrameRenderer), as the
-JAX tool jits them; a pair-capacity change captures anew, and the state a
-densify step returns and each new KNN cache are copied into the step's
-static buffers; with `--mesh` both run op by op. `--backend` is accepted
-for the JAX tool's command lines and ignored: the port has one backend. Densification draws come from a
+default raises. On the card the step, the densify step and the test render
+replay CUDA graphs captured per key (trainer.GraphedTrainStep,
+trainer.GraphedDensifyStep, tools.FrameRenderer), as the JAX tool jits
+them; a pair-capacity or send-capacity change captures anew, and the state
+a densify step returns and each new KNN cache are copied into the step's
+static buffers. With `--mesh` over NCCL each rank replays its own graph of
+the sharded step, the collectives inside it; over gloo (ranks sharing a
+card, or the CPU) the sharded step runs op by op, as gloo's collectives
+cannot be captured, and the test render runs op by op on any mesh.
+`--backend` is accepted for the JAX tool's command lines and ignored: the
+port has one backend. Densification draws come from a
 `torch.Generator` seeded by `--seed`: the JAX package's `PRNGKey` stream
 cannot be reproduced, so the two tools densify with different noise.
 
@@ -273,9 +278,9 @@ def run_training(cfg, args):
     each iteration's first read of the step's results waited, the test
     PSNRs, the densify events, the pair-capacity changes, the alive counts
     at start and end, the stager's decode and wait ms, and per graph cache
-    (each train step made, the test render) its name, captures, their
-    seconds and its pool bytes. With --mesh the
-    state and aux are whole (gathered) on every rank."""
+    (each train step made, the densify step, the test render) its name,
+    captures, their seconds and its pool bytes. With --mesh the state and
+    aux are whole (gathered) on every rank."""
     import torch
 
     from ..data.native_staging import Stager
@@ -353,9 +358,10 @@ def run_training(cfg, args):
             print(f"resumed from {args.start_checkpoint} at iteration {first_iter}",
                   flush=True)
 
-    # one CUDA graph per key on the card, as the JAX tool jits the step; the
-    # sharded step is eager, as the JAX tool's is not jitted whole on a mesh
-    graph = mesh is None
+    # one CUDA graph per key on the card, as the JAX tool jits the step (and
+    # the sharded step, ed3dgs_tpu/parallel/sharded.py:111); gloo's
+    # collectives cannot be captured, so a gloo mesh takes the eager step
+    graph = mesh is None or mesh.backend != "gloo"
     step_fn = make_train_step(setup, optimizer, graph=graph)
     captured = []               # the captures of each step and graph cache released
     densify_fn = make_densify_step(opt, opt.percent_dense, scene.cameras_extent)
@@ -650,7 +656,8 @@ def run_training(cfg, args):
     state, aux = whole(state, aux)
     log.update(points_end=int(aux.alive.sum()), decode_ms=list(stager.decode_ms),
                wait_ms=list(stager.wait_ms), first_iter=first_iter,
-               graph_captures=captured + _graph_stats(step_fn) + _graph_stats(eval_frame))
+               graph_captures=(captured + _graph_stats(step_fn) + _graph_stats(densify_fn)
+                               + _graph_stats(eval_frame)))
     return scene, state, aux, log
 
 

@@ -51,6 +51,7 @@ from ..parallel import comm
 from ..parallel import sharded as psh
 from ..parallel.tile_sharded import batched_strip_rasterize
 from ..render import RenderSettings, assemble_outputs, project_for_render, render
+from ..utils.graphs import GraphedFunction, PinnedScalars, agree_on_key
 from . import losses as L
 from .densify import add_densification_stats, densify
 from .optim import (GROUPS, AdamState, TrainState, build_optimizer, flatten_params,
@@ -512,18 +513,28 @@ def make_train_step(setup: TrainSetup, optimizer, graph: bool = True):
     as a captured CUDA graph per key (`GraphedTrainStep`: the state it
     returns is its static buffers, which the next call overwrites); on a
     CPU state the same path runs eagerly. graph=False gives the eager,
-    functional step on any device. On a mesh
-    (`setup.mesh`), state, aux and batch are this rank's shards
-    (parallel/sharded.py) and the metrics are global; that step is eager
-    (graph=False), and graph=True raises."""
+    functional step on any device. On a mesh (`setup.mesh`), state, aux
+    and batch are this rank's shards (parallel/sharded.py) and the metrics
+    are global; graph=True then captures each rank's step with its
+    collectives (the counterpart of the jitted `make_sharded_train_step`,
+    ed3dgs_tpu/parallel/sharded.py:111), which NCCL allows and gloo does
+    not: on the card a gloo mesh raises at the first call
+    (`check_capturable`), and takes graph=False."""
     check_supported(setup)
     if graph:
-        if setup.mesh is not None:
-            raise ValueError("graph=True with a mesh: the sharded step is not captured as a "
-                             "CUDA graph yet (capturing the NCCL step is a later slice of "
-                             "the port); pass graph=False")
         return GraphedTrainStep(setup, optimizer)
     return _eager_step(setup, optimizer)
+
+
+def check_capturable(setup: TrainSetup, device):
+    """Raise unless the step of `setup` can be captured on `device`: a
+    mesh's collectives on the card are captured only over NCCL (gloo runs
+    its collectives on the host)."""
+    mesh = setup.mesh
+    if torch.device(device).type == "cuda" and mesh is not None and mesh.backend == "gloo":
+        raise ValueError("graph=True on the card with a gloo mesh: gloo's collectives cannot "
+                         "be captured in a CUDA graph; pass graph=False (the eager step), or "
+                         "give each rank a GPU of its own and use nccl")
 
 
 def _eager_step(setup: TrainSetup, optimizer):
@@ -543,7 +554,7 @@ def _eager_step(setup: TrainSetup, optimizer):
 _KNN_FIELDS = ("pi", "inv", "nbr", "w", "coef", "rev_ptr", "rev_pair")   # what the step reads
 
 
-class GraphedTrainStep:
+class GraphedTrainStep(GraphedFunction):
     """The train step as a CUDA graph captured per key and replayed: the
     port's `jax.jit(train_step)`.
 
@@ -569,34 +580,50 @@ class GraphedTrainStep:
     A new input signature (other shapes) gets new static buffers, and the
     graphs captured on the old ones are dropped.
 
+    On a mesh each rank holds the static buffers of its shards and captures
+    its own graph, the step's collectives (the gathers and all-to-alls of
+    the forward and of autograd's backward, the gradient and metric
+    reductions) inside it. Before a key's first run the ranks agree on it
+    (utils/graphs.py `agree_on_key`); a replay is not checked, so every
+    part of the key is a value all ranks share (the iteration, the SSIM
+    gate of the identically seeded sampler, the shapes, which capacities
+    that follow max-reduced metrics set). A replay appends the collectives
+    of the key's first run to parallel/comm.py's ledger.
+
     On a CPU state the same prepare, body and return run eagerly, without
     a graph (the CPU has none): bit for bit the eager step."""
 
     def __init__(self, setup: TrainSetup, optimizer):
+        super().__init__("train step")
         check_supported(setup)
         self.setup, self.optimizer = setup, optimizer
         self.loss_and_grads = make_loss_and_grads(setup)
-        self.graphs = None           # GraphCache, made at the first card call
-        self._static = None          # the static buffers of one input signature
-        self._signature = None
+        self._agreed = set()         # keys the mesh's ranks agreed on
+        self._records = {}           # key -> the ledger records of its first run
 
     def __call__(self, state: TrainState, aux: gm.GaussianAux, batch, knn_cache: KnnCache):
-        on_card = aux.alive.is_cuda
+        check_capturable(self.setup, aux.alive.device)
         named = self._inputs(state, aux, batch, knn_cache)
         iteration = int(state.iteration)
         key = (step_branches(self.setup, iteration, batch), self._shapes(named))
-        st = self._prepare(key[1], named, state, aux, batch, knn_cache)
+        st = self.prepare(key[1], named,
+                          lambda: self._allocate(named, state, aux, batch, knn_cache))
         scalars = torch.cat([self.optimizer.update_table(state.opt_state, aux.alive.device)
                              .reshape(-1), torch.tensor([float(iteration)])])
         st["scalars"].write(scalars)
         body = self._body(st, key[0], iteration)
-        if on_card:
-            if self.graphs is None:
-                from ..utils.graphs import GraphCache
-                self.graphs = GraphCache(aux.alive.device, "train step")
-            metrics = self.graphs.run(key, body)
-        else:
-            metrics = body()
+        mesh = self.setup.mesh
+        if mesh is not None and key not in self._agreed:
+            if mesh.group("world") is not None:
+                agree_on_key(key, mesh.group("world"), aux.alive.device)
+            self._agreed.add(key)
+        replay = self.graphs is not None and key in self.graphs
+        first = len(comm.ledger.records)
+        metrics = self.run(key, body, aux.alive.device)
+        if mesh is not None and replay:
+            comm.ledger.replay(self._records[key])
+        elif mesh is not None:
+            self._records[key] = comm.ledger.records[first:]
         opt_state = {g: AdamState(state.opt_state[g].count + 1, st["mu"][g], st["nu"][g])
                      for g in GROUPS}
         return TrainState(st["params_tree"], opt_state, iteration + 1), st["aux"], metrics
@@ -633,24 +660,8 @@ class GraphedTrainStep:
             out.append((name, shape, t.dtype))
         return tuple(out)
 
-    def _prepare(self, signature, named, state, aux, batch, knn_cache) -> dict:
-        """The static buffers, with this call's inputs copied in."""
-        if signature != self._signature:
-            # new shapes (or the first call): new buffers, and the graphs
-            # that read and write the old ones go
-            self._static = self._allocate(named, state, aux, batch, knn_cache)
-            self._signature = signature
-            if self.graphs is not None:
-                self.graphs.clear()
-        from ..utils.graphs import copy_in
-        st = self._static
-        for name, t in named.items():
-            copy_in(st["flat"][name], t)
-        return st
-
     @staticmethod
     def _allocate(named, state, aux, batch, knn_cache) -> dict:
-        from ..utils.graphs import PinnedScalars
         flat = {}
         for name, t in named.items():
             if name.endswith("/rev_pair"):
@@ -714,11 +725,21 @@ class GraphedTrainStep:
 
 
 def make_densify_step(opt_cfg: OptimizationConfig, percent_dense: float,
-                      scene_extent: float):
+                      scene_extent: float, graph: bool = True):
     """(state, aux, generator, grad_threshold[, noise]) -> (state, aux,
     n_cloned, n_split): densify the cloud (train/densify.py) and zero the
-    Adam moments of every slot it touched. The caller then refreshes the 3D
-    filter and the KNN cache, as tools/train.py does."""
+    Adam moments of every slot it touched, the counterpart of
+    ed3dgs_tpu/train/trainer.py:481-497 (jitted). The caller then refreshes
+    the 3D filter and the KNN cache, as tools/train.py does; n_cloned and
+    n_split are 0-d tensors on the cloud's device, for the caller to read
+    after the step.
+
+    graph=True (the default) runs it on the card as a CUDA graph captured
+    per input signature (`GraphedDensifyStep`; on a CPU state the same path
+    runs eagerly); graph=False gives the eager, functional step."""
+    if graph:
+        return GraphedDensifyStep(opt_cfg, percent_dense, scene_extent)
+
     def densify_step(state: TrainState, aux, generator, grad_threshold, noise=None):
         res = densify(state.params["gaussians"], aux, generator,
                       grad_threshold=grad_threshold, percent_dense=percent_dense,
@@ -731,6 +752,100 @@ def make_densify_step(opt_cfg: OptimizationConfig, percent_dense: float,
                 res.n_split)
 
     return densify_step
+
+
+class GraphedDensifyStep(GraphedFunction):
+    """The densify step as a CUDA graph captured per input signature and
+    replayed: the port's jitted `make_densify_step`.
+
+    Each call copies the cloud's parameters, its aux arrays, the Adam
+    moments of its rows and the split children's noise into static buffers
+    (each unless it is that buffer already), writes the gradient threshold
+    to the card through pinned memory (utils/graphs.py `PinnedScalars`), and
+    replays the graph, which writes the densified cloud, its aux and the
+    moments back into the static buffers. The noise is drawn before the
+    replay from the caller's generator, the draw the eager step makes
+    inside: with the same generator state both give the same bits. The
+    deformation network and its moments are not touched and pass through.
+    The returned state and aux ARE the static buffers, which the next call
+    overwrites, and n_cloned and n_split the graph's own outputs.
+
+    On a CPU state the same prepare, body and return run eagerly."""
+
+    def __init__(self, opt_cfg: OptimizationConfig, percent_dense: float, scene_extent: float):
+        super().__init__("densify step")
+        self.percent_dense, self.scene_extent = percent_dense, scene_extent
+        self.max_gaussians = opt_cfg.max_number_gaussians
+
+    def __call__(self, state: TrainState, aux, generator, grad_threshold, noise=None):
+        C = aux.alive.shape[0]
+        dev = aux.alive.device
+        if noise is None:
+            noise = torch.randn((2, C, 3), generator=generator, device=dev)
+        named = self._inputs(state, aux, noise)
+        signature = tuple((k, tuple(t.shape), t.dtype) for k, t in named.items())
+        st = self.prepare(signature, named, lambda: self._allocate(named, state, aux))
+        st["threshold"].write(torch.tensor([float(grad_threshold)]))
+        counts = self.run(signature, self._body(st), dev)
+        params = dict(state.params)
+        params["gaussians"] = st["params"]
+        opt_state = {g: s._replace(mu={**s.mu, **st["mu"][g]}, nu={**s.nu, **st["nu"][g]})
+                     for g, s in state.opt_state.items()}
+        return (TrainState(params, opt_state, state.iteration), st["aux"], counts["n_cloned"],
+                counts["n_split"])
+
+    @staticmethod
+    def _inputs(state, aux, noise) -> dict:
+        """{name: tensor} of every tensor the step reads and writes: the
+        moments of the cloud's rows only (leading dimension the capacity)."""
+        C = aux.alive.shape[0]
+        gp = state.params["gaussians"]
+        named = {f"params/{f}": getattr(gp, f) for f in gp._fields}
+        named.update({f"aux/{f}": getattr(aux, f) for f in aux._fields})
+        for g, s in state.opt_state.items():
+            for part in ("mu", "nu"):
+                named.update({f"{part}/{g}/{p}": t for p, t in getattr(s, part).items()
+                              if t.dim() >= 1 and t.shape[0] == C})
+        named["noise"] = noise
+        return named
+
+    @staticmethod
+    def _allocate(named, state, aux) -> dict:
+        flat = {k: torch.empty_like(t, memory_format=torch.contiguous_format)
+                for k, t in named.items()}
+        gp = state.params["gaussians"]
+        moments = {part: {g: {k.split("/", 2)[2]: t for k, t in flat.items()
+                              if k.startswith(f"{part}/{g}/")} for g in state.opt_state}
+                   for part in ("mu", "nu")}
+        return {
+            "flat": flat, "mu": moments["mu"], "nu": moments["nu"],
+            "params": gp._replace(**{f: flat[f"params/{f}"] for f in gp._fields}),
+            "aux": aux._replace(**{f: flat[f"aux/{f}"] for f in aux._fields}),
+            "threshold": PinnedScalars(1, aux.alive.device),
+        }
+
+    def _body(self, st: dict):
+        """The densify step on the static buffers, writing its results back
+        into them; returns the counts. The threshold is read on the card."""
+        def body():
+            res = densify(st["params"], st["aux"], grad_threshold=st["threshold"].values[0],
+                          percent_dense=self.percent_dense, scene_extent=self.scene_extent,
+                          max_gaussians=self.max_gaussians, noise=st["flat"]["noise"])
+            reset = reset_moments_at({g: AdamState(0, st["mu"][g], st["nu"][g])
+                                      for g in st["mu"]}, res.reset_mask)
+            for old, new in zip(st["params"], res.params):
+                old.copy_(new)
+            for old, new in zip(st["aux"], res.aux):
+                if new is not old:
+                    old.copy_(new)
+            for g, moments in reset.items():
+                for p, t in moments.mu.items():
+                    st["mu"][g][p].copy_(t)
+                for p, t in moments.nu.items():
+                    st["nu"][g][p].copy_(t)
+            return {"n_cloned": res.n_cloned, "n_split": res.n_split}
+
+        return body
 
 
 def init_train_state(params: gm.GaussianParams, hidden: DeformHiddenConfig,

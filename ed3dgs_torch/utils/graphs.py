@@ -26,6 +26,30 @@ A capture that fails raises `GraphCaptureError` with its cause (a host read
 of a device value, a copy from pageable memory, a synchronise): nothing
 falls back to running eagerly.
 
+Across the ranks of a torch.distributed world (the sharded step over
+NCCL), each rank captures its own graph of a key, the step's collectives
+inside it. Two ranks replaying graphs of different keys would leave NCCL
+waiting forever, so before a key's first run the ranks `agree_on_key`:
+they all-gather one int64 hash of it and raise `GraphKeyMismatch` unless
+all hold the same. Replays are not checked (a check would cost a
+collective and a host wait a step): every value a key is made of must
+be one all ranks share (the iteration, the SSIM gate of the identically
+seeded sampler, capacities that follow max-reduced metrics), so that
+all ranks reach the same keys at the same calls. ProcessGroupNCCL's
+watchdog thread queries the events of earlier collectives while a
+capture is open, which a capture in the default "global" error mode
+takes as an unsafe call from another thread; so while a
+torch.distributed world is up on this process, every capture (a step
+with collectives or not) uses `capture_error_mode="thread_local"`,
+which checks only the capturing thread's calls. The NCCL communicators
+exist before the capture: the eager first run made them.
+
+`GraphedFunction` is the base of a function graphed on static buffers
+(the train step, the densify step): the buffers of its current input
+signature (new ones, and no graphs, when the signature changes), the
+copy-in of each call's inputs, and `run`, which replays or captures on
+the card and calls the body eagerly on the CPU.
+
 A replay calls no kernel wrapper, and a wrapper called during a capture
 launches nothing and counts nothing (ops/cuda_lib.py `count_launch`): the
 kernels a replay runs count themselves on the card
@@ -40,13 +64,60 @@ This module imports only torch and the standard library.
 
 from __future__ import annotations
 
+import hashlib
 import time
+import warnings
 
 import torch
 
 
 class GraphCaptureError(RuntimeError):
     """A body could not be captured; its cause is the exception's __cause__."""
+
+
+class GraphKeyMismatch(RuntimeError):
+    """The ranks of a world were about to run different keys."""
+
+
+def key_hash(key) -> int:
+    """A hash of `key` that every process computes alike (Python's `hash`
+    of a string differs between processes): int64 of its repr's blake2b."""
+    digest = hashlib.blake2b(repr(key).encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "little", signed=True)
+
+
+def agree_on_key(key, group, device):
+    """Raise `GraphKeyMismatch` on every rank of `group` unless all of them
+    pass the same key: one all-gather of an int64 hash on `device` (a
+    collective of its own, which parallel/comm.py's ledger does not
+    count), read on the host. Called before a key's first run only: a
+    replay is not checked."""
+    import torch.distributed as dist
+
+    mine = key_hash(key)
+    gathered = torch.empty(dist.get_world_size(group), dtype=torch.int64, device=device)
+    with warnings.catch_warnings():
+        # deprecated in favour of all_gather_single in newer PyTorch; the
+        # card machine's release has only this one
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(gathered, torch.tensor([mine], dtype=torch.int64,
+                                                           device=device), group=group)
+    hashes = gathered.tolist()
+    differ = [r for r, h in enumerate(hashes) if h != mine]
+    if differ:
+        raise GraphKeyMismatch(
+            f"rank {dist.get_rank()} holds key {key!r} (hash {mine}); ranks {differ} hold "
+            f"other keys (hashes {[hashes[r] for r in differ]}): the ranks would run "
+            "different steps")
+
+
+def capture_error_mode() -> str:
+    """"thread_local" while a torch.distributed world is up on this process
+    (NCCL's watchdog thread queries events during a capture), else the
+    default "global"."""
+    import torch.distributed as dist
+
+    return "thread_local" if dist.is_available() and dist.is_initialized() else "global"
 
 
 class GraphCache:
@@ -99,7 +170,8 @@ class GraphCache:
         graph = torch.cuda.CUDAGraph()
         failure, grown = None, 0
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode=capture_error_mode()):
                 reserved = torch.cuda.memory_reserved(self.device)
                 try:
                     got = body()
@@ -145,6 +217,41 @@ class PinnedScalars:
         self._host[i].copy_(values)
         self.values.copy_(self._host[i], non_blocking=True)
         self._copied[i].record()
+
+
+class GraphedFunction:
+    """The base of a function graphed on static buffers: `graphs` (a
+    `GraphCache`, made at the first run on the card), `static` (the
+    buffers of the current input signature: a dict whose "flat" entry maps
+    each input's name to its buffer) and `signature`."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.graphs = None
+        self.static = None
+        self.signature = None
+
+    def prepare(self, signature, named: dict, allocate) -> dict:
+        """The static buffers with `named`'s tensors copied in. A new
+        signature (or the first call) gets new buffers from `allocate()`,
+        and the graphs captured on the old ones go."""
+        if signature != self.signature:
+            self.static = allocate()
+            self.signature = signature
+            if self.graphs is not None:
+                self.graphs.clear()
+        for name, t in named.items():
+            copy_in(self.static["flat"][name], t)
+        return self.static
+
+    def run(self, key, body, device) -> dict:
+        """`body()` replayed (or run and captured) as the key's graph on the
+        card; called eagerly on the CPU."""
+        if torch.device(device).type != "cuda":
+            return body()
+        if self.graphs is None:
+            self.graphs = GraphCache(device, self.name)
+        return self.graphs.run(key, body)
 
 
 def same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:

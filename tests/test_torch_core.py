@@ -4,6 +4,7 @@ Inputs come from numpy seeds and go through both packages; outputs are
 compared at atol 1e-5 (float32 arithmetic in a different op order)."""
 
 import dataclasses
+import glob
 import math
 import os
 
@@ -165,9 +166,13 @@ def test_camera_math_matches_jax():
         close(getattr(cj, name), getattr(ct, name), atol=0, msg=name)
 
 
-@pytest.mark.parametrize("name", ["nersemble/default.py",
-                                  "nersemble/407_tongue.py", "dynerf/default.py"])
+CONFIGS = sorted(os.path.relpath(p, os.path.join(REPO, "configs")) for p in glob.glob(
+    os.path.join(REPO, "configs", "**", "*.py"), recursive=True))
+
+
+@pytest.mark.parametrize("name", CONFIGS)
 def test_config_loader_matches_jax(name):
+    """Every config file of the repo loads to the JAX loader's values."""
     path = os.path.join(REPO, "configs", name)
     a = dataclasses.asdict(j_load_full_config(path, {"net_width": 16}))
     b = dataclasses.asdict(load_full_config(path, {"net_width": 16}))

@@ -1118,7 +1118,8 @@ def test_graphed_step_equals_the_eager_step(dev):
     eager = trainer.make_train_step(setup, optimizer, graph=False)
     graphed = trainer.make_train_step(setup, optimizer)
     assert isinstance(graphed, trainer.GraphedTrainStep)
-    densify = trainer.make_densify_step(OptimizationConfig(), 0.01, 2.0)
+    densify = [trainer.make_densify_step(OptimizationConfig(), 0.01, 2.0, graph=graph)
+               for graph in (False, True)]
     e, g = (state, aux), (state, aux)
     counts = {"rasterize_cuda.rasterize_forward": 2, "rasterize_cuda.rasterize_backward": 2,
               "segment_sum.segment_sum_rows": 2, "binning_scan.fused_bin_scans": 2,
@@ -1128,8 +1129,8 @@ def test_graphed_step_equals_the_eager_step(dev):
     replayed = []
     for i, ssim in enumerate((True, False, True, True, True, False, False, False)):
         if i == 4:        # densify, then the filter and KNN refreshes
-            out = [densify(s[0], s[1], torch.Generator(device=dev).manual_seed(1), 1e-9)
-                   for s in (e, g)]
+            out = [step(s[0], s[1], torch.Generator(device=dev).manual_seed(1), 1e-9)
+                   for step, s in zip(densify, (e, g))]
             e, g = (out[0][0], out[0][1]), (out[1][0], out[1][1])
             assert int(out[0][2]) + int(out[0][3]) > 0
             cache = trainer.update_knn_cache(e[0].params["gaussians"], e[1])

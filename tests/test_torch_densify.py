@@ -113,19 +113,26 @@ def test_densify_draws_from_the_generator():
     assert not torch.equal(a.params.xyz, c.params.xyz)
 
 
-def test_make_densify_step_matches_jax(tmp_path):
-    """Through the densify step of both trainers, from the same state one
-    update into training (carried across by a JAX checkpoint): parameters,
-    aux, the counts, and every Adam moment (zeroed at the touched slots)."""
+@pytest.fixture(scope="module")
+def one_update(tmp_path_factory):
+    """JAX's state one update into training, and the port's copy of it
+    (carried across by a JAX checkpoint)."""
     _, s1, a1 = jax_state_one_update_on()
     it = int(s1.iteration)
-    save_checkpoint(str(tmp_path), it, s1, a1)
-    tstate, taux = convert.load_checkpoint(str(tmp_path / f"chkpnt{it}.npz"), device="cpu")
+    path = tmp_path_factory.mktemp("densify_step")
+    save_checkpoint(str(path), it, s1, a1)
+    tstate, taux = convert.load_checkpoint(str(path / f"chkpnt{it}.npz"), device="cpu")
+    return s1, a1, tstate, taux
+
+
+def _densify_step_against_jax(one_update, graph):
+    s1, a1, tstate, taux = one_update
+    it = int(s1.iteration)
     jopt, opt = JOpt(max_number_gaussians=230), OptimizationConfig(max_number_gaussians=230)
     key = jax.random.PRNGKey(3)
     thr = 4e-4
     js, ja, jn_c, jn_s = jtrainer.make_densify_step(jopt, 0.01, 5.0)(s1, a1, key, thr)
-    ts, ta, tn_c, tn_s = trainer.make_densify_step(opt, 0.01, 5.0)(
+    ts, ta, tn_c, tn_s = trainer.make_densify_step(opt, 0.01, 5.0, graph=graph)(
         tstate, taux, None, thr, noise=torch.as_tensor(jax_noise(key, taux.alive.shape[0])))
     assert (int(tn_c), int(tn_s)) == (int(jn_c), int(jn_s))
     assert int(tn_c) > 0 and int(tn_s) > 0
@@ -147,3 +154,59 @@ def test_make_densify_step_matches_jax(tmp_path):
     # the deformation network is untouched
     for k, v in optim.flatten_params(ts.params["deform"]).items():
         np.testing.assert_array_equal(v.numpy(), flatten_pytree(js.params["deform"])[k])
+
+
+def test_make_densify_step_matches_jax(one_update):
+    """Through the densify step of both trainers (the port's default, the
+    graphed step's path, run eagerly on the CPU), from the same state one
+    update into training: parameters, aux, the counts, and every Adam
+    moment (zeroed at the touched slots)."""
+    _densify_step_against_jax(one_update, graph=True)
+
+
+def test_eager_densify_step_matches_jax(one_update):
+    """The same through the eager densify step (graph=False)."""
+    _densify_step_against_jax(one_update, graph=False)
+
+
+def _step_tensors(state, aux, n_c, n_s) -> dict:
+    out = {f"params/{k}": v for k, v in optim.flatten_params(state.params).items()}
+    for g, st in state.opt_state.items():
+        out.update({f"mu/{g}/{k}": v for k, v in st.mu.items()})
+        out.update({f"nu/{g}/{k}": v for k, v in st.nu.items()})
+        out[f"count/{g}"] = torch.tensor(st.count)
+    out.update({f"aux/{k}": v for k, v in aux._asdict().items()})
+    out.update(n_cloned=n_c, n_split=n_s, iteration=torch.tensor(state.iteration))
+    return {k: v.clone() for k, v in out.items()}
+
+
+def test_graphed_densify_equals_the_eager_step(one_update):
+    """The graphed densify step (its static buffers, the threshold read
+    from the device, the noise drawn from the caller's generator before the
+    step) equals the eager one bit for bit over two calls with different
+    thresholds, each path with a generator of the same seed; fresh
+    densification statistics come in between, as training steps would
+    leave them. The returned tensors are the static buffers: the second
+    call writes into the first call's results."""
+    _, _, tstate, taux = one_update
+    opt = OptimizationConfig(max_number_gaussians=256)
+    eager = trainer.make_densify_step(opt, 0.01, 5.0, graph=False)
+    graphed = trainer.make_densify_step(opt, 0.01, 5.0)
+    assert isinstance(graphed, trainer.GraphedDensifyStep)
+    rng = np.random.default_rng(4)
+    accum = torch.as_tensor(rng.uniform(0, 1e-3, taux.alive.shape[0]).astype(np.float32))
+    gens = [torch.Generator().manual_seed(11) for _ in range(2)]
+    e, g = (tstate, taux), (tstate, taux)
+    for call, thr in enumerate((8e-4, 3e-4)):
+        es, ea, en_c, en_s = eager(e[0], e[1], gens[0], thr)
+        gs, ga, gn_c, gn_s = graphed(g[0], g[1], gens[1], thr)
+        want, got = _step_tensors(es, ea, en_c, en_s), _step_tensors(gs, ga, gn_c, gn_s)
+        assert int(want["n_cloned"]) > 0 and int(want["n_split"]) > 0, call
+        differ = [k for k in want if not torch.equal(want[k], got[k])]
+        assert not differ, (call, differ[:8])
+        if call == 0:
+            assert ga.alive.data_ptr() == graphed.static["aux"].alive.data_ptr()
+        # the statistics a few steps would leave on the densified cloud
+        e = (es, ea._replace(xyz_grad_accum=accum * ea.alive, denom=ea.alive.to(torch.float32)))
+        g = (gs, ga._replace(xyz_grad_accum=accum * ga.alive, denom=ga.alive.to(torch.float32)))
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())

@@ -9,7 +9,8 @@ the results written back into the static buffers. On the tiny scene of
 tests/test_torch_trajectory.py (3 cameras, cam00 held out, 2 frames, 40x32)
 six steps from iteration 997 cross the SH degree 0 -> 1 (iteration 1000),
 the depth-normal term (on from 1001 here) and SSIM on and off (even steps),
-with a densify after step 2 followed by both refreshes (the 3D filter and a
+with a densify after step 2 (eager for the eager run, the graphed densify
+step's path for the other) followed by both refreshes (the 3D filter and a
 new KNN cache, copied in). Each step's metrics, parameters, Adam moments
 and aux statistics must equal the eager step's bit for bit; the losses and
 parameters must stay within test_torch_trajectory.py's bounds of the JAX
@@ -207,7 +208,9 @@ def port_runs(info, start, extra, monkeypatch):
     eager = trainer.make_train_step(setup, optimizer, graph=False)
     graphed = trainer.make_train_step(setup, optimizer)
     assert isinstance(graphed, trainer.GraphedTrainStep)
-    densify = trainer.make_densify_step(OptimizationConfig(), PERCENT_DENSE, EXTENT)
+    e_densify = trainer.make_densify_step(OptimizationConfig(), PERCENT_DENSE, EXTENT,
+                                          graph=False)
+    g_densify = trainer.make_densify_step(OptimizationConfig(), PERCENT_DENSE, EXTENT)
     cache = trainer.update_knn_cache(state.params["gaussians"], aux)
     branches = BranchRecorder(monkeypatch)
     guard = HostReadGuard()
@@ -233,9 +236,14 @@ def port_runs(info, start, extra, monkeypatch):
             losses.append(float(gm_["loss"]))
             if s == DENSIFY_AFTER:
                 noise = torch.as_tensor(extra["noise"])
-                e_state, e_aux, n_c, n_s = densify(e_state, e_aux, None, extra["thr"],
-                                                   noise=noise)
-                g_state, g_aux, _, _ = densify(g_state, g_aux, None, extra["thr"], noise=noise)
+                e_state, e_aux, n_c, n_s = e_densify(e_state, e_aux, None, extra["thr"],
+                                                     noise=noise)
+                guard.active = True      # the graphed densify reads nothing either
+                try:
+                    g_state, g_aux, _, _ = g_densify(g_state, g_aux, None, extra["thr"],
+                                                     noise=noise)
+                finally:
+                    guard.active = False
                 counts = (int(n_c), int(n_s))
                 fa = filter_args(cams, torch.as_tensor)
                 e_aux = e_aux._replace(filter_3d=tgm.compute_3d_filter(
@@ -362,8 +370,27 @@ def test_update_with_the_table_equals_the_update():
         assert_trees_equal(s1[g].nu, s2[g].nu, g)
 
 
-def test_graph_with_a_mesh_raises():
+def test_graph_on_a_gloo_mesh_on_the_card_raises():
+    """A mesh's graphed step is made on any backend; on the card over gloo
+    (which runs its collectives on the host, so a graph cannot hold them)
+    its first call raises before it copies, runs or captures anything,
+    naming graph=False. The CPU runs the path eagerly, and NCCL captures:
+    neither raises. Checked from the setup and the backend alone (no card
+    here): the call's aux says the card."""
+    gloo = types.SimpleNamespace(shape={"data": 2, "gauss": 1}, d=0, g=0, backend="gloo")
     setup = trainer.TrainSetup(raster=None, hidden=DeformHiddenConfig(), batch_size=2,
-                               mesh=types.SimpleNamespace(shape={"data": 2, "gauss": 1}))
-    with pytest.raises(ValueError, match="later slice"):
-        trainer.make_train_step(setup, None)
+                               mesh=gloo)
+    step = trainer.make_train_step(setup, None)
+    assert isinstance(step, trainer.GraphedTrainStep)
+    on_card = types.SimpleNamespace(
+        alive=types.SimpleNamespace(is_cuda=True, device=torch.device("cuda", 0)))
+    with pytest.raises(ValueError, match=r"gloo.*pass graph=False"):
+        step(None, on_card, None, None)
+    assert step.graphs is None and step.static is None
+    with pytest.raises(ValueError, match="graph=False"):
+        trainer.check_capturable(setup, "cuda")
+    trainer.check_capturable(setup, "cpu")
+    nccl = dataclasses.replace(setup, mesh=types.SimpleNamespace(**{**vars(gloo),
+                                                                    "backend": "nccl"}))
+    trainer.check_capturable(nccl, "cuda")
+    trainer.check_capturable(dataclasses.replace(setup, mesh=None), "cuda")

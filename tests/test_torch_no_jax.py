@@ -71,6 +71,17 @@ def test_chip_smoke_imports_without_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_multi_gpu_script_imports_without_jax():
+    """scripts/torch_multi_gpu.py, whose check part holds the NCCL graph of
+    the sharded step, with chip_smoke.py, which its ranks import."""
+    code = ("import sys; sys.modules['jax'] = None; sys.path.insert(0, '.');"
+            "import runpy; runpy.run_path('scripts/torch_multi_gpu.py', run_name='imported');"
+            "import chip_smoke; assert 'ed3dgs_tpu' not in sys.modules")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_cpu_tensors_launch_no_kernel():
     """A forward and backward pass on CPU tensors runs the plain versions:
     no kernel counter moves."""

@@ -13,6 +13,14 @@ within 120 s, and its collectives time out after 60 s. A second problem
 turns every global and last-camera term on (SSIM, temporal TV,
 depth-normal, COLMAP, tongue) and holds the sharded step to the port's
 single step alone.
+
+The graphed sharded step (the default, `make_sharded_train_step(...,
+graph=True)`: a CUDA graph per key on the card, the same static-buffer
+path run eagerly on the CPU) must equal the eager one (graph=False) bit
+for bit on every state tensor and metric over three steps, with each
+comms, and leave the same collectives in the ledger; its first step keeps
+the bounds against JAX's sharded step. In a world of two ranks whose keys
+differ, the key check raises on both before the step runs.
 """
 
 import math
@@ -186,3 +194,48 @@ def test_strip_step_collectives(results):
         assert len(fwd) == len(bwd) == BATCH // 2
         assert not any(r["kind"] == "all_gather" and r["tag"] == "payload" for r in recs)
         assert sum(r["tag"] == "strip_image" for r in recs) == BATCH // 2
+
+
+@pytest.mark.parametrize("comms", ["gspmd", "strip"])
+def test_graphed_sharded_step_equals_the_eager_step(results, comms):
+    """Three graphed sharded steps against three eager ones from the same
+    shards: every state tensor (parameters, Adam moments and counts, aux)
+    and every metric bit for bit, the same collectives a step (kind, axis,
+    bytes, tag, direction), and the first step within the bounds of JAX's
+    sharded step."""
+    world, jax_sharded = results
+    for rank, res in enumerate(world):
+        assert res[f"graph_differ_{comms}"] == [[], [], []], (rank, comms)
+        ledgers = res[f"graph_ledgers_{comms}"]
+        assert ledgers[True] == ledgers[False], (rank, comms)
+        assert all(len(step) > 0 for step in ledgers[True]), (rank, comms)
+        _hold(res[f"graph_{comms}"], jax_sharded, f"rank {rank} graphed {comms} vs JAX")
+        np.testing.assert_allclose(res[f"graph_{comms}"]["l1_items"],
+                                   world[0]["single"]["l1_items"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("comms", ["gspmd", "strip"])
+def test_capacity_change_keeps_the_ranks_keys_equal(results, comms):
+    """A replay checks no key, so the ranks must rebuild their steps at the
+    same call: tools.train does so on the pair demand and the strip
+    overflow that the step reports, which come back equal on all four
+    ranks, and the step rebuilt on larger capacities runs its first call
+    (the key check) on one key hash everywhere."""
+    world, _ = results
+    got = [res[f"capacity_{comms}"] for res in world]
+    assert len({tuple(g["seen"]) for g in got}) == 1, got
+    assert got[0]["seen"][0] > 0, got
+    assert len({g["key"] for g in got}) == 1, got
+
+
+def test_ranks_with_different_keys_raise_before_the_step():
+    """Two gloo ranks at gauss=2 whose SSIM gates differ: the graphed
+    step's key check raises on both, each naming its own key and the other
+    rank, and neither ran a collective of the step."""
+    *_, port = _jax_problem()
+    world = spawn_world(ranks.key_mismatch_rank, 2, args=(port,), deadline_s=60)
+    for rank, (msg, records) in enumerate(world):
+        assert msg is not None, rank
+        assert f"rank {rank} holds key" in msg and f"ranks [{1 - rank}]" in msg, msg
+        assert f"use_ssim={rank == 1}" in msg, msg
+        assert records == [], rank

@@ -201,23 +201,46 @@ def port_problem(problem: dict, device="cpu"):
 
 
 def _state_numbers(state, aux, metrics) -> dict:
-    return {"xyz": state.params["gaussians"].xyz.detach().numpy(),
+    """Copies: a graphed step's next call overwrites what it returned."""
+    return {"xyz": state.params["gaussians"].xyz.detach().numpy().copy(),
             "terms": {k: float(v) for k, v in metrics.items() if v.dim() == 0},
-            "weight": state.params["deform"]["weight"].detach().numpy(),
-            "denom": aux.denom.numpy(),
+            "weight": state.params["deform"]["weight"].detach().numpy().copy(),
+            "denom": aux.denom.numpy().copy(),
             "loss": float(metrics["loss"]), "psnr": float(metrics["psnr"]),
-            "l1_items": metrics["l1_items"].numpy()}
+            "l1_items": metrics["l1_items"].numpy().copy()}
+
+
+def _step_tensors(state, aux, metrics) -> dict:
+    """Every tensor of a step's state, aux and metrics, cloned (a graphed
+    step's returns are its static buffers, which its next call overwrites)."""
+    from ed3dgs_torch.train.optim import flatten_params
+
+    out = {f"params/{k}": v for k, v in flatten_params(state.params).items()}
+    for g, st in state.opt_state.items():
+        out.update({f"mu/{g}/{k}": v for k, v in st.mu.items()})
+        out.update({f"nu/{g}/{k}": v for k, v in st.nu.items()})
+        out[f"count/{g}"] = torch.tensor(st.count)
+    out.update({f"aux/{k}": v for k, v in aux._asdict().items()})
+    out.update({f"metrics/{k}": v for k, v in metrics.items()})
+    out["iteration"] = torch.tensor(state.iteration)
+    return {k: v.detach().clone() for k, v in out.items()}
 
 
 def parallel_step_rank(rank, world, problem):
-    """4 ranks at data=2 x gauss=2: one sharded step with each comms, whole
-    again (gathered) for the test; three gspmd steps that stay sharded;
-    batch_mode "vmap" against "scan"; the collectives of each step. Rank 0
-    also takes the port's single-process step from the same state."""
+    """4 ranks at data=2 x gauss=2: with each comms, three eager sharded
+    steps (graph=False) and three through the graphed step's path (the
+    default, run eagerly on the CPU) from the same state, each step's
+    tensors compared bit for bit and its collectives recorded; the first
+    step's state whole again (gathered) for the test; the demand the last
+    graphed step reports and the key of a step rebuilt on larger
+    capacities (its first run agreed across the ranks); batch_mode "vmap"
+    against "scan". Rank 0 also takes the port's single-process step from
+    the same state."""
     from dataclasses import replace
 
     from ed3dgs_torch.parallel import sharded
-    from ed3dgs_torch.train.trainer import make_train_step
+    from ed3dgs_torch.train.trainer import GraphedTrainStep, make_train_step
+    from ed3dgs_torch.utils.graphs import key_hash
 
     torch.set_num_threads(1)
     state, aux, setup, optimizer, batch, cache = port_problem(problem)
@@ -229,18 +252,42 @@ def parallel_step_rank(rank, world, problem):
     state_l, aux_l = sharded.shard_train_state(mesh, state, aux)
     batch_l = sharded.shard_batch(mesh, batch)
     for comms in ("gspmd", "strip"):
-        step = sharded.make_sharded_train_step(replace(setup, comms=comms), optimizer, mesh)
-        comm.ledger.reset()
-        s2, a2, m2 = step(state_l, aux_l, batch_l, cache)
-        res[f"ledger_{comms}"] = [r.__dict__ for r in comm.ledger.records]
-        res[comms] = _state_numbers(*sharded.gather_train_state(mesh, s2, a2), m2)
-        res[f"{comms}_metrics"] = {k: v.numpy() for k, v in m2.items()}
-    step = sharded.make_sharded_train_step(setup, optimizer, mesh)
-    s3, a3 = state_l, aux_l
-    for _ in range(3):
-        s3, a3, m3 = step(s3, a3, batch_l, cache)
-    res["three"] = {"rows": int(s3.params["gaussians"].xyz.shape[0]),
-                    "aux_rows": int(a3.alive.shape[0]), "loss": float(m3["loss"])}
+        steps, ledgers = {}, {}
+        for graph in (False, True):
+            step = sharded.make_sharded_train_step(replace(setup, comms=comms), optimizer, mesh,
+                                                   graph=graph)
+            assert isinstance(step, GraphedTrainStep) == graph
+            s2, a2 = state_l, aux_l
+            steps[graph], ledgers[graph] = [], []
+            for i in range(3):
+                comm.ledger.reset()
+                s2, a2, m2 = step(s2, a2, batch_l, cache)
+                ledgers[graph].append([r.__dict__ for r in comm.ledger.records])
+                steps[graph].append(_step_tensors(s2, a2, m2))
+                if i == 0:
+                    name = comms if not graph else f"graph_{comms}"
+                    res[name] = _state_numbers(*sharded.gather_train_state(mesh, s2, a2), m2)
+                    if not graph:
+                        res[f"{comms}_metrics"] = {k: v.numpy() for k, v in m2.items()}
+            if graph and comms == "gspmd":
+                res["three"] = {"rows": int(s2.params["gaussians"].xyz.shape[0]),
+                                "aux_rows": int(a2.alive.shape[0]), "loss": float(m2["loss"])}
+        # a capacity change as tools.train makes it, from the last graphed
+        # step's metrics: a new step on doubled pair (and send) buffers,
+        # whose first run makes the ranks agree on its key
+        seen = (int(m2["num_pairs"]), int(m2["send_overflow"]))
+        grown = replace(setup, comms=comms, send_capacity=None if setup.send_capacity is None
+                        else 2 * setup.send_capacity,
+                        raster=replace(setup.raster, pair_capacity=2 * setup.raster.pair_capacity))
+        step = sharded.make_sharded_train_step(grown, optimizer, mesh)
+        key = key_hash(step.key(s2, a2, batch_l, cache))
+        step(s2, a2, batch_l, cache)
+        res[f"capacity_{comms}"] = {"seen": seen, "key": key}
+        res[f"ledger_{comms}"] = ledgers[False][0]
+        res[f"graph_differ_{comms}"] = [
+            [k for k in e if not torch.equal(e[k], g[k])] + sorted(set(e) ^ set(g))
+            for e, g in zip(steps[False], steps[True])]
+        res[f"graph_ledgers_{comms}"] = ledgers
     # every global and last-camera term live: SSIM, temporal TV, the
     # depth-normal, COLMAP and tongue terms, against the single step
     full = replace(setup, tongue_enabled=True, colmap_supervision=True, lambda_dssim=0.2,
@@ -279,6 +326,27 @@ def parallel_step_rank(rank, world, problem):
         and all(torch.equal(x, y) for x, y in zip(aa, ab))
         and all(torch.equal(ma[k], mb[k]) for k in ma))
     return res
+
+
+def key_mismatch_rank(rank, world, problem):
+    """2 ranks at gauss=2 whose batches differ in the SSIM gate, so that
+    their graphed steps' keys differ: each rank's first call must raise
+    `GraphKeyMismatch` before the step runs (no collective of the step in
+    the ledger). Returns (the message, the ledger's records)."""
+    from ed3dgs_torch.parallel import sharded
+    from ed3dgs_torch.utils.graphs import GraphKeyMismatch
+
+    torch.set_num_threads(1)
+    state, aux, setup, optimizer, batch, cache = port_problem(problem)
+    mesh = Mesh(1, 2)
+    state_l, aux_l = sharded.shard_train_state(mesh, state, aux)
+    step = sharded.make_sharded_train_step(setup, optimizer, mesh)
+    comm.ledger.reset()
+    try:
+        step(state_l, aux_l, dict(sharded.shard_batch(mesh, batch), use_ssim=rank == 1), cache)
+    except GraphKeyMismatch as e:
+        return str(e), list(comm.ledger.records)
+    return None, list(comm.ledger.records)
 
 
 # --- the training CLI ---------------------------------------------------------
