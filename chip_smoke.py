@@ -101,6 +101,31 @@ chunk 128):
    device building its own KNN cache) at the config's 32-d Gaussian
    embedding and again at 16-d (the KNN kernels run it zero-padded), one
    `densify` with the same injected draws, and `create_from_points`;
+5b. the tongue phase: configs/nersemble/tongue.py (the tongue terms on) on
+   the bench cloud with its first TONGUE_N Gaussians in a compact blob of
+   tongue class 1 (`tongue_cloud`): `refresh_knn_cache(tongue_enabled=
+   True)`, whose two searches (the main graph's input, then the tongue
+   graph's, every other slot parked on the mirrored far shell) are each held
+   to `knn_plain` by torch.equal and timed, with both graphs' dropped edges
+   by bucket (spill_a, spill_b, far); K6 and K7 on the tongue graph against
+   their plain chain and timed; then the steps of TONGUE_SSIM from
+   iteration 20,000 (depth-normal live, SSIM off and on: two keys) eager
+   and graphed from one state, each batch with a tongue target (the
+   tongue-only alpha of the state with the blob jittered), bit for bit
+   after every step (params, aux, every moment, every metric, the four
+   tongue terms included), each graphed step launching K1-K5b 3 times
+   (the camera and the last camera's tongue-only and tongue-free renders)
+   and K6 and K7 twice on the card, every tongue term non-zero, both ways
+   timed by CUDA events, the captures' pool bytes; `make_densify_step`
+   eager and graphed twice on that state at the phase's threshold rule
+   lowered to the hottest clone-sized and the hottest larger tongue
+   Gaussian, bit for bit, tongue parents among those cloned and split and
+   every child of class 1; both refreshes (X1 twice again) and TONGUE_MORE
+   steps that must replay the known keys on the new tongue graph, bit for
+   bit. Then the COLMAP step (configs/nersemble/407_tongue_colmap_
+   supervision.py, the cloud in a capacity of 150,000: 4000 GT points near
+   it, a numpy seed) graphed against eager bit for bit for both pcd_valid
+   keys, pcd_loss non-zero exactly when valid, timed, with its pool bytes;
 6. the `cli` phase: `ed3dgs_torch.data.synthetic.generate_scene` on the card
    (802x550, 4 cameras with cam00 held out, 8 frames, 20,000 points; K1
    renders the frames) into a temporary directory, then
@@ -152,6 +177,17 @@ chunk 128):
    deformation's annealing at 0.25-0.3 and 4 of 8 temporal embeddings),
    the tools, as the JAX package's, at iteration 10**9 (all schedules
    done);
+   After it, the tongue cli run: `generate_scene(tongue_frac=0.1)` (the
+   cli phase's cameras, frames and points; segmentations and red seeds)
+   trained through `tools.train.main` with configs/nersemble/tongue.py for
+   TONGUE_CLI_ITERS iterations across one densify event and its refresh:
+   K1-K7 launched, K6 and K7 twice a step, X1 once for the scales and twice
+   a refresh, every loss and tongue term finite, each tongue term non-zero,
+   the tongue count at the start the red seeds and above 0 at the end, the
+   train PSNR rising; then `tools.render --tongue_renders` on its model
+   (TONGUE_SERVE_FRAMES a split, no video): the tongue, tongue_render and
+   wo_tongue_render PNGs of every view, K1, K4 and K5a three times a frame,
+   the render ms a frame of each filter;
 8. the `offline` phase, on the same scene and model:
    `tools.mesh_extract_tsdf.main` at timestep 0 (the three train views),
    sparse at the default voxel of 0.002 with its views rendered through
@@ -201,16 +237,19 @@ chunk 128):
    step needs (K1-K7). It prints each rank's launches, the collectives'
    bytes a step by kind, the steps' host ms on the shared card (a cost,
    not a scaling measurement) and a `multi` JSON line; the kernels line's
-   launches add the ranks' to the train path's.
+   launches add the ranks' and 5b's graphed steps' to the train path's.
 
 Weights are random, from numpy seeds; so are the training targets. Results go
 to DIR/chip_smoke.json (default smoke_out/ in the checkout), with the
-profiles and nvcc's register report beside it. The last seven lines of
-standard output are the `cli`, `serve`, `offline` and `multi` JSON lines,
-the card as nvidia-smi names it, the kernels' JSON line and the result
-line. The kernels line lists K1-K8 and X1; X1's launches are those of the
-densify step and refreshes in 3 (its own path: the search runs at a
-refresh, not in a step), and it also carries its `cli` and `serve` counts.
+profiles and nvcc's register report beside it. The last eight lines of
+standard output are the `tongue`, `cli`, `serve`, `offline` and `multi`
+JSON lines, the card as nvidia-smi names it, the kernels' JSON line and the
+result line. The kernels line lists K1-K8 and X1; X1's launches are those
+of the densify step and refreshes in 3 and of 5b's two tongue refreshes
+(its own path: the search runs at a refresh, not in a step), and it also
+carries its `cli` and `serve` counts; each row carries 5b's launches
+(`tongue_launches`), K6 and K7 their ms on the tongue graph, X1 its ms on
+the tongue graph's input.
 Any failure exits non-zero before the result line.
 Needs one CUDA device; refuses to run without one.
 """
@@ -378,6 +417,46 @@ MULTI_XYZ_ATOL, MULTI_WEIGHT_ATOL, MULTI_DENOM_ATOL = 5e-5, 5e-6, 1e-6
 MULTI_DEADLINE, MULTI_CLI_DEADLINE = 240.0, 300.0
 MULTI_CLI_ITERS = 30
 MULTI_EYE2 = (0.15, 0.05, 0.0)   # the second view of (c)'s batch of two
+
+# The tongue phase (5b): configs/nersemble/tongue.py on the bench cloud,
+# whose first TONGUE_N Gaussians are moved into a compact blob of tongue
+# class 1 (normal around TONGUE_CENTRE, TONGUE_SD an axis), the first
+# TONGUE_SMALL of them at scales below percent_dense x extent (clone
+# candidates; the rest split). Its target is the tongue-only alpha of the
+# state with the blob jittered by TONGUE_JITTER: it must cover more than
+# the 0.005 mean that gates the tongue colour term. The steps run from
+# TRAIN_ITERATION with the SSIM gate of TONGUE_SSIM, graphed against eager
+# bit for bit; after a densify and both refreshes TONGUE_MORE more.
+TONGUE_CFG = os.path.join("configs", "nersemble", "tongue.py")
+TONGUE_N, TONGUE_SMALL = 3000, 64
+TONGUE_CENTRE, TONGUE_SD, TONGUE_JITTER = (0.05, 0.05, 2.0), 0.05, 0.01
+TONGUE_SSIM = (False, True, False, True, False, True)
+TONGUE_MORE = 2
+# The COLMAP step on the same cloud at the settings of
+# configs/nersemble/407_tongue_colmap_supervision.py, in a capacity of
+# COLMAP_CAPACITY (the tongue config's max_number_gaussians: the loss's
+# distance blocks are [500, C]): its GT cloud is colmap_pcd_samples points
+# drawn from a numpy seed within COLMAP_JITTER of alive Gaussians;
+# pcd_valid as COLMAP_VALID, SSIM off (two keys)
+COLMAP_CFG = os.path.join("configs", "nersemble", "407_tongue_colmap_supervision.py")
+COLMAP_CAPACITY = 150_000
+COLMAP_JITTER = 0.01
+COLMAP_VALID = (True, False, True, False)
+# The tongue cli run: tools.train with TONGUE_CFG on a generated scene with
+# a 10% tongue (segmentations and red seeds), the cli phase's cameras,
+# frames and points, TONGUE_CLI_ITERS iterations with one densify event
+# (150) and its KNN refresh; then tools.render --tongue_renders on its
+# model, each split cut to TONGUE_SERVE_FRAMES frames. The tongue terms pull
+# the render away from the images at first (the scene's masks are the
+# tongue-only alpha, which ignores what occludes the tongue): the train PSNR
+# dips over the first ~100 iterations, so the run is as long as the cli
+# phase's, and its windows are CLI_WINDOW long as there
+TONGUE_FRAC = 0.1
+TONGUE_CLI_ITERS = 300
+TONGUE_CLI_SET = ["deform_from_iter=50", "densify_from_iter=100", "densify_until_iter=160",
+                  "densification_interval=50", "radegs_regularization_from_iter=0",
+                  "min_embeddings=4", "max_embeddings=8"]
+TONGUE_SERVE_FRAMES = 8
 
 KERNELS = {
     "K1": dict(name="forward_blend", route="cuda",
@@ -667,20 +746,35 @@ def print_profile(what, wall_ms, busy_ms, items, stages):
 
 
 def train_setup(cfg, rcfg):
-    """The nersemble config's TrainSetup, as the JAX package's tools/train.py
-    builds it (the tongue terms and COLMAP supervision are off in the
-    config)."""
+    """A config's TrainSetup, as ed3dgs_torch/tools/train.py builds it: the
+    tongue terms and COLMAP supervision as the config sets them, the
+    latter from the config's deform_from_iter."""
     from ed3dgs_torch.train.trainer import TrainSetup
     model, hidden, opt = cfg.model, cfg.hidden, cfg.opt
     return TrainSetup(
         raster=rcfg, hidden=hidden, batch_size=opt.batch_size,
         white_background=model.white_background, kernel_size=model.kernel_size,
         disable_filter3d=model.disable_filter3D, use_coord_map=model.use_coord_map,
+        tongue_enabled=model.tongue_mask_loss_enabled,
         lambda_dssim=opt.lambda_dssim, opacity_l1_coef=opt.opacity_l1_coef_fine,
         reg_coef=opt.reg_coef, coef_tv_temporal=opt.coef_tv_temporal_embedding,
         lambda_depth_normal=opt.lambda_depth_normal,
         radegs_from_iter=opt.radegs_regularization_from_iter,
-        num_down_emb=hidden.min_embeddings, sh_degree=model.sh_degree)
+        num_down_emb=hidden.min_embeddings, sh_degree=model.sh_degree,
+        colmap_supervision=model.colmap_supervision_enabled,
+        deform_from_iter=hidden.deform_from_iter)
+
+
+def per_step_launches(setup, keys) -> dict:
+    """{K: launches one train step of `setup` makes}: one per camera of the
+    blend path (K1-K5b) and with the tongue terms two more on the last
+    camera (its tongue-only and tongue-free renders); one KNN loss (K6,
+    K7), two with the tongue graph; none of K8 (no production caller) and
+    none of X1 (the search runs at a refresh, between steps)."""
+    blend = setup.batch_size + (2 if setup.tongue_enabled else 0)
+    knn = 2 if setup.tongue_enabled else 1
+    return {k: (blend if k in ("K1", "K2", "K3", "K4", "K5a", "K5b") else
+                knn if k in ("K6", "K7") else 0) for k in keys}
 
 
 def make_batch(torch, cam, B, t, use_ssim, seed, device):
@@ -1814,56 +1908,17 @@ def state_tensors(state, aux, metrics) -> dict:
 
 def graph_against_eager(torch, eager, step, state, aux, cache, cam, B, setup, counters,
                         per_step):
-    """GRAPH_STEPS steps of the eager step and of the graphed one from one
-    state and the same batches, from 3 iterations before the depth-normal
-    term through 3 after, SSIM on and off: after every step every metric,
-    parameter, Adam moment and aux statistic must be bit-identical, every
-    replay must run under sync debug mode "error", and every graphed step
-    must launch K1-K7 on the card as often as an eager step (the device
-    counters), while the wrappers count only a key's first, eager run
-    (a replay calls none, a capture launches nothing). Returns the numbers
-    it printed."""
-    from ed3dgs_torch.ops import cuda_lib
+    """`steps_against_eager` over one batch for each of GRAPH_SSIM, from 3
+    iterations before the depth-normal term through 3 after, SSIM on and
+    off: the batches must cross a key change and replay known keys.
+    Returns the steps' records and the counts of replays and captures."""
     state = state._replace(iteration=setup.radegs_from_iter - 3)
-    e_state, e_aux, g_state, g_aux = state, aux, state, aux
-    out = dict(steps=[], replays=0, captures=0)
-    for i, ssim in enumerate(GRAPH_SSIM):
-        b = make_batch(torch, cam, B, 0.15 + 0.1 * i, ssim, 700 + i, DEVICE)
-        e_state, e_aux, em = eager(e_state, e_aux, b, cache)
-        replay = step.key(g_state, g_aux, b, cache) in step.graphs if step.graphs else False
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        with cuda_lib.DeviceLaunches() as trace:
-            if replay:
-                torch.cuda.set_sync_debug_mode("error")
-            try:
-                g_state, g_aux, gm = step(g_state, g_aux, b, cache)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        launches = card_launches(trace, counters)
-        wrapped = {k: fn.launches for k, fn in counters.items()}
-        want, got = state_tensors(e_state, e_aux, em), state_tensors(g_state, g_aux, gm)
-        differ = [k for k in want if not (want[k].dtype == got[k].dtype
-                                          and torch.equal(want[k], got[k]))]
-        it = int(e_state.iteration) - 1
-        print(f"graphed against eager, iteration {it} SSIM {ssim} depth-normal "
-              f"{it >= setup.radegs_from_iter}: {'replay' if replay else 'capture'}, "
-              f"{len(want)} tensors, differing {len(differ)} {differ[:6]}, launches on "
-              f"the card (device counters) {launches}, counted by the wrappers {wrapped}",
-              flush=True)
-        out["steps"].append(dict(iteration=it, ssim=ssim, replay=replay, differing=differ,
-                                 launches=launches, wrapper_counts=wrapped,
-                                 loss=float(gm["loss"])))
-        out["replays" if replay else "captures"] += 1
-        if differ:
-            fail(f"the graphed step differs from the eager step at iteration {it}: {differ[:8]}")
-        if int(e_state.iteration) != int(g_state.iteration):
-            fail("the graphed step's iteration count differs from the eager step's")
-        if launches != per_step:
-            fail(f"the graphed step launched {launches}, the eager step {per_step}")
-        if wrapped != ({k: 0 for k in per_step} if replay else per_step):
-            fail(f"the wrappers counted {wrapped} in a {'replay' if replay else 'capture'}")
+    batches = [make_batch(torch, cam, B, 0.15 + 0.1 * i, ssim, 700 + i, DEVICE)
+               for i, ssim in enumerate(GRAPH_SSIM)]
+    _, _, steps = steps_against_eager(torch, eager, step, state, aux, cache, batches, counters,
+                                      per_step, "graphed against eager")
+    out = dict(steps=steps, replays=sum(s["replay"] for s in steps))
+    out["captures"] = len(steps) - out["replays"]
     if out["replays"] < 2 or out["captures"] < 2:
         fail(f"graphed against eager: {out['replays']} replays and {out['captures']} captures; "
              "the batches must cross a key change and replay known keys")
@@ -1923,6 +1978,591 @@ def frame_against_eager(torch, params, aux, dparams, hidden, model, rcfg, bg, ca
         fail(f"the graphed frame differs from render(): {differ[:8]}")
     if any(n != 1 for per in launches for n in per.values()):
         fail(f"a graphed frame did not launch K1, K4 and K5a once each: {launches}")
+    return out
+
+
+def tongue_cloud(n: int, seed: int = 0) -> dict:
+    """bench_cloud with its first TONGUE_N Gaussians moved into the tongue
+    blob (tongue class 1), the first TONGUE_SMALL of them at scales below
+    percent_dense x extent (3.3e-3 for the filter cameras) and above the
+    3D filter's ~1e-3 (which would fade a smaller one out of sight): clone
+    candidates, and the lowest slots, which densify serves first."""
+    fields = bench_cloud(n, seed)
+    rng = np.random.default_rng(seed + 2)
+    fields["xyz"][:TONGUE_N] = (np.asarray(TONGUE_CENTRE, np.float32)
+                                + rng.normal(0, TONGUE_SD, (TONGUE_N, 3)))
+    fields["scaling"][:TONGUE_SMALL] = np.log(rng.uniform(1.5e-3, 3e-3, (TONGUE_SMALL, 3)))
+    fields["tongue_class"][:TONGUE_N] = 1.0
+    return {k: np.asarray(v, np.float32) for k, v in fields.items()}
+
+
+def tongue_batch(torch, setup, state, aux, cam, t, use_ssim, seed):
+    """make_batch's views of `cam` at time t with a tongue target: the
+    tongue-only alpha [B, 1, H, W] of `state` at TRAIN_ITERATION with the
+    tongue rows jittered by TONGUE_JITTER (numpy seed), as generate_scene
+    writes a segmentation (the tongue-only alpha on black)."""
+    from ed3dgs_torch.render import render, settings_from_camera
+    B = setup.batch_size
+    b = make_batch(torch, cam, B, t, use_ssim, seed, DEVICE)
+    params = state.params["gaussians"]
+    rng = np.random.default_rng(seed)
+    jitter = torch.as_tensor(rng.normal(0, TONGUE_JITTER, tuple(params.xyz.shape))
+                             .astype(np.float32), device=DEVICE)
+    moved = params._replace(xyz=params.xyz + jitter * aux.tongue_class)
+    bg = torch.full((3,), 1.0 if setup.white_background else 0.0, device=DEVICE)
+    with torch.no_grad():
+        alpha = render(moved, aux, state.params["deform"], setup.hidden,
+                       settings_from_camera(cam, time=t, device=DEVICE), setup.raster, bg,
+                       iteration=TRAIN_ITERATION, sh_degree=setup.sh_degree,
+                       kernel_size=setup.kernel_size, disable_filter3d=setup.disable_filter3d,
+                       num_down_emb_c=setup.num_down_emb, num_down_emb_f=setup.num_down_emb,
+                       tongue_filter="only")["mask"]
+    b["tongue_gt"] = alpha[None].repeat(B, 1, 1, 1).contiguous()
+    return b
+
+
+def steps_against_eager(torch, eager, step, state, aux, cache, batches, counters, per_step,
+                        what):
+    """The eager step and the graphed one (a CUDA graph per key) from one
+    state over `batches`: after every step every metric, parameter, Adam
+    moment and aux statistic must be bit-identical, each replay runs under
+    sync debug mode "error", and each graphed step must launch `per_step`
+    on the card (the device counters), while the wrappers count only a
+    key's first, eager run (a replay calls none, a capture launches
+    nothing). Each step is timed by CUDA events, eager and graphed. Returns
+    (the graphed state and aux after the last step, one record a step:
+    replay or capture, ms each way, launches, the wrappers' counts, the
+    graphed step's scalar metrics)."""
+    from ed3dgs_torch.ops import cuda_lib
+    e_state, e_aux, g_state, g_aux = state, aux, state, aux
+    steps = []
+    for b in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        e_state, e_aux, em = eager(e_state, e_aux, b, cache)
+        ev[1].record()
+        replay = step.graphs is not None and step.key(g_state, g_aux, b, cache) in step.graphs
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        with cuda_lib.DeviceLaunches() as trace:
+            ev[2].record()
+            if replay:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                g_state, g_aux, gm = step(g_state, g_aux, b, cache)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            ev[3].record()
+        launches = card_launches(trace, counters)
+        wrapped = {k: fn.launches for k, fn in counters.items()}
+        want, got = state_tensors(e_state, e_aux, em), state_tensors(g_state, g_aux, gm)
+        differ = [k for k in want if not (want[k].dtype == got[k].dtype
+                                          and torch.equal(want[k], got[k]))]
+        rec = dict(iteration=int(e_state.iteration) - 1, ssim=bool(b["use_ssim"]),
+                   replay=replay, eager_ms=ev[0].elapsed_time(ev[1]),
+                   graphed_ms=ev[2].elapsed_time(ev[3]), differing=differ, launches=launches,
+                   wrapper_counts=wrapped,
+                   metrics={k: float(v) for k, v in gm.items() if v.numel() == 1})
+        steps.append(rec)
+        print(f"{what}, iteration {rec['iteration']} SSIM {rec['ssim']}: "
+              f"{'replay' if replay else 'capture'}, {len(want)} tensors, differing "
+              f"{len(differ)} {differ[:6]}; ms (CUDA events) eager {rec['eager_ms']:.3f}, "
+              f"graphed {rec['graphed_ms']:.3f}; launches on the card {launches}, counted "
+              f"by the wrappers {wrapped}; "
+              + " ".join(f"{k}={v:.6g}" for k, v in rec["metrics"].items()), flush=True)
+        if differ:
+            fail(f"{what}: the graphed step differs from the eager step at iteration "
+                 f"{rec['iteration']}: {differ[:8]}")
+        if int(e_state.iteration) != int(g_state.iteration):
+            fail(f"{what}: the graphed step's iteration count differs from the eager step's")
+        if launches != per_step:
+            fail(f"{what}: the graphed step launched {launches}, not {per_step}")
+        if wrapped != ({k: 0 for k in per_step} if replay else per_step):
+            fail(f"{what}: the wrappers counted {wrapped} in a {'replay' if replay else 'capture'}")
+        if not all(math.isfinite(v) for v in rec["metrics"].values()):
+            fail(f"{what}: a metric is not finite at iteration {rec['iteration']}")
+    return g_state, g_aux, steps
+
+
+def step_summary(step, steps) -> dict:
+    """The median ms of the replayed steps and of every eager step (CUDA
+    events), and the graph cache's captures and pool bytes."""
+    caps = step.graphs.captures
+    return dict(graphed_ms=float(np.median([s["graphed_ms"] for s in steps if s["replay"]])),
+                eager_ms=float(np.median([s["eager_ms"] for s in steps])),
+                captures=len(caps), capture_s=[c[1] for c in caps],
+                pool_bytes=step.graphs.pool_bytes)
+
+
+def knn_kernels_on(torch, emb, graph, flush) -> dict:
+    """K6 -> K7 on `graph` (rank table of emb, as the step hands them)
+    against the plain chain, at KNN_LOSS_REL and KNN_ROW_REL as in 4; both
+    timed as in 1. Returns the numbers; fails on a disagreement."""
+    from ed3dgs_torch.ops import knn_loss
+    emb_r = knn_loss.rank_table(emb, graph, knn_loss.kernel_width(emb.shape[1]))
+    args6 = (emb_r, graph.nbr, graph.w, graph.coef)
+    loss, de, s_ = knn_loss.knn_rows(*args6)
+    out7 = knn_loss.knn_reverse(emb_r, s_, de, graph.rev_ptr, graph.rev_pair)
+    loss_p, de_p, s_p = knn_loss.knn_rows_plain(*args6)
+    out_p = knn_loss.knn_reverse_plain(emb_r, s_p, de_p, graph.rev_ptr, graph.rev_pair)
+    loss_rel = abs(float(loss) - float(loss_p)) / max(abs(float(loss_p)), 1e-30)
+    row_max = out_p.abs().amax(dim=1)
+    row_err = (out7 - out_p).abs().amax(dim=1)
+    worst_row = float((row_err / torch.clamp_min(row_max, 1e-30)).max())
+    if (loss_rel > KNN_LOSS_REL or not bool(torch.isfinite(out7).all())
+            or not bool((row_err <= KNN_ROW_REL * row_max).all()) or float(loss_p) <= 0):
+        fail(f"K6/K7 disagree with their plain versions on the tongue graph (loss rel "
+             f"{loss_rel:.2e}, worst row {worst_row:.2e})")
+    ms6 = time_ms(torch, lambda: knn_loss.knn_rows(*args6), 50, flush)
+    ms7 = time_ms(torch, lambda: knn_loss.knn_reverse(emb_r, s_, de, graph.rev_ptr,
+                                                      graph.rev_pair), 50, flush)
+    return dict(live_rows=int((graph.w > 0).any(dim=1).sum()), ranks=int(emb_r.shape[0]),
+                in_edges=int(graph.rev_pair.shape[0]), loss=float(loss), loss_rel=loss_rel,
+                worst_row=worst_row, k6_ms=ms6, k7_ms=ms7)
+
+
+def graph_buckets(cache) -> dict:
+    """Each graph's dropped edges by bucket, far demand and in-edges."""
+    out = {}
+    for name, g in (("main", cache.graph), ("tongue", cache.t_graph)):
+        spill_a, spill_b, far = g.overflow.tolist()
+        out[name] = dict(spill_a=spill_a, spill_b=spill_b, far=far, n_far=int(g.n_far),
+                         in_edges=int(g.rev_pair.shape[0]))
+    return out
+
+
+def tongue_refresh(torch, params, aux, caps, coverage_target):
+    """refresh_knn_cache with tongue_enabled, wall-timed between two
+    synchronises, recording each search's input; returns (cache, wall ms,
+    [(points, k)] searched, X1's launches by its wrapper)."""
+    from ed3dgs_torch.ops import knn
+    from ed3dgs_torch.train import trainer as trainer_mod
+    searched = []
+    orig = trainer_mod.knn_op
+
+    def recording(pts, k):
+        searched.append((pts, k))
+        return orig(pts, k=k)
+    knn.knn.launches = 0
+    trainer_mod.knn_op = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = trainer_mod.refresh_knn_cache(params, aux, caps, tongue_enabled=True,
+                                              coverage_target=coverage_target)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        trainer_mod.knn_op = orig
+    return cache, wall_ms, searched, knn.knn.launches
+
+
+def tongue_phase(torch, cam, rcfg, fargs, extent, counters) -> dict:
+    """5b: the tongue configuration (TONGUE_CFG) on the bench cloud with a
+    tongue blob (`tongue_cloud`), then the COLMAP step (`colmap_phase`).
+    Returns the phase's numbers; fails on any check below."""
+    from ed3dgs_torch.config.loader import load_full_config
+    from ed3dgs_torch.convert import gaussians_from_numpy
+    from ed3dgs_torch.models.gaussians import compute_3d_filter
+    from ed3dgs_torch.ops import knn
+    from ed3dgs_torch.train.trainer import (KNN_CAPS_DEFAULT, KNN_K, _cache_inputs,
+                                            _prepare_cache, init_train_state,
+                                            make_densify_step, make_train_step)
+
+    cfg = load_full_config(os.path.join(REPO, TONGUE_CFG))
+    setup = train_setup(cfg, rcfg)
+    hidden, opt = cfg.hidden, cfg.opt
+    if not setup.tongue_enabled or setup.colmap_supervision:
+        fail(f"{TONGUE_CFG}: the tongue terms are not on, or COLMAP supervision is")
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+    flush = flush_buf.zero_
+    out = {}
+    params, aux = gaussians_from_numpy(tongue_cloud(N_GAUSS), capacity=CAPACITY, device=DEVICE)
+    aux = aux._replace(filter_3d=compute_3d_filter(params.xyz, aux.alive, *fargs))
+    n_tongue = int((aux.alive & (aux.tongue_class[:, 0] > 0.5)).sum())
+    print(f"tongue phase ({TONGUE_CFG}: tongue terms on, reg_coef {setup.reg_coef}, "
+          f"batch {setup.batch_size}, max_number_gaussians {opt.max_number_gaussians}): "
+          f"{N_GAUSS} Gaussians, {n_tongue} of tongue class 1 in a blob at {TONGUE_CENTRE} "
+          f"(sd {TONGUE_SD}), capacity {CAPACITY}", flush=True)
+
+    # the refresh with the tongue graph: X1 twice (the main graph's input,
+    # then the tongue graph's: every other slot parked on the mirrored far
+    # shell), each input against knn_plain by torch.equal and timed
+    caps = dict(KNN_CAPS_DEFAULT)
+    cache, refresh_ms, searched, x1_calls = tongue_refresh(torch, params, aux, caps,
+                                                           opt.knn_coverage_target)
+    if len(searched) != 2 or x1_calls != 2:
+        fail(f"the tongue refresh searched {len(searched)} times and launched X1 "
+             f"{x1_calls} times, not twice")
+    x1 = []
+    for name, (pts, k) in zip(("main", "tongue"), searched):
+        same, err = x1_against_plain(torch, pts, k)
+        n = pts.shape[0]
+        ms = time_ms(torch, lambda: knn.knn(pts, k=k), 10, flush)
+        visits = x1_visits(torch, knn, pts, k)
+        b_x1, by_x1 = bound(n * 3 * 4 + n * k * (4 + 8), n * (k + 1) * X1_FLOPS_PER_PAIR)
+        parked = int((pts.abs().amax(dim=1) > 100.0).sum())
+        x1.append(dict(graph=name, n=n, k=k, parked=parked, equal=same, max_abs_err=err,
+                       ms=ms, bound_ms=b_x1, bound_by=by_x1, visits=visits))
+        print(f"  X1 on the {name} graph's input: {n} points ({parked} parked on the far "
+              f"shell), k={k}: equal to knn_plain by torch.equal={same}; {ms:.4f} ms (bound "
+              f"{b_x1:.4f}, {by_x1}); tiles visited a warp mean {visits['tiles_mean']:.2f} "
+              f"max {visits['tiles_max']} of {visits['tiles']}, pairs {visits['pairs']}",
+              flush=True)
+        if not same:
+            fail(f"X1 disagrees with knn_plain on the {name} graph's input of the tongue "
+                 "refresh")
+    del searched
+    inputs, search_ms = wall_ms_of(torch, lambda: _cache_inputs(params, aux, True, KNN_K))
+    _, prepare_ms = wall_ms_of(torch, lambda: _prepare_cache(
+        inputs, caps["spill_a"], caps["spill_b"], caps["far"]))
+    del inputs
+    buckets = graph_buckets(cache)
+    print(f"  refresh_knn_cache (tongue): {refresh_ms:.1f} ms wall (searches "
+          f"{search_ms:.1f}, preparation {prepare_ms:.1f}), buckets "
+          f"{ {k: v for k, v in caps.items() if not k.startswith('_')} }, per graph {buckets}",
+          flush=True)
+    knn6 = knn_kernels_on(torch, params.embedding, cache.t_graph, flush)
+    print(f"  K6/K7 on the tongue graph: {knn6}", flush=True)
+    out.update(x1=x1, refresh_ms=refresh_ms, search_ms=search_ms, prepare_ms=prepare_ms,
+               buckets=buckets, knn_kernels=knn6)
+
+    state, optimizer = init_train_state(params, hidden, opt, extent, seed=0)
+    state = state._replace(iteration=TRAIN_ITERATION)
+    eager = make_train_step(setup, optimizer, graph=False)
+    step = make_train_step(setup, optimizer)
+    batches = [tongue_batch(torch, setup, state, aux, cam, 0.15 + 0.1 * i, ssim, 800 + i)
+               for i, ssim in enumerate(TONGUE_SSIM)]
+    gt_means = [float(b["tongue_gt"][-1].mean()) for b in batches]
+    print(f"  tongue targets' means {[round(x, 5) for x in gt_means]} (the colour term "
+          f"needs > 0.005)", flush=True)
+    if min(gt_means) <= 0.005:
+        fail("a tongue target covers too little of the image for the tongue colour term")
+    per_step = per_step_launches(setup, counters)
+    state, aux, steps = steps_against_eager(torch, eager, step, state, aux, cache, batches,
+                                            counters, per_step, "tongue step")
+    for s in steps:
+        m = s["metrics"]
+        if min(m[k] for k in ("tongue_l1", "tongue_emb", "tongue_rgb", "wo_tongue_rgb",
+                              "emb_loss", "depth_normal")) <= 0:
+            fail(f"tongue step at iteration {s['iteration']}: a tongue term, the KNN term or "
+                 f"the depth-normal term is not live: {m}")
+        if s["ssim"] == (m["ssim"] == 1.0):
+            fail(f"tongue step at iteration {s['iteration']}: the SSIM term is not as gated")
+    if sum(s["replay"] for s in steps) < 2:
+        fail("tongue step: fewer than two replays")
+    out["steps"] = step_summary(step, steps)
+    print(f"  tongue step: {out['steps']}", flush=True)
+    launches = {k: sum(s["launches"][k] for s in steps) for k in counters}
+
+    # densify on the tongue state (the phase's threshold rule, lowered to
+    # the hottest clone-sized and the hottest larger tongue Gaussian so
+    # that both clone and split take tongue parents), eager against graphed
+    grads = torch.where(aux.denom > 0, aux.xyz_grad_accum / aux.denom,
+                        torch.zeros_like(aux.denom))
+    scales = torch.exp(state.params["gaussians"].scaling).amax(dim=1)
+    small = scales <= opt.percent_dense * extent
+    tongue = aux.alive & (aux.tongue_class[:, 0] > 0.5)
+    thr_cfg = (opt.densify_grad_threshold_fine_init
+               - TRAIN_ITERATION * (opt.densify_grad_threshold_fine_init
+                                    - opt.densify_grad_threshold_after) / opt.densify_until_iter)
+    seen_rows = aux.alive & (aux.denom > 0)
+    q999 = float(torch.quantile(grads[seen_rows], 0.999))
+    if not (bool((seen_rows & tongue & small).any())
+            and bool((seen_rows & tongue & ~small).any())):
+        fail("the tongue steps saw no clone-sized or no larger tongue Gaussian")
+    t_small = float(grads[seen_rows & tongue & small].max())
+    t_large = float(grads[seen_rows & tongue & ~small].max())
+    if min(t_small, t_large) <= 0:
+        fail(f"the tongue Gaussians' densify statistics are 0 (clone-sized {t_small}, larger "
+             f"{t_large})")
+    thr = min(thr_cfg, q999, t_small, t_large)
+    hot = (grads >= thr) & aux.alive
+    n_alive = int(aux.alive.sum())
+    budget = max(min(opt.max_number_gaussians, CAPACITY) - n_alive, 0)
+    clone_m, split_m = hot & small, hot & ~small
+    n_clone = min(int(clone_m.sum()), budget)
+    n_split = min(int(split_m.sum()), budget - n_clone)
+    clone_sel = clone_m & (torch.cumsum(clone_m.to(torch.int64), 0) <= n_clone)
+    split_sel = split_m & (torch.cumsum(split_m.to(torch.int64), 0) <= n_split)
+    tongue_cloned, tongue_split = int((clone_sel & tongue).sum()), int((split_sel & tongue).sum())
+    print(f"  tongue densify threshold {thr:.4e} (config {thr_cfg:.4e}, 99.9th percentile "
+          f"{q999:.4e}, hottest clone-sized tongue {t_small:.4e}, hottest larger tongue "
+          f"{t_large:.4e}): {n_clone} to clone ({tongue_cloned} tongue), {n_split} to split "
+          f"({tongue_split} tongue), {budget} free slots", flush=True)
+    if tongue_cloned == 0 or tongue_split == 0:
+        fail("the tongue densify clones or splits no tongue Gaussian")
+    densify_step = make_densify_step(opt, opt.percent_dense, extent)
+    densify_eager = make_densify_step(opt, opt.percent_dense, extent, graph=False)
+    state0, aux0 = state, aux
+
+    def timed(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        res = fn(state0, aux0, torch.Generator(device=DEVICE).manual_seed(0), thr)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return res, ev[0].elapsed_time(ev[1])
+    (e_state, e_aux, e_c, e_s), e_ms = timed(densify_eager)
+    want = densify_tensors(torch, e_state, e_aux, e_c, e_s)
+    del e_state, e_aux
+    densify_ms, differ = [], []
+    for _ in range(2):
+        (state, aux, n_c, n_s), ms = timed(densify_step)
+        got = densify_tensors(torch, state, aux, n_c, n_s)
+        differ += [k for k in want if not torch.equal(want[k], got[k])]
+        densify_ms.append(ms)
+        del got
+    del want
+    born = aux.alive & ~aux0.alive
+    born_tongue = int((born & (aux.tongue_class[:, 0] > 0.5)).sum())
+    parents_kept = bool((aux.tongue_class[split_sel & tongue, 0] == 1.0).all())
+    out["densify"] = dict(threshold=thr, n_cloned=int(n_c), n_split=int(n_s),
+                          tongue_cloned=tongue_cloned, tongue_split=tongue_split,
+                          born_tongue=born_tongue, eager_ms=e_ms, graphed_ms=densify_ms,
+                          differing=differ)
+    print(f"  tongue densify: n_cloned {int(n_c)}, n_split {int(n_s)}; new slots of tongue "
+          f"class 1 {born_tongue} (want {tongue_cloned} clones + {tongue_split} split "
+          f"children), split tongue parents kept class 1={parents_kept}; eager {e_ms:.3f} "
+          f"ms, graphed {[round(x, 3) for x in densify_ms]} ms (CUDA events); graphed "
+          f"differing from eager {differ[:6]}", flush=True)
+    if differ:
+        fail(f"the graphed densify differs from the eager one on the tongue state: {differ[:8]}")
+    if (int(n_c), int(n_s)) != (n_clone, n_split) or born_tongue != tongue_cloned + tongue_split \
+            or not parents_kept:
+        fail("the tongue densify's children do not keep their parents' tongue class")
+    del state0, aux0
+
+    # both refreshes, then steps that must replay the known keys on the new
+    # tongue graph (its reverse adjacency copied into the static buffers)
+    rev_before = out["buckets"]["tongue"]["in_edges"]
+    aux = aux._replace(filter_3d=compute_3d_filter(state.params["gaussians"].xyz, aux.alive,
+                                                   *fargs))
+    cache, refresh2_ms, searched, x1_calls2 = tongue_refresh(
+        torch, state.params["gaussians"], aux, caps, opt.knn_coverage_target)
+    del searched
+    buckets2 = graph_buckets(cache)
+    n_caps = len(step.graphs.captures)
+    more = [tongue_batch(torch, setup, state, aux, cam, 0.45 + 0.1 * i, ssim, 850 + i)
+            for i, ssim in enumerate((False, True)[:TONGUE_MORE])]
+    state, aux, steps2 = steps_against_eager(torch, eager, step, state, aux, cache, more,
+                                             counters, per_step, "tongue step after densify")
+    print(f"  after densify: refresh {refresh2_ms:.1f} ms, X1 {x1_calls2} launches, tongue "
+          f"graph in-edges {rev_before} -> {buckets2['tongue']['in_edges']}, per graph "
+          f"{buckets2}; captures {n_caps} -> {len(step.graphs.captures)}", flush=True)
+    if x1_calls2 != 2 or not all(s["replay"] for s in steps2) \
+            or len(step.graphs.captures) != n_caps:
+        fail("after the tongue refresh the graphed step did not replay its known keys")
+    out.update(refresh_after_ms=refresh2_ms, buckets_after=buckets2,
+               steps_after=[dict(eager_ms=s["eager_ms"], graphed_ms=s["graphed_ms"])
+                            for s in steps2])
+    for s in steps2:
+        for k in counters:
+            launches[k] += s["launches"][k]
+    x1_launches = x1_calls + x1_calls2
+    del step, eager, densify_step, densify_eager, state, aux, cache, batches, more
+
+    colmap = colmap_phase(torch, cam, rcfg, fargs, extent, counters)
+    for k, v in colmap.pop("launches").items():
+        launches[k] += v
+    out["colmap"] = colmap
+    out["launches"] = launches
+    out["x1_launches"] = x1_launches
+    del flush_buf
+    return out
+
+
+def colmap_phase(torch, cam, rcfg, fargs, extent, counters) -> dict:
+    """The COLMAP-supervised step (COLMAP_CFG) on the tongue phase's cloud
+    in a capacity of COLMAP_CAPACITY:
+    a GT cloud of colmap_pcd_samples points drawn from a numpy seed within
+    COLMAP_JITTER of alive Gaussians, pcd_valid as COLMAP_VALID (two keys),
+    graphed against eager bit for bit; pcd_loss must be non-zero when the
+    cloud is valid and 0 when not."""
+    from ed3dgs_torch.config.loader import load_full_config
+    from ed3dgs_torch.convert import gaussians_from_numpy
+    from ed3dgs_torch.models.gaussians import compute_3d_filter
+    from ed3dgs_torch.train.trainer import (KNN_CAPS_DEFAULT, init_train_state,
+                                            make_train_step, refresh_knn_cache)
+    cfg = load_full_config(os.path.join(REPO, COLMAP_CFG))
+    setup = train_setup(cfg, rcfg)
+    if not setup.colmap_supervision or setup.tongue_enabled:
+        fail(f"{COLMAP_CFG}: COLMAP supervision is not on, or the tongue terms are")
+    gparams, aux = gaussians_from_numpy(tongue_cloud(N_GAUSS), capacity=COLMAP_CAPACITY,
+                                        device=DEVICE)
+    aux = aux._replace(filter_3d=compute_3d_filter(gparams.xyz, aux.alive, *fargs))
+    cache = refresh_knn_cache(gparams, aux, dict(KNN_CAPS_DEFAULT),
+                              coverage_target=cfg.opt.knn_coverage_target)
+    state, optimizer = init_train_state(gparams, cfg.hidden, cfg.opt, extent, seed=0)
+    state = state._replace(iteration=TRAIN_ITERATION)
+    n = cfg.model.colmap_pcd_samples
+    rng = np.random.default_rng(900)
+    xyz = gparams.xyz[aux.alive].cpu().numpy()
+    pts = xyz[rng.integers(0, len(xyz), n)] + rng.normal(0, COLMAP_JITTER, (n, 3))
+    pts = torch.as_tensor(pts.astype(np.float32), device=DEVICE)
+    batches = []
+    for i, valid in enumerate(COLMAP_VALID):
+        b = make_batch(torch, cam, setup.batch_size, 0.2 + 0.1 * i, False, 900 + i, DEVICE)
+        b.update(pcd_points=pts, pcd_valid=valid)
+        batches.append(b)
+    print(f"colmap step ({COLMAP_CFG}: colmap_supervision, {n} GT points within "
+          f"{COLMAP_JITTER} of alive Gaussians, capacity {COLMAP_CAPACITY}, deform_from_iter "
+          f"{setup.deform_from_iter}, pcd_valid {list(COLMAP_VALID)})", flush=True)
+    eager = make_train_step(setup, optimizer, graph=False)
+    step = make_train_step(setup, optimizer)
+    _, _, steps = steps_against_eager(torch, eager, step, state, aux, cache, batches, counters,
+                                      per_step_launches(setup, counters), "colmap step")
+    for valid, s in zip(COLMAP_VALID, steps):
+        if (s["metrics"]["pcd_loss"] > 0) != valid or s["metrics"]["pcd_loss"] < 0:
+            fail(f"colmap step: pcd_loss {s['metrics']['pcd_loss']} with pcd_valid {valid}")
+    out = dict(step_summary(step, steps), samples=n,
+               pcd_loss=[s["metrics"]["pcd_loss"] for s in steps],
+               steps=[dict(valid=v, eager_ms=s["eager_ms"], graphed_ms=s["graphed_ms"],
+                           replay=s["replay"]) for v, s in zip(COLMAP_VALID, steps)],
+               launches={k: sum(s["launches"][k] for s in steps) for k in counters})
+    print(f"  colmap step: {out}", flush=True)
+    if out["captures"] != 2:
+        fail(f"colmap step: {out['captures']} captures, not one for each pcd_valid")
+    return out
+
+
+def wall_ms_of(torch, fn):
+    """(fn(), its wall ms between two synchronises)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def tongue_cli_phase(torch, counters, tmp) -> dict:
+    """The tongue cli run, in `tmp`: generate_scene with TONGUE_FRAC on the
+    card (segmentations and red seeds), then tools.train.main with
+    TONGUE_CFG for TONGUE_CLI_ITERS iterations, crossing one densify event
+    and its KNN refresh. Fails on a kernel of K1-K7 that did not launch, a
+    count of launches off the steps and refreshes, a loss or tongue term
+    that is not finite, a tongue term that stays 0, a tongue count at the
+    start other than the red seeds or at the end of 0, or a last window
+    whose train PSNR is not above the first's."""
+    from ed3dgs_torch.data.ply import fetch_point_cloud
+    from ed3dgs_torch.data.synthetic import generate_scene
+    from ed3dgs_torch.ops import cuda_lib
+    from ed3dgs_torch.tools import train as train_tool
+    from ed3dgs_torch.tools.train import TONGUE_TERMS
+
+    out = {}
+    scene_dir, model_dir = os.path.join(tmp, "tongue_scene"), os.path.join(tmp, "tongue_model")
+    t0 = time.perf_counter()
+    generate_scene(scene_dir, n_cams=CLI_CAMS, n_frames=CLI_FRAMES, width=WIDTH, height=HEIGHT,
+                   n_points=CLI_POINTS, seed=1, tongue_frac=TONGUE_FRAC, device=DEVICE)
+    out["scene_s"] = time.perf_counter() - t0
+    _, cols, _ = fetch_point_cloud(os.path.join(scene_dir, "points3D_downsample.ply"))
+    red_seeds = int(np.all(np.asarray(cols) == np.array([1.0, 0.0, 0.0]), axis=1).sum())
+    argv = ["-s", scene_dir, "-m", model_dir, "--configs", os.path.join(REPO, TONGUE_CFG),
+            "--duration", str(CLI_FRAMES), "--test_every", str(CLI_TEST_EVERY), "--quiet",
+            "--seed", "0", "--device", DEVICE, "--iterations", str(TONGUE_CLI_ITERS),
+            "--set", *TONGUE_CLI_SET]
+    keys = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "X1")
+    t0 = time.perf_counter()
+    with cuda_lib.DeviceLaunches() as trace:
+        _, _, _, log = train_tool.main(argv)
+    out["train_s"] = time.perf_counter() - t0
+    launches = card_launches(trace, keys)
+    n = len(log["iter_ms"])
+    first, last = slice(0, CLI_WINDOW), slice(n - CLI_WINDOW, n)
+    mean = lambda xs: float(np.mean(xs))  # noqa: E731
+    out.update(
+        iterations=n, median_iter_ms=float(np.median(log["iter_ms"])),
+        loss_first=mean(log["loss"][first]), loss_last=mean(log["loss"][last]),
+        psnr_first=mean(log["psnr"][first]), psnr_last=mean(log["psnr"][last]),
+        psnr_by_50=[mean(log["psnr"][i:i + 50]) for i in range(0, n, 50)],
+        tongue_terms_last={k: mean(log[k][last]) for k in TONGUE_TERMS},
+        red_seeds=red_seeds, total_tongue_start=log["total_tongue"][0],
+        total_tongue_end=log["total_tongue"][-1], densify=log["densify"],
+        points_start=log["points_start"], points_end=log["points_end"],
+        test_psnr=[(int(i), float(v)) for i, v in log["test_psnr"]],
+        graph_captures=log["graph_captures"], launches=launches,
+        scene_dir=scene_dir, model_dir=model_dir)
+    print("tongue cli: " + ", ".join(f"{k}={v}" for k, v in out.items()), flush=True)
+    if any(v == 0 for v in launches.values()):
+        fail(f"tongue cli: a kernel did not launch: {launches}")
+    # two KNN losses and the last camera's two sub-renders a step; X1 once for
+    # the initial scales and twice (two graphs) a refresh: the first and one
+    # a densify event
+    blend = launches["K2"]
+    if not (launches["K6"] == launches["K7"] == 2 * n and blend % n == 0 and blend // n >= 3
+            and blend == launches["K3"] == launches["K5b"]):
+        fail(f"tongue cli: {n} steps launched {launches} on the card")
+    if launches["X1"] != 1 + 2 * (1 + len(log["densify"])):
+        fail(f"tongue cli: X1 launched {launches['X1']} times, not 1 + 2 a refresh")
+    terms = [log[k] for k in TONGUE_TERMS]
+    if not all(math.isfinite(x) for xs in [log["loss"], *terms] for x in xs):
+        fail("tongue cli: a loss or tongue term is not finite")
+    if any(max(xs) <= 0 for xs in terms):
+        fail(f"tongue cli: a tongue term stayed 0: {out['tongue_terms_last']}")
+    if len(log["densify"]) != 1:
+        fail(f"tongue cli: {len(log['densify'])} densify events, not one")
+    if log["total_tongue"][0] != red_seeds or log["total_tongue"][-1] <= 0:
+        fail(f"tongue cli: tongue Gaussians {log['total_tongue'][0]} at the start (red seeds "
+             f"{red_seeds}), {log['total_tongue'][-1]} at the end")
+    if not out["psnr_last"] > out["psnr_first"]:
+        fail(f"tongue cli: train PSNR did not rise ({out['psnr_first']:.3f} -> "
+             f"{out['psnr_last']:.3f})")
+    return out
+
+
+def tongue_serve_phase(torch, counters, tcli) -> dict:
+    """tools.render --tongue_renders on the tongue cli run's model (each
+    split cut to TONGUE_SERVE_FRAMES, no video): each split's tongue,
+    tongue_render and wo_tongue_render directories must hold one PNG a
+    view, and each frame must launch K1, K4 and K5a three times on the card
+    (the full render and the two filters). Returns the render ms a frame
+    for each filter."""
+    from ed3dgs_torch.models.gaussians import load_ply
+    from ed3dgs_torch.ops import cuda_lib
+    from ed3dgs_torch.tools import render as render_tool
+
+    model_dir = tcli["model_dir"]
+    _, saved = load_ply(os.path.join(model_dir, "point_cloud", f"iteration_{TONGUE_CLI_ITERS}",
+                                     "point_cloud.ply"), device="cpu")
+    saved_tongue = int((saved.alive & (saved.tongue_class[:, 0] > 0.5)).sum())
+    argv = ["-m", model_dir, "-s", tcli["scene_dir"], "--configs",
+            os.path.join(REPO, TONGUE_CFG), "--duration", str(CLI_FRAMES), "--iteration",
+            str(TONGUE_CLI_ITERS), "--device", DEVICE, "--tongue_renders", "--skip_video",
+            "--max_frames", str(TONGUE_SERVE_FRAMES), "--set", *TONGUE_CLI_SET]
+    t0 = time.perf_counter()
+    with cuda_lib.DeviceLaunches() as trace:
+        stats = render_tool.main(argv)
+    render_s = time.perf_counter() - t0
+    launches = card_launches(trace, ("K1", "K4", "K5a"))
+    frames = sum(v["frames"] for v in stats.values())
+    missing = []
+    for split, v in stats.items():
+        for sub in ("tongue", "tongue_render", "wo_tongue_render"):
+            d = os.path.join(model_dir, split, f"ours_{TONGUE_CLI_ITERS}", sub)
+            pngs = (sorted(f for f in os.listdir(d) if f.endswith(".png"))
+                    if os.path.isdir(d) else [])
+            if pngs != [f"{i:05d}.png" for i in range(v["frames"])]:
+                missing.append((split, sub, len(pngs), v["frames"]))
+    ms = lambda xs: float(np.median(xs))  # noqa: E731
+    out = dict(frames={k: v["frames"] for k, v in stats.items()}, render_s=render_s,
+               saved_tongue=saved_tongue,
+               render_ms_full=ms([x for v in stats.values() for x in v["render_ms"]]),
+               render_ms_only=ms([x for v in stats.values()
+                                  for x in v["tongue_render_ms"]["only"]]),
+               render_ms_without=ms([x for v in stats.values()
+                                     for x in v["tongue_render_ms"]["without"]]),
+               save_ms=ms([x for v in stats.values() for x in v["save_ms"]]),
+               launches=launches, missing=missing)
+    print("tongue serve: " + ", ".join(f"{k}={v}" for k, v in out.items()), flush=True)
+    if missing:
+        fail(f"tongue serve: PNGs missing: {missing}")
+    if saved_tongue == 0:
+        fail("tongue serve: the saved model has no tongue Gaussian")
+    if launches != {k: 3 * frames for k in launches}:
+        fail(f"tongue serve: {frames} frames with two tongue filters launched {launches}")
     return out
 
 
@@ -2301,15 +2941,9 @@ def main():
     # the refresh's two halves, each ending in a synchronise: the neighbour
     # search (knn_op, inside _cache_inputs) and the graph preparation at the
     # buckets the refresh settled on
-    def wall(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-    inputs, search_ms = wall(lambda: _cache_inputs(params, aux, False, KNN_K))
-    _, prepare_ms = wall(lambda: _prepare_cache(inputs, knn_caps["spill_a"],
-                                                knn_caps["spill_b"], knn_caps["far"]))
+    inputs, search_ms = wall_ms_of(torch, lambda: _cache_inputs(params, aux, False, KNN_K))
+    _, prepare_ms = wall_ms_of(torch, lambda: _prepare_cache(
+        inputs, knn_caps["spill_a"], knn_caps["spill_b"], knn_caps["far"]))
     print(f"  refresh split: neighbour search (_cache_inputs) {search_ms:.1f} ms, graph "
           f"preparation (_prepare_cache) {prepare_ms:.1f} ms wall, beside "
           f"refresh_knn_cache's {knn_info['wall_ms']:.1f} ms", flush=True)
@@ -2349,11 +2983,9 @@ def main():
                 "K5a": relayout.unpack_image, "K5b": relayout.pack_image,
                 "K6": knn_loss.knn_rows, "K7": knn_loss.knn_reverse,
                 "K8": segment_sum.segment_sum_rows_packed, "X1": knn.knn}
-    # launches per step: one per camera of the blend path, one KNN loss
-    # (the tongue graph is off), none of K8 (no production caller) and none
-    # of X1 (the search runs at a refresh, between steps)
-    per_step = {k: (B if k in ("K1", "K2", "K3", "K4", "K5a", "K5b") else
-                    1 if k in ("K6", "K7") else 0) for k in counters}
+    # launches per step (the nersemble default: no tongue graph, so one
+    # KNN loss; 5b counts the tongue step's)
+    per_step = per_step_launches(setup, counters)
 
     # (a) the eager step's host-device waits
     result["eager_waits"] = {}
@@ -2529,7 +3161,8 @@ def main():
           f"config's threshold {thr}; {CAPACITY - n_before} free slots", flush=True)
     densified = []
     # the densification cadence's launches: every count set to 0 here, read
-    # after the KNN refresh (X1 once: one search, the tongue graph is off)
+    # after the KNN refresh (X1 once: one search, as the default config has
+    # no tongue graph; 5b's refresh searches twice)
     for fn in counters.values():
         fn.launches = 0
     # the config's threshold; if that finds nothing hot (random targets give
@@ -2988,22 +3621,38 @@ def main():
     result["small_densify"] = dict(n_cloned=int(dh.n_cloned), n_split=int(dh.n_split),
                                    param_rel=dens_err, create_rel=made_err)
 
+    # ---- 5b. the tongue configuration and the COLMAP step -------------------
+    result["tongue"] = tongue_phase(torch, cam, rcfg, fargs, extent, counters)
+
     # ---- 6. the training CLI on a scene on disk, 7. the serving tools ------
     import tempfile
     with tempfile.TemporaryDirectory(prefix="ed3dgs_cli_") as tmp:
         result["cli"] = cli_phase(torch, counters, result["train_step_ms"], tmp)
         result["serve"] = serve_phase(torch, counters, result["cli"])
+        # ---- the tongue configuration through tools.train and tools.render --
+        result["tongue_cli"] = tongue_cli_phase(torch, counters, tmp)
+        result["tongue_serve"] = tongue_serve_phase(torch, counters, result["tongue_cli"])
         result["offline"] = offline_phase(torch, counters, result["cli"])
         # ---- 9. two ranks sharing the card ---------------------------------
         result["multi"] = multi_phase(torch, snap, result["cli"], tmp)
     del snap
 
     order = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "K8")
-    # the main path's launches: the train run's and the multi phase's ranks';
-    # X1's: the densify step and refreshes of 3, beside its cli and serve counts
-    kernel_rows = [dict(rows[k], launches=train_launches[k] + result["multi"]["launches"][k])
+    # the main path's launches: the train run's, the tongue and COLMAP
+    # steps' (5b) and the multi phase's ranks'; X1's: the densify step and
+    # refreshes of 3 and 5b's two tongue refreshes, beside its cli and serve
+    # counts
+    tongue = result["tongue"]
+    kernel_rows = [dict(rows[k], launches=train_launches[k] + tongue["launches"][k]
+                        + result["multi"]["launches"][k], tongue_launches=tongue["launches"][k])
                    for k in order]
-    kernel_rows.append(dict(rows["X1"], launches=result["densify"]["launches"]["X1"],
+    for k, key in (("K6", "k6_ms"), ("K7", "k7_ms")):
+        kernel_rows[order.index(k)].update(tongue_graph_ms=tongue["knn_kernels"][key],
+                                           tongue_graph_in_edges=tongue["knn_kernels"]["in_edges"])
+    x1_tongue = tongue["x1"][1]
+    kernel_rows.append(dict(rows["X1"], launches=result["densify"]["launches"]["X1"]
+                            + tongue["x1_launches"], tongue_launches=tongue["x1_launches"],
+                            tongue_input_ms=x1_tongue["ms"], tongue_input_equal=x1_tongue["equal"],
                             cli_launches=result["cli"]["launches"]["X1"],
                             serve_launches=result["serve"]["launches"]["X1"]))
     result["kernels"] = kernel_rows
@@ -3016,6 +3665,14 @@ def main():
                 "stager_wait_ms_per_iter", "loss_first", "loss_last", "psnr_first", "psnr_last",
                 "test_psnr", "points_start", "points_end", "densify_events", "capacity_changes",
                 "graph_captures", "launches")
+    tongue_line = {k: tongue[k] for k in ("x1", "refresh_ms", "search_ms", "prepare_ms",
+                                          "buckets", "knn_kernels", "steps", "densify",
+                                          "refresh_after_ms", "buckets_after", "steps_after",
+                                          "colmap")}
+    tongue_line["cli"] = {k: v for k, v in result["tongue_cli"].items()
+                          if k not in ("scene_dir", "model_dir")}
+    tongue_line["serve"] = result["tongue_serve"]
+    print(json.dumps({"tongue": tongue_line}), flush=True)
     print(json.dumps({"cli": {k: result["cli"][k] for k in cli_keys}}), flush=True)
     serve_keys = ("frames", "fps", "render_ms_median", "render_ms_median_counted",
                   "save_ms_median", "launches", "psnr",

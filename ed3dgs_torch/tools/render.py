@@ -108,7 +108,9 @@ def render_set(out_dir, name, cams, renderer, tongue_renders=False, max_frames=0
     of its device, so that the FPS line times the render and not the
     host's enqueue (the JAX tool blocks on the render). Returns the split's
     frames, FPS (frames after the first), and each frame's render ms and
-    PNG-save ms (host clock)."""
+    PNG-save ms (host clock; the save ms leave out the tongue renders),
+    with `tongue_renders` also each tongue filter's render ms a frame
+    (`tongue_render_ms`: {"only": [...], "without": [...]})."""
     import torch
 
     renders_dir = os.path.join(out_dir, name, "renders")
@@ -122,6 +124,7 @@ def render_set(out_dir, name, cams, renderer, tongue_renders=False, max_frames=0
         cams = cams[:max_frames]
     t_total = 0.0
     render_ms, save_ms = [], []
+    tongue_ms = {"only": [], "without": []}
     fps = None
     for i, cam in enumerate(cams):
         t0 = time.time()
@@ -146,18 +149,25 @@ def render_set(out_dir, name, cams, renderer, tongue_renders=False, max_frames=0
         if gt is not None:
             save_img(os.path.join(gt_dir, fname), gt)
         cam.release_image()
+        save_ms.append((time.time() - t1) * 1e3)
         if tongue_renders:
             for mode, sub in (("only", "tongue_render"), ("without", "wo_tongue_render")):
                 sub_dir = os.path.join(out_dir, name, sub)
                 os.makedirs(sub_dir, exist_ok=True)
-                save_img(os.path.join(sub_dir, fname),
-                         renderer(cam, tongue_filter=mode)["render"].cpu().numpy())
-        save_ms.append((time.time() - t1) * 1e3)
+                t0 = time.time()
+                img = renderer(cam, tongue_filter=mode)["render"]
+                if img.is_cuda:
+                    torch.cuda.synchronize(img.device)
+                tongue_ms[mode].append((time.time() - t0) * 1e3)
+                save_img(os.path.join(sub_dir, fname), img.cpu().numpy())
     if len(cams) > 1:
         fps = (len(cams) - 1) / max(t_total, 1e-9)
         print(f"{name}: {fps:.2f} FPS", flush=True)
     export_video(renders_dir, os.path.join(out_dir, name, "video.mp4"))
-    return {"frames": len(cams), "fps": fps, "render_ms": render_ms, "save_ms": save_ms}
+    out = {"frames": len(cams), "fps": fps, "render_ms": render_ms, "save_ms": save_ms}
+    if tongue_renders:
+        out["tongue_render_ms"] = tongue_ms
+    return out
 
 
 def main(argv=None):

@@ -213,6 +213,10 @@ def stage_batch(cams, use_ssim, tongue_enabled, device, pcd_loader=None, pcd_fra
     return batch
 
 
+# the tongue terms' metrics (tongue_mask_loss_enabled), in the loss's order
+TONGUE_TERMS = ("tongue_l1", "tongue_emb", "tongue_rgb", "wo_tongue_rgb")
+
+
 def training_report(tb, iteration, metrics, iter_time, total_points, total_tongue):
     """The reference's per-iteration scalar set (train.py:505-524)."""
     g = lambda k: float(metrics[k]) if k in metrics else 0.0  # noqa: E731
@@ -277,7 +281,9 @@ def run_training(cfg, args):
     holds the loop's wall ms, loss and train PSNR per iteration, the ms
     each iteration's first read of the step's results waited, the test
     PSNRs, the densify events, the pair-capacity changes, the alive counts
-    at start and end, the stager's decode and wait ms, and per graph cache
+    at start and end, with the tongue terms on each TONGUE_TERMS metric and
+    the alive tongue Gaussians (`total_tongue`) per iteration, the
+    stager's decode and wait ms, and per graph cache
     (each train step made, the densify step, the test render) its name,
     captures, their seconds and its pool bytes. With --mesh the state and
     aux are whole (gathered) on every rank."""
@@ -537,6 +543,8 @@ def run_training(cfg, args):
 
     log = {"iter_ms": [], "loss": [], "psnr": [], "test_psnr": [], "densify": [],
            "capacity": [], "points_start": log_points, "read_wait_ms": []}
+    if model.tongue_mask_loss_enabled:
+        log.update({k: [] for k in (*TONGUE_TERMS, "total_tongue")})
 
     def maybe_resize_capacity(iteration, num_pairs, send_overflow):
         nonlocal rcfg, setup, step_fn
@@ -617,6 +625,10 @@ def run_training(cfg, args):
             log["loss"].append(loss)
             log["psnr"].append(float(metrics["psnr"]))
             n_points, n_tongue = points(aux)
+            if model.tongue_mask_loss_enabled:
+                for k in TONGUE_TERMS:
+                    log[k].append(float(metrics[k]))
+                log["total_tongue"].append(n_tongue)
             if tb is not None:
                 now = time.time()
                 training_report(tb, iteration, metrics, now - t_iter, n_points,
