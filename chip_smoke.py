@@ -408,7 +408,11 @@ PREP_W, PREP_H = 550, 802    # a NerSemble images-2x frame
 # every step's loss and PSNR to the single-process run's; (d) tools.train under
 # torch.distributed.run on two ranks (--mesh data=1,gauss=2 --comms strip
 # --share_device) for MULTI_CLI_ITERS iterations on the cli phase's scene,
-# its checkpoint reloaded and rendered in one process. The world must finish
+# its checkpoint reloaded and rendered in one process; (e) the sharded step
+# graphed in a world of one on this card against graph=False, gspmd and
+# strip, bit for bit: the train phase's step, and from 5b's states its tongue
+# step (MULTI_E_STEPS batches) and COLMAP step (both pcd_valid keys), whose
+# graphed launches on the card join the phase's. The world must finish
 # within MULTI_DEADLINE s, the torchrun within MULTI_CLI_DEADLINE s.
 MULTI_ATOL, MULTI_RTOL = 2e-5, 1e-4
 MULTI_STEPS = 3
@@ -417,6 +421,7 @@ MULTI_XYZ_ATOL, MULTI_WEIGHT_ATOL, MULTI_DENOM_ATOL = 5e-5, 5e-6, 1e-6
 MULTI_DEADLINE, MULTI_CLI_DEADLINE = 240.0, 300.0
 MULTI_CLI_ITERS = 30
 MULTI_EYE2 = (0.15, 0.05, 0.0)   # the second view of (c)'s batch of two
+MULTI_E_STEPS = 3             # (e)'s tongue steps from 5b's state: SSIM off, on, off
 
 # The tongue phase (5b): configs/nersemble/tongue.py on the bench cloud,
 # whose first TONGUE_N Gaussians are moved into a compact blob of tongue
@@ -1795,24 +1800,38 @@ def multi_phase(torch, snap, cli, tmp):
         fail("multi (d): the reloaded checkpoint does not render")
     out["cli"] = dict(seconds=out["cli_s"], test_psnr=psnr, alive=int(caux.alive.sum()),
                       rows=rows)
-    out["e"] = mesh_graph_check(torch, snap, one)
+    out["e"] = {"default": mesh_graph_check(torch, snap, one)}
+    # the tongue and COLMAP steps of 5b, from its states
+    core = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7")
+    for name, what in (("tongue", "tongue step"), ("colmap", "COLMAP step")):
+        if name in snap:
+            e = mesh_graph_check(torch, snap[name], snap[name]["batches"], what, core)
+            out["e"][name] = e
+            for r in e.values():
+                for k, n in r["launches"].items():
+                    out["launches"][k] += n
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"multi: phase {out['wall_s']:.1f} s (world {out['world_s']:.1f} s, torchrun "
           f"{out['cli_s']:.1f} s)", flush=True)
     return out
 
 
-def mesh_graph_check(torch, snap, batches) -> dict:
+def mesh_graph_check(torch, snap, batches, what="sharded step", keys=()) -> dict:
     """(e) of the multi phase: the sharded step's graph on this one card, in
     a world of one (a Mesh(1, 1): no collective runs, so gloo's limits do
     not apply, and the NCCL graph itself needs a card a rank:
     scripts/torch_multi_gpu.py). For gspmd and strip, the graphed sharded
-    step (the default) against the eager one (graph=False) from the same
-    state over `batches` (SSIM on the first: two keys, the last step
-    replays), every state tensor and metric bit for bit, each step timed by
-    CUDA events. Fails on a capture that fails or a tensor that differs."""
+    step (the default) against the eager one (graph=False) from the state
+    `snap` holds (its setup, optimizer, state, aux and KNN cache) over
+    `batches` (two keys or more: a later step replays), every state tensor
+    and metric bit for bit, each step timed by CUDA events, and the graphed
+    run's launches of `keys` on the card (the kernels' counters), which
+    must be `per_step_launches` a step (K3 and K4 twice as many under
+    strip: the pack's bin and its backward). Fails on a capture that fails,
+    a tensor that differs or launches off that count."""
     from dataclasses import replace
 
+    from ed3dgs_torch.ops import cuda_lib
     from ed3dgs_torch.parallel.mesh import Mesh
     from ed3dgs_torch.parallel.sharded import make_sharded_train_step
 
@@ -1825,31 +1844,44 @@ def mesh_graph_check(torch, snap, batches) -> dict:
                                            snap["optimizer"], mesh, graph=graph)
             s, a = snap["state"], snap["aux"]
             tensors, events = [], []
-            for b in batches:
-                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                e0.record()
-                s, a, m = step(s, a, b, snap["cache"])
-                e1.record()
-                events.append((e0, e1))
-                tensors.append({k: v.detach().clone() for k, v in state_tensors(s, a, m).items()})
+            with cuda_lib.DeviceLaunches() as trace:
+                for b in batches:
+                    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    e0.record()
+                    s, a, m = step(s, a, b, snap["cache"])
+                    e1.record()
+                    events.append((e0, e1))
+                    tensors.append({k: v.detach().clone()
+                                    for k, v in state_tensors(s, a, m).items()})
             torch.cuda.synchronize()
             runs[graph] = dict(tensors=tensors, ms=[e0.elapsed_time(e1) for e0, e1 in events],
                                captures=len(step.graphs.captures) if graph and step.graphs
-                               else 0)
+                               else 0,
+                               pool_bytes=step.graphs.pool_bytes if graph and step.graphs
+                               else 0,
+                               launches=card_launches(trace, keys) if keys else {})
             del step, s, a, m
         differ = [sorted(k for k in e if not torch.equal(e[k], g[k]))
                   for e, g in zip(runs[False]["tensors"], runs[True]["tensors"])]
-        out[comms] = dict(bit_for_bit=[not d for d in differ], graphed_ms=runs[True]["ms"],
-                          eager_ms=runs[False]["ms"], captures=runs[True]["captures"])
-        print(f"multi (e) the sharded step graphed in a world of one, {comms}: bit-identical to "
+        g = runs[True]
+        want = {k: n * len(batches) * (2 if comms == "strip" and k in ("K3", "K4") else 1)
+                for k, n in per_step_launches(snap["setup"], keys).items()}
+        out[comms] = dict(bit_for_bit=[not d for d in differ], graphed_ms=g["ms"],
+                          eager_ms=runs[False]["ms"], captures=g["captures"],
+                          pool_bytes=g["pool_bytes"], launches=g["launches"])
+        print(f"multi (e) the {what} graphed in a world of one, {comms}: bit-identical to "
               f"eager a step {out[comms]['bit_for_bit']}, ms a step (CUDA events) graphed "
-              f"{[round(x, 3) for x in runs[True]['ms']]} eager "
-              f"{[round(x, 3) for x in runs[False]['ms']]}, captures "
-              f"{runs[True]['captures']}", flush=True)
+              f"{[round(x, 3) for x in g['ms']]} eager "
+              f"{[round(x, 3) for x in runs[False]['ms']]}, captures {g['captures']}, pool "
+              f"{g['pool_bytes']} bytes"
+              + (f", graphed launches on the card {g['launches']}" if keys else ""), flush=True)
         if any(differ):
-            fail(f"multi (e): the graphed sharded step ({comms}) differs from the eager one: "
+            fail(f"multi (e): the graphed {what} ({comms}) differs from the eager one: "
                  f"{[d[:6] for d in differ]}")
-        del runs
+        if g["launches"] != want:
+            fail(f"multi (e): the graphed {what} ({comms}) launched {g['launches']} on the "
+                 f"card, not {want}")
+        del runs, g
     return out
 
 
@@ -2158,6 +2190,37 @@ def tongue_refresh(torch, params, aux, caps, coverage_target):
     return cache, wall_ms, searched, knn.knn.launches
 
 
+def tongue_threshold(torch, state, aux, opt, extent):
+    """The densify threshold of a tongue state: the config's rule at
+    TRAIN_ITERATION, lowered to the 99.9th percentile of the seen
+    Gaussians' mean screen-space gradient and to the hottest clone-sized and
+    the hottest larger tongue Gaussian, so that both clone and split take
+    tongue parents. Returns (threshold, the mean gradients, the clone-sized
+    mask, the alive tongue mask, {config, q999, tongue_small,
+    tongue_large}); fails where the steps saw no clone-sized or no larger
+    tongue Gaussian."""
+    grads = torch.where(aux.denom > 0, aux.xyz_grad_accum / aux.denom,
+                        torch.zeros_like(aux.denom))
+    scales = torch.exp(state.params["gaussians"].scaling).amax(dim=1)
+    small = scales <= opt.percent_dense * extent
+    tongue = aux.alive & (aux.tongue_class[:, 0] > 0.5)
+    thr_cfg = (opt.densify_grad_threshold_fine_init
+               - TRAIN_ITERATION * (opt.densify_grad_threshold_fine_init
+                                    - opt.densify_grad_threshold_after) / opt.densify_until_iter)
+    seen_rows = aux.alive & (aux.denom > 0)
+    q999 = float(torch.quantile(grads[seen_rows], 0.999))
+    if not (bool((seen_rows & tongue & small).any())
+            and bool((seen_rows & tongue & ~small).any())):
+        fail("the tongue steps saw no clone-sized or no larger tongue Gaussian")
+    t_small = float(grads[seen_rows & tongue & small].max())
+    t_large = float(grads[seen_rows & tongue & ~small].max())
+    if min(t_small, t_large) <= 0:
+        fail(f"the tongue Gaussians' densify statistics are 0 (clone-sized {t_small}, larger "
+             f"{t_large})")
+    return (min(thr_cfg, q999, t_small, t_large), grads, small, tongue,
+            dict(config=thr_cfg, q999=q999, tongue_small=t_small, tongue_large=t_large))
+
+
 def tongue_phase(torch, cam, rcfg, fargs, extent, counters) -> dict:
     """5b: the tongue configuration (TONGUE_CFG) on the bench cloud with a
     tongue blob (`tongue_cloud`), then the COLMAP step (`colmap_phase`).
@@ -2240,6 +2303,9 @@ def tongue_phase(torch, cam, rcfg, fargs, extent, counters) -> dict:
     if min(gt_means) <= 0.005:
         fail("a tongue target covers too little of the image for the tongue colour term")
     per_step = per_step_launches(setup, counters)
+    # the multi phase's (e) captures the sharded tongue step from here
+    snaps = {"tongue": dict(state=state, aux=aux, cache=cache, setup=setup,
+                            optimizer=optimizer, batches=batches[:MULTI_E_STEPS])}
     state, aux, steps = steps_against_eager(torch, eager, step, state, aux, cache, batches,
                                             counters, per_step, "tongue step")
     for s in steps:
@@ -2256,28 +2322,10 @@ def tongue_phase(torch, cam, rcfg, fargs, extent, counters) -> dict:
     print(f"  tongue step: {out['steps']}", flush=True)
     launches = {k: sum(s["launches"][k] for s in steps) for k in counters}
 
-    # densify on the tongue state (the phase's threshold rule, lowered to
-    # the hottest clone-sized and the hottest larger tongue Gaussian so
-    # that both clone and split take tongue parents), eager against graphed
-    grads = torch.where(aux.denom > 0, aux.xyz_grad_accum / aux.denom,
-                        torch.zeros_like(aux.denom))
-    scales = torch.exp(state.params["gaussians"].scaling).amax(dim=1)
-    small = scales <= opt.percent_dense * extent
-    tongue = aux.alive & (aux.tongue_class[:, 0] > 0.5)
-    thr_cfg = (opt.densify_grad_threshold_fine_init
-               - TRAIN_ITERATION * (opt.densify_grad_threshold_fine_init
-                                    - opt.densify_grad_threshold_after) / opt.densify_until_iter)
-    seen_rows = aux.alive & (aux.denom > 0)
-    q999 = float(torch.quantile(grads[seen_rows], 0.999))
-    if not (bool((seen_rows & tongue & small).any())
-            and bool((seen_rows & tongue & ~small).any())):
-        fail("the tongue steps saw no clone-sized or no larger tongue Gaussian")
-    t_small = float(grads[seen_rows & tongue & small].max())
-    t_large = float(grads[seen_rows & tongue & ~small].max())
-    if min(t_small, t_large) <= 0:
-        fail(f"the tongue Gaussians' densify statistics are 0 (clone-sized {t_small}, larger "
-             f"{t_large})")
-    thr = min(thr_cfg, q999, t_small, t_large)
+    # densify on the tongue state, eager against graphed
+    thr, grads, small, tongue, parts = tongue_threshold(torch, state, aux, opt, extent)
+    thr_cfg, q999, t_small, t_large = (parts[k] for k in ("config", "q999", "tongue_small",
+                                                          "tongue_large"))
     hot = (grads >= thr) & aux.alive
     n_alive = int(aux.alive.sum())
     budget = max(min(opt.max_number_gaussians, CAPACITY) - n_alive, 0)
@@ -2367,7 +2415,9 @@ def tongue_phase(torch, cam, rcfg, fargs, extent, counters) -> dict:
     colmap = colmap_phase(torch, cam, rcfg, fargs, extent, counters)
     for k, v in colmap.pop("launches").items():
         launches[k] += v
+    snaps["colmap"] = colmap.pop("snap")
     out["colmap"] = colmap
+    out["snaps"] = snaps
     out["launches"] = launches
     out["x1_launches"] = x1_launches
     del flush_buf
@@ -2423,6 +2473,8 @@ def colmap_phase(torch, cam, rcfg, fargs, extent, counters) -> dict:
                            replay=s["replay"]) for v, s in zip(COLMAP_VALID, steps)],
                launches={k: sum(s["launches"][k] for s in steps) for k in counters})
     print(f"  colmap step: {out}", flush=True)
+    out["snap"] = dict(state=state, aux=aux, cache=cache, setup=setup, optimizer=optimizer,
+                       batches=batches)
     if out["captures"] != 2:
         fail(f"colmap step: {out['captures']} captures, not one for each pcd_valid")
     return out
@@ -3623,6 +3675,7 @@ def main():
 
     # ---- 5b. the tongue configuration and the COLMAP step -------------------
     result["tongue"] = tongue_phase(torch, cam, rcfg, fargs, extent, counters)
+    snap.update(result["tongue"].pop("snaps"))
 
     # ---- 6. the training CLI on a scene on disk, 7. the serving tools ------
     import tempfile
@@ -3639,7 +3692,8 @@ def main():
 
     order = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "K8")
     # the main path's launches: the train run's, the tongue and COLMAP
-    # steps' (5b) and the multi phase's ranks'; X1's: the densify step and
+    # steps' (5b) and the multi phase's (its ranks' and (e)'s graphed tongue
+    # and COLMAP steps'); X1's: the densify step and
     # refreshes of 3 and 5b's two tongue refreshes, beside its cli and serve
     # counts
     tongue = result["tongue"]

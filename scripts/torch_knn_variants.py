@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
 """Time the port's KNN-loss kernels (K6 `knn_rows`, K7 `knn_reverse`,
-ed3dgs_torch/csrc/knn_loss.cu) against variants that stage each Morton
-block's three-block window of the embedding table in shared memory, on the
+ed3dgs_torch/csrc/knn_loss.cu) against variants with 256-rank CTAs, on the
 bench cloud's KNN graph, on one NVIDIA GPU:
 
     python3 scripts/torch_knn_variants.py [--out DIR] [--iters N] [--baseline DIR]
     python3 scripts/torch_knn_variants.py --wrappers-of TREE [--out DIR]
 
-- `port`: the source as it is (both kernels read every row from L2);
-- `k6_window`, `k7_window`: the shipped CTA sizes (128 K6 rows, 64 K7
-  ranks) and the 768-row window (96 KB) of the CTA's Morton block staged
-  in shared memory by 16-byte cp.async; in-window rows are read from there
-  (K6's slot tiles and the window leave room for one CTA per SM, not two);
+- `port`: the source as it is (128 K6 rows and 64 K7 ranks a CTA; both
+  kernels read every row from L2);
 - `k6_256`, `k7_256`: one CTA per 256-rank Morton block, rows from L2 (K7
-  at two CTAs per SM, 64 registers, four ranks a group);
-- `k6_window256`, `k7_window256`: the same 256-rank CTAs with the block's
-  window staged, so a CTA copies three rows for each row it owns.
+  at two CTAs per SM, four ranks a group).
+
+Each variant is the source with exact-text substitutions (`VARIANTS`); a
+substitution that is not exactly once in knn_loss.cu raises before anything
+is built (tests/test_torch_knn_variants_text.py checks the same on the CPU).
+The shared-memory window variants (each Morton block's three-block window
+of the embedding table staged by cp.async) were measured slower than the
+L2 reads for both kernels when they were built, and are gone.
 
 With `--baseline DIR` (a checkout of another tree, say the parent commit),
 that tree's knn_loss.cu is built as `baseline` and timed first and last.
@@ -65,71 +66,14 @@ def load_smoke():
     return smoke
 
 
-# Staging a CTA's three-block Morton window of the table (rows [256 (b-1),
-# 256 (b+2)) clamped to the table, 96 KB) by 16-byte cp.async, and a `rowp`
-# that reads rank j's row from it where it holds the row.
-WINDOW = "3 * 256 * E * 4"
-
-
-def stage_window(rows: str, smem: str) -> str:
-    return (
-        f"  float4* win = reinterpret_cast<float4*>({smem});\n"
-        f"  const int lo = 256 * max(r0 / 256 - 1, 0);\n"
-        f"  const int hi = 256 * min(r0 / 256 + 2, (int)gridDim.x * {rows} / 256);\n"
-        "  for (int q = threadIdx.x; q < (hi - lo) * Q; q += THREADS) {\n"
-        "    const unsigned dst = (unsigned)__cvta_generic_to_shared(win + q);\n"
-        "    asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(dst),\n"
-        "                 \"l\"(emb4 + (long)lo * Q + q));\n"
-        "  }\n"
-        "  asm volatile(\"cp.async.commit_group;\\n\" ::: \"memory\");\n"
-        "  auto rowp = [&](long j) {\n"
-        "    return (j >= lo && j < hi) ? (const float4*)win + (j - lo) * Q : emb4 + j * Q;\n"
-        "  };\n")
-
-
-WAIT = "  asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n"
-RAISE_K7_SMEM = (
-    "  cudaFuncSetAttribute((const void*)knn_reverse,\n"
-    f"                       cudaFuncAttributeMaxDynamicSharedMemorySize, {WINDOW});\n"
-    "  cudaFuncSetAttribute((const void*)knn_reverse,\n"
-    "                       cudaFuncAttributePreferredSharedMemoryCarveout,\n"
-    "                       cudaSharedmemCarveoutMaxShared);\n")
-
-K6_WINDOW = [
-    ("  const int r0 = blockIdx.x * R6;\n",
-     "  const int r0 = blockIdx.x * R6;\n" + stage_window("R6", "tiles + 3 * R6 * kp")),
-    ("    w_t[at] = w[e0 + e];\n  }\n  __syncthreads();",
-     "    w_t[at] = w[e0 + e];\n  }\n" + WAIT + "  __syncthreads();"),
-    ("ei[v] = emb4[(long)r * Q + sub + L * v];", "ei[v] = rowp(r)[sub + L * v];"),
-    ("ea[v] = emb4[(long)jr[0] * Q + sub + L * v];", "ea[v] = rowp(jr[0])[sub + L * v];"),
-    ("nxt[v] = emb4[jn * Q + sub + L * v];", "nxt[v] = rowp(jn)[sub + L * v];"),
-    ("knn_rows<<<Cp / R6, THREADS, rows_smem(K),",
-     f"knn_rows<<<Cp / R6, THREADS, rows_smem(K) + {WINDOW},"),
-    ("rows_smem(MAX_K));", f"rows_smem(MAX_K) + {WINDOW});"),
-]
-K7_WINDOW = [
-    ("  auto row = [&](int j) { return emb4[(long)j * Q + sub]; };\n",
-     "  extern __shared__ float4 dyn[];\n" + stage_window("R7", "dyn")
-     + "  auto row = [&](int j) { return rowp(j)[sub]; };\n"),
-    ("    __syncthreads();                              // the chunk is in",
-     WAIT + "    __syncthreads();                              // the chunk is in"),
-    ("  for (int q = 0; q < JPG; ++q) {\n    const long j = r0",
-     "  for (int q = 0; q < JPG; ++q) {\n" + WAIT + "    const long j = r0"),
-    ("  knn_reverse<<<Cp / R7, THREADS, 0,",
-     RAISE_K7_SMEM + f"  knn_reverse<<<Cp / R7, THREADS, {WINDOW},"),
-]
 K6_256 = [("constexpr int R6 = 128;", "constexpr int R6 = 256;")]
 K7_256 = [("constexpr int R7 = 64; ", "constexpr int R7 = 256;"),
           ("constexpr int K7_CTAS = 4;", "constexpr int K7_CTAS = 2;")]
 # variant -> ([(text of knn_loss.cu, replacement)], K6's rank rows per CTA)
 VARIANTS = {
     "port": ([], 128),
-    "k6_window": (K6_WINDOW, 128),
-    "k7_window": (K7_WINDOW, 128),
     "k6_256": (K6_256, 256),
     "k7_256": (K7_256, 128),
-    "k6_window256": (K6_256 + K6_WINDOW, 256),
-    "k7_window256": (K7_256 + K7_WINDOW, 128),
 }
 
 

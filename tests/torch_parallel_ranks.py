@@ -226,6 +226,42 @@ def _step_tensors(state, aux, metrics) -> dict:
     return {k: v.detach().clone() for k, v in out.items()}
 
 
+FULL_ITERATION = 20_000     # the iteration of the every-term problem
+
+
+def full_extras(problem: dict) -> dict:
+    """numpy arrays of the every-term problem beside the test problem: the
+    tongue class of every third slot, the batch's tongue masks and a GT
+    cloud of 64 points (the test process hands the same to JAX)."""
+    C = problem["fields"]["alive"].shape[0]
+    B, _, H, W = problem["batch"]["gt_image"].shape
+    rng = np.random.default_rng(5)
+    tongue_gt = (rng.uniform(size=(B, 1, H, W)) > 0.6).astype(np.float32)
+    pcd = (rng.uniform(-0.5, 0.5, (64, 3)).astype(np.float32)
+           + np.array([0, 0, 2.2], np.float32))
+    return dict(tongue_class=(np.arange(C) % 3 == 0).astype(np.float32)[:, None],
+                tongue_gt=tongue_gt, pcd_points=pcd)
+
+
+def full_problem(problem, state, aux, setup, batch):
+    """(setup, state, aux, batch, KNN cache) of the every-term problem:
+    SSIM, temporal TV, the depth-normal, COLMAP and tongue terms live, at
+    FULL_ITERATION, the cache with its tongue graph."""
+    from dataclasses import replace
+
+    from ed3dgs_torch.train.trainer import update_knn_cache
+
+    ex = full_extras(problem)
+    full = replace(setup, tongue_enabled=True, colmap_supervision=True, lambda_dssim=0.2,
+                   coef_tv_temporal=0.01, radegs_from_iter=0)
+    aux_f = aux._replace(tongue_class=torch.as_tensor(ex["tongue_class"]))
+    batch_f = dict(batch, use_ssim=True, pcd_valid=True,
+                   tongue_gt=torch.as_tensor(ex["tongue_gt"]),
+                   pcd_points=torch.as_tensor(ex["pcd_points"]))
+    cache_f = update_knn_cache(state.params["gaussians"], aux_f, tongue_enabled=True)
+    return full, state._replace(iteration=FULL_ITERATION), aux_f, batch_f, cache_f
+
+
 def parallel_step_rank(rank, world, problem):
     """4 ranks at data=2 x gauss=2: with each comms, three eager sharded
     steps (graph=False) and three through the graphed step's path (the
@@ -290,21 +326,7 @@ def parallel_step_rank(rank, world, problem):
         res[f"graph_ledgers_{comms}"] = ledgers
     # every global and last-camera term live: SSIM, temporal TV, the
     # depth-normal, COLMAP and tongue terms, against the single step
-    full = replace(setup, tongue_enabled=True, colmap_supervision=True, lambda_dssim=0.2,
-                   coef_tv_temporal=0.01, radegs_from_iter=0)
-    C = aux.alive.shape[0]
-    aux_f = aux._replace(tongue_class=(torch.arange(C) % 3 == 0).float()[:, None])
-    rng = np.random.default_rng(5)
-    B = batch["gt_image"].shape[0]
-    H, W = batch["gt_image"].shape[2:]
-    batch_f = dict(batch, use_ssim=True, pcd_valid=True,
-                   tongue_gt=torch.as_tensor((rng.uniform(size=(B, 1, H, W)) > 0.6)
-                                             .astype(np.float32)),
-                   pcd_points=torch.as_tensor(rng.uniform(-0.5, 0.5, (64, 3))
-                                              .astype(np.float32)) + torch.tensor([0, 0, 2.2]))
-    from ed3dgs_torch.train.trainer import update_knn_cache
-    cache_f = update_knn_cache(state.params["gaussians"], aux_f, tongue_enabled=True)
-    state_f = state._replace(iteration=20_000)
+    full, state_f, aux_f, batch_f, cache_f = full_problem(problem, state, aux, setup, batch)
     if rank == 0:
         res["full_single"] = _state_numbers(*make_train_step(full, optimizer)(
             state_f, aux_f, batch_f, cache_f))
@@ -325,6 +347,114 @@ def parallel_step_rank(rank, world, problem):
         and torch.equal(sa.params["deform"]["weight"], sb.params["deform"]["weight"])
         and all(torch.equal(x, y) for x, y in zip(aa, ab))
         and all(torch.equal(ma[k], mb[k]) for k in ma))
+    return res
+
+
+def _tongue_densify(state, aux, graph: bool):
+    """The densify step on a whole every-term state at the smallest mean
+    screen-space gradient of a seen tongue Gaussian (so that tongue
+    parents take the free slots), with a generator of one seed; returns
+    (state, aux, the step's tensors)."""
+    from ed3dgs_torch.train.trainer import make_densify_step
+    from ed3dgs_torch.config.params import OptimizationConfig
+
+    seen = aux.alive & (aux.denom > 0) & (aux.tongue_class[:, 0] > 0.5)
+    thr = float((aux.xyz_grad_accum / aux.denom.clamp_min(1.0))[seen].min())
+    opt = OptimizationConfig()
+    step = make_densify_step(opt, opt.percent_dense, 1.0, graph=graph)
+    state, aux, n_c, n_s = step(state, aux, torch.Generator().manual_seed(0), thr)
+    tensors = _step_tensors(state, aux, {"n_cloned": n_c, "n_split": n_s})
+    return state, aux, tensors
+
+
+def parallel_tongue_rank(rank, world, problem):
+    """4 ranks at data=2 x gauss=2 on the every-term problem (tongue and
+    COLMAP terms live; `full_problem`):
+      * with each comms, the graphed step's path (run eagerly on the CPU)
+        against graph=False from the same shards: 2 steps (SSIM on, off),
+        tools.train's densify event on the mesh (the whole cloud gathered,
+        the densify step of the same kind, the KNN cache rebuilt with its
+        tongue graph, the shards again), then 2 steps with pcd_valid on,
+        off: every step's tensors and collectives, and the tongue graph's
+        in-edges before and after;
+      * under strip, the send demand of the last camera's main render and
+        of its tongue-only and tongue-free sub-renders (the step's own
+        `_render_one`), and the demand the step reports.
+    The first eager step of each comms, its state gathered, is the one the
+    test holds to JAX's sharded step."""
+    from dataclasses import replace
+
+    from ed3dgs_torch.parallel import sharded
+    from ed3dgs_torch.train import trainer
+    from ed3dgs_torch.train.trainer import update_knn_cache
+
+    torch.set_num_threads(1)
+    state, aux, setup, optimizer, batch, _ = port_problem(problem)
+    full, state_f, aux_f, batch_f, cache_f = full_problem(problem, state, aux, setup, batch)
+    mesh = Mesh(2, 2)
+    st_f, ax_f = sharded.shard_train_state(mesh, state_f, aux_f)
+    batch_l = sharded.shard_batch(mesh, batch_f)
+    res = {}
+    batches = [dict(batch_l, use_ssim=True), dict(batch_l, use_ssim=False)]
+    after = [dict(batch_l, use_ssim=False, pcd_valid=True),
+             dict(batch_l, use_ssim=False, pcd_valid=False)]
+    for comms in ("gspmd", "strip"):
+        runs = {}
+        for graph in (False, True):
+            step = sharded.make_sharded_train_step(replace(full, comms=comms), optimizer, mesh,
+                                                   graph=graph)
+            s, a, cache = st_f, ax_f, cache_f
+            run = {"tensors": [], "ledgers": [], "metrics": []}
+
+            def one(b):
+                nonlocal s, a
+                comm.ledger.reset()
+                s, a, m = step(s, a, b, cache)
+                run["ledgers"].append([r.__dict__ for r in comm.ledger.records])
+                run["tensors"].append(_step_tensors(s, a, m))
+                run["metrics"].append({k: float(v) for k, v in m.items() if v.dim() == 0})
+                return m
+            for i, b in enumerate(batches):
+                m = one(b)
+                if i == 0 and not graph:
+                    res[f"full_{comms}"] = _state_numbers(
+                        *sharded.gather_train_state(mesh, s, a), m)
+                    res[f"full_{comms}_overflow"] = int(m["send_overflow"])
+            whole_s, whole_a = sharded.gather_train_state(mesh, s, a)
+            alive0 = whole_a.alive.clone()
+            whole_s, whole_a, dens = _tongue_densify(whole_s, whole_a, graph)
+            new = update_knn_cache(whole_s.params["gaussians"], whole_a, tongue_enabled=True)
+            run["densify"] = dens
+            run["born_tongue"] = int(((whole_a.alive & ~alive0)
+                                      & (whole_a.tongue_class[:, 0] > 0.5)).sum())
+            run["in_edges"] = (int(cache.t_graph.rev_pair.shape[0]),
+                               int(new.t_graph.rev_pair.shape[0]))
+            cache = new
+            s, a = sharded.shard_train_state(mesh, whole_s, whole_a)
+            for b in after:
+                one(b)
+            runs[graph] = run
+        e, g = runs[False], runs[True]
+        res[f"graph_differ_{comms}"] = [
+            [k for k in x if not torch.equal(x[k], y[k])] + sorted(set(x) ^ set(y))
+            for x, y in zip(e["tensors"] + [e["densify"]], g["tensors"] + [g["densify"]])]
+        res[f"graph_ledgers_{comms}"] = (e["ledgers"], g["ledgers"])
+        res[f"graph_metrics_{comms}"] = g["metrics"]
+        res[f"refresh_{comms}"] = dict(in_edges=g["in_edges"], born_tongue=g["born_tongue"])
+
+    # the strip sub-renders' send demand against the main render's
+    strip = replace(full, comms="strip", mesh=mesh)
+    gp, dp = st_f.params["gaussians"], st_f.params["deform"]
+    settings = trainer._settings(batch_f, batch_f["gt_image"].shape[0] - 1)
+    br = trainer.step_branches(strip, FULL_ITERATION, batch_f)
+    demand = {}
+    with torch.no_grad():
+        for name, filt, offset in (("main", None, torch.zeros((ax_f.alive.shape[0], 2))),
+                                   ("only", "only", None), ("without", "without", None)):
+            r = trainer._render_one(gp, ax_f, dp, strip, settings, FULL_ITERATION,
+                                    br.active_sh_degree, offset, filt)
+            demand[name] = int(r["send_overflow"])
+    res["send_demand"] = demand
     return res
 
 
