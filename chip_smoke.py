@@ -126,6 +126,31 @@ chunk 128):
    supervision.py, the cloud in a capacity of 150,000: 4000 GT points near
    it, a numpy seed) graphed against eager bit for bit for both pcd_valid
    keys, pcd_loss non-zero exactly when valid, timed, with its pool bytes;
+5c. the families phase: the upstream E-D3DGS dataset families, each
+   through one per-scene config at full width (FAMILIES: DyNeRF's
+   cook_spinach at 1600x1200, Technicolor's Birthday at 1600x850 with the
+   principal point off centre, HyperNeRF's vrig-chicken at 536x960, batch
+   2): (a) FAM_N Gaussians in FAM_CAPACITY slots over the camera's frustum,
+   the 3D filter and the KNN refresh (X1 once), one eager step at the
+   config's pair capacity whose demand CapacityPolicy turns into the
+   capacity the rest runs at, which binning path that capacity and grid
+   take (K4's packed key: 18 + 13 = 31 bits at 1600x1200), K4, K1, K5a, K2,
+   K3 and K5b held to their plain versions on one step's inputs at the
+   bounds of 1 and 4 and timed, then the eager and graphed steps over every
+   key the config's schedule meets (each key at the first iteration that
+   meets it, then again: captures, then replays), bit for bit, launching
+   K1-K5b once a camera and K6/K7 once a step, with the temporal TV term
+   live exactly where configured; a densify (eager against graphed twice,
+   bit for bit), the filter and KNN refreshes (X1 once) and FAM_MORE steps
+   that must replay known keys; (b) `tools.train.main` on a scene
+   generated on the card at the family's raw frame size, FAM_CLI_ITERS
+   iterations with FAM_CLI_SET's one densify event: K1-K7 and X1 launched
+   as the steps, batch and refreshes need, the losses finite; its ms an
+   iteration against (a)'s graphed step, the PNG decode and resize ms a
+   frame, the capacity log and each graph's captures and pool bytes; (c)
+   `tools.render.main` of the saved model (FAM_SERVE_FRAMES a split,
+   DyNeRF's spiral video cameras too): a PNG a frame, K1, K4 and K5a once a
+   frame, render and PNG ms a frame;
 6. the `cli` phase: `ed3dgs_torch.data.synthetic.generate_scene` on the card
    (802x550, 4 cameras with cam00 held out, 8 frames, 20,000 points; K1
    renders the frames) into a temporary directory, then
@@ -241,15 +266,16 @@ chunk 128):
 
 Weights are random, from numpy seeds; so are the training targets. Results go
 to DIR/chip_smoke.json (default smoke_out/ in the checkout), with the
-profiles and nvcc's register report beside it. The last eight lines of
-standard output are the `tongue`, `cli`, `serve`, `offline` and `multi`
-JSON lines, the card as nvidia-smi names it, the kernels' JSON line and the
-result line. The kernels line lists K1-K8 and X1; X1's launches are those
-of the densify step and refreshes in 3 and of 5b's two tongue refreshes
-(its own path: the search runs at a refresh, not in a step), and it also
-carries its `cli` and `serve` counts; each row carries 5b's launches
-(`tongue_launches`), K6 and K7 their ms on the tongue graph, X1 its ms on
-the tongue graph's input.
+profiles and nvcc's register report beside it. The last nine lines of
+standard output are the `families`, `tongue`, `cli`, `serve`, `offline` and
+`multi` JSON lines, the card as nvidia-smi names it, the kernels' JSON line
+and the result line. The kernels line lists K1-K8 and X1; X1's launches are
+those of the densify step and refreshes in 3, of 5b's two tongue refreshes
+and of 5c's refreshes (its own path: the search runs at a refresh, not in a
+step), and it also carries its `cli` and `serve` counts; each row carries
+5b's launches (`tongue_launches`) and 5c's (`families_launches`, within
+`launches`) with its ms at each family's shapes (`families_ms`), K6 and K7
+their ms on the tongue graph, X1 its ms on the tongue graph's input.
 Any failure exits non-zero before the result line.
 Needs one CUDA device; refuses to run without one.
 """
@@ -463,6 +489,43 @@ TONGUE_CLI_SET = ["deform_from_iter=50", "densify_from_iter=100", "densify_until
                   "min_embeddings=4", "max_embeddings=8"]
 TONGUE_SERVE_FRAMES = 8
 
+# The families phase (5c): the upstream E-D3DGS paper's dataset families,
+# each through one per-scene config at its full width and at the frame size
+# its reader gives (data/readers.py: frames wider than 1600 shrink to 1600;
+# HyperNeRF reads rgb/2x). (a) The step on FAM_N Gaussians in FAM_CAPACITY
+# slots (the configs' max_number_gaussians of 200,000 rounded up to 1024 as
+# CAPACITY is: an 18-bit rank, so K4's key takes 18 + 13 = 31 bits at
+# 1600x1200; FAM_N leaves the densify 3,392 slots under the cap) spread over
+# the frustum at log-scales about FAM_LOG_SCALE; the pair capacity sized by
+# CapacityPolicy from one eager step; K1-K5b held to their plain versions
+# (timed FAM_REPS times); the graphed step against eager over every key of
+# the config's schedule, then a densify, both refreshes and FAM_MORE
+# replays. (b) tools.train on a generated scene at the family's raw frame
+# size (`raw`: N3V's 2704x2028, Technicolor's 2048x1088 from cam10 with the
+# principal point FAM_PP off centre, HyperNeRF's rgb/2x 536x960), only
+# schedule keys cut (FAM_CLI_SET: one densify event at 60), then (c)
+# tools.render of the model, FAM_SERVE_FRAMES a split (DyNeRF's spiral video
+# cameras too).
+FAM_PP = 0.05
+FAMILIES = (
+    dict(name="dynerf", cfg=os.path.join("configs", "dynerf", "cook_spinach.py"),
+         size=(1600, 1200), raw=(2704, 2028), pp=0.0, cam_start=0, video=True),
+    dict(name="technicolor", cfg=os.path.join("configs", "technicolor", "Birthday.py"),
+         size=(1600, 850), raw=(2048, 1088), pp=FAM_PP, cam_start=10, video=False),
+    dict(name="hypernerf", cfg=os.path.join("configs", "hypernerf", "vrig-chicken.py"),
+         size=(536, 960), raw=(536, 960), pp=0.0, cam_start=0, video=False),
+)
+FAM_N, FAM_CAPACITY = 196_608, 200_704
+FAM_LOG_SCALE = -5.0
+FAM_REPS = 10
+FAM_MORE = 2
+FAM_SWEEPS = 3               # sweeps over the keys, each after a capacity growth
+FAM_CLI_CAMS, FAM_CLI_FRAMES, FAM_HYPER_FRAMES, FAM_CLI_POINTS = 5, 3, 16, 20_000
+FAM_CLI_ITERS = 80
+FAM_CLI_SET = ["deform_from_iter=20", "densify_from_iter=40", "densify_until_iter=70",
+               "densification_interval=20", "radegs_regularization_from_iter=0"]
+FAM_SERVE_FRAMES = 3
+
 KERNELS = {
     "K1": dict(name="forward_blend", route="cuda",
                source="ed3dgs_torch/csrc/rasterize_forward.cu",
@@ -605,19 +668,23 @@ def caches_equal(torch, a, b) -> list:
     return differ
 
 
-def bench_camera(width: int, height: int, eye=(0.0, 0.0, 0.0)):
+def bench_camera(width: int, height: int, eye=(0.0, 0.0, 0.0), **cam_kw):
+    """The bench camera (50 degrees across, looking down +z at (0, 0, 2));
+    `cam_kw` passes a principal point (cx_ratio, cy_ratio) to the Camera."""
     from ed3dgs_torch.data.cameras import look_at_camera
     fov = math.radians(50.0)
     return look_at_camera(eye, (0, 0, 2.0), (0, -1, 0), fov,
                           2 * math.atan(math.tan(fov / 2) * height / width),
-                          width, height).matrices()
+                          width, height, **cam_kw).matrices()
 
 
-def filter_cameras(torch, device):
-    """compute_3d_filter's camera arguments for FILTER_EYES, and the scene
-    extent those cameras give (1.1 x the largest distance of a centre from
-    their mean, the reference's getNerfppNorm)."""
-    cams = [bench_camera(WIDTH, HEIGHT, eye) for eye in FILTER_EYES]
+def filter_cameras(torch, device, width=None, height=None, **cam_kw):
+    """compute_3d_filter's camera arguments for FILTER_EYES (bench cameras
+    of WIDTH x HEIGHT, or of the size and principal point given), and the
+    scene extent those cameras give (1.1 x the largest distance of a centre
+    from their mean, the reference's getNerfppNorm)."""
+    cams = [bench_camera(width or WIDTH, height or HEIGHT, eye, **cam_kw)
+            for eye in FILTER_EYES]
     f32 = dict(dtype=torch.float32, device=device)
     args = (torch.as_tensor(np.stack([c.world_view for c in cams]), **f32),
             torch.tensor([c.focal_x for c in cams], **f32),
@@ -2054,21 +2121,26 @@ def tongue_batch(torch, setup, state, aux, cam, t, use_ssim, seed):
 
 
 def steps_against_eager(torch, eager, step, state, aux, cache, batches, counters, per_step,
-                        what):
+                        what, iterations=None):
     """The eager step and the graphed one (a CUDA graph per key) from one
     state over `batches`: after every step every metric, parameter, Adam
     moment and aux statistic must be bit-identical, each replay runs under
     sync debug mode "error", and each graphed step must launch `per_step`
     on the card (the device counters), while the wrappers count only a
     key's first, eager run (a replay calls none, a capture launches
-    nothing). Each step is timed by CUDA events, eager and graphed. Returns
-    (the graphed state and aux after the last step, one record a step:
-    replay or capture, ms each way, launches, the wrappers' counts, the
-    graphed step's scalar metrics)."""
+    nothing). Each step is timed by CUDA events, eager and graphed. With
+    `iterations`, both states take the i-th as their count before the i-th
+    step (a sweep over a schedule's keys). Returns (the graphed state and
+    aux after the last step, one record a step: replay or capture, ms each
+    way, launches, the wrappers' counts, the graphed step's scalar
+    metrics)."""
     from ed3dgs_torch.ops import cuda_lib
     e_state, e_aux, g_state, g_aux = state, aux, state, aux
     steps = []
-    for b in batches:
+    for i, b in enumerate(batches):
+        if iterations is not None:
+            e_state = e_state._replace(iteration=iterations[i])
+            g_state = g_state._replace(iteration=iterations[i])
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         e_state, e_aux, em = eager(e_state, e_aux, b, cache)
@@ -2618,6 +2690,707 @@ def tongue_serve_phase(torch, counters, tcli) -> dict:
     return out
 
 
+def hold_k4(torch, args, kw, flush, reps: int = 50) -> dict:
+    """K4 on the recorded binning inputs against its plain version, bit for
+    bit (the packed keys), and timed as in 1. Returns its kernels-line row."""
+    from ed3dgs_torch.ops import binning_scan
+    dv, dpk, total = args
+    key = binning_scan.fused_bin_scans(dv, dpk, total, **kw)
+    key_plain = binning_scan.fused_bin_scans_plain(dv, dpk, total, **kw)
+    err = int((key.to(torch.int64) - key_plain.to(torch.int64)).abs().max())
+    K = dv.shape[0]
+    print(f"K4 fused_bin_scans: K={K} total={int(total)} key {kw['rank_bits']} + {kw['b']} "
+          f"bits max_abs_err={err} (must be 0)", flush=True)
+    if err != 0:
+        fail("K4 disagrees with its plain version")
+    ms = time_ms(torch, lambda: binning_scan.fused_bin_scans(dv, dpk, total, **kw), reps, flush)
+    plain = time_ms(torch, lambda: binning_scan.fused_bin_scans_plain(dv, dpk, total, **kw),
+                    max(1, reps * 2 // 5), flush)
+    b, by = bound(4 * (3 * K + 1), 25 * K)
+    return dict(KERNELS["K4"], max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=None, key_bits=kw["rank_bits"] + kw["b"])
+
+
+def hold_k1(torch, args, kw, flush, reps: int = 30) -> tuple:
+    """K1 on the recorded blend inputs against its plain version: every
+    channel within K1_ATOL + K1_RTOL*|value| on every pixel, the median
+    channels flipped on at most K1_MAX_FLIPPED of the pixels; timed as in 1.
+    Returns (its kernels-line row, the flipped fraction of each channel,
+    the work its bound counts)."""
+    from ed3dgs_torch.ops import rasterize_cuda
+    pair_payload, tile_start, tile_count = args
+    gx, gy, chunk = kw["grid_x"], kw["grid_y"], kw["chunk"]
+    packed = rasterize_cuda.rasterize_forward(pair_payload, tile_start, tile_count, **kw)
+    stats = {}
+    packed_plain = rasterize_cuda.rasterize_forward_plain(
+        pair_payload, tile_start, tile_count, stats=stats, **kw)
+    a = packed[:, :gx, :rasterize_cuda.OUT_DIM].permute(2, 0, 1, 3).reshape(
+        rasterize_cuda.OUT_DIM, -1)
+    b = packed_plain[:, :gx, :rasterize_cuda.OUT_DIM].permute(2, 0, 1, 3).reshape(
+        rasterize_cuda.OUT_DIM, -1)
+    if not bool(torch.isfinite(a).all()):
+        fail("K1 wrote non-finite values")
+    diff = (a - b).abs()
+    off = diff > K1_ATOL + K1_RTOL * b.abs()
+    flipped = off.float().mean(1)
+    err = float(diff.max())
+    names = [n for n, s in rasterize_cuda.OUT_CHANNELS.items() for _ in range(s.start, s.stop)]
+    median_ch = [ch for ch, n in enumerate(names) if n in ("mcoord", "mdepth")]
+    for ch in range(rasterize_cuda.OUT_DIM):
+        print(f"  K1 ch{ch:2d} {names[ch]:10s} max|diff|={float(diff[ch].max()):.3e} "
+              f"outside tol: {float(flipped[ch]):.2e}")
+    worst_median = float(flipped[median_ch].max())
+    off_other = int(sum(int(off[ch].sum()) for ch in range(rasterize_cuda.OUT_DIM)
+                        if ch not in median_ch))
+    print(f"K1 forward_blend: tiles={gx * gy} pairs={int(tile_count.sum())} chunk={chunk} "
+          f"max_abs_err={err:.3e}; outside {K1_ATOL}+{K1_RTOL}*|v|: {off_other} values "
+          f"of the non-median channels (must be 0), worst median-channel fraction "
+          f"{worst_median:.2e} (limit {K1_MAX_FLIPPED})", flush=True)
+    if off_other or worst_median > K1_MAX_FLIPPED:
+        fail("K1 disagrees with its plain version")
+    del packed, packed_plain, a, b, diff, off
+    ms = time_ms(torch, lambda: rasterize_cuda.rasterize_forward(
+        pair_payload, tile_start, tile_count, **kw), reps, flush)
+    plain = time_ms(torch, lambda: rasterize_cuda.rasterize_forward_plain(
+        pair_payload, tile_start, tile_count, **kw), 3, flush)
+    rows_read = int(torch.clamp_max(tile_count, chunk * rasterize_cuda.MAX_CHUNKS).sum())
+    nbytes = (rows_read * pair_payload.shape[1] * 4 + 2 * 4 * gx * gy
+              + gx * gy * rasterize_cuda.OUT_PAD * 256 * 4)
+    ops = K1_OPS_PER_EVAL * stats["evals"] + K1_OPS_PER_INCLUDE * stats["includes"]
+    b1, by1 = bound(nbytes, ops)
+    print(f"  K1 work: rows read {rows_read}, pair-pixel evaluations {stats['evals']}, "
+          f"blended {stats['includes']}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP")
+    info = rasterize_cuda.kernel_info("rasterize_forward", chunk)
+    print(f"  K1 {ms:.4f} ms; {info}", flush=True)
+    row = dict(KERNELS["K1"], max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b1,
+               bound_by=by1, library_ms=None, **info)
+    return (row, {names[c]: float(flipped[c]) for c in range(len(names))},
+            dict(rows_read=rows_read, bytes=nbytes, ops=ops, **stats))
+
+
+def hold_k5a(torch, packed, flush, reps: int = 50) -> dict:
+    """K5a on the recorded tiles against its plain version, bit for bit;
+    timed as in 1 beside `permute`. Returns its kernels-line row."""
+    from ed3dgs_torch.ops import relayout
+    img = relayout.unpack_image(packed)
+    img_plain = relayout.unpack_image_plain(packed)
+    same = torch.equal(img.view(torch.int32), img_plain.view(torch.int32))
+    print(f"K5a unpack_image: {tuple(packed.shape)} -> {tuple(img.shape)} bit-exact={same}",
+          flush=True)
+    if not same:
+        fail("K5a disagrees with its plain version")
+    gy, gxp, C, _ = packed.shape
+
+    def library():
+        return (packed.reshape(gy, gxp, C, 16, 16).permute(2, 0, 3, 1, 4)
+                .reshape(C, gy * 16, gxp * 16).contiguous())
+    ms = time_ms(torch, lambda: relayout.unpack_image(packed), reps, flush)
+    plain = time_ms(torch, lambda: relayout.unpack_image_plain(packed), reps, flush)
+    lib = time_ms(torch, library, reps, flush)
+    b, by = bound(2 * packed.numel() * 4, 0)
+    return dict(KERNELS["K5a"], max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=lib)
+
+
+def hold_k5b(torch, img_cot, flush, reps: int = 50) -> dict:
+    """K5b on the recorded image cotangent against its plain version, bit
+    for bit; timed as in 1 beside `permute`. Returns its kernels-line row."""
+    from ed3dgs_torch.ops import relayout
+    pk = relayout.pack_image(img_cot)
+    pk_plain = relayout.pack_image_plain(img_cot)
+    same = torch.equal(pk.view(torch.int32), pk_plain.view(torch.int32))
+    print(f"K5b pack_image: {tuple(img_cot.shape)} -> {tuple(pk.shape)} bit-exact={same}",
+          flush=True)
+    if not same:
+        fail("K5b disagrees with its plain version")
+    C, H, W = img_cot.shape
+
+    def library():
+        return (img_cot.reshape(C, H // 16, 16, W // 16, 16).permute(1, 3, 0, 2, 4)
+                .reshape(H // 16, W // 16, C, 256).contiguous())
+    ms = time_ms(torch, lambda: relayout.pack_image(img_cot), reps, flush)
+    plain = time_ms(torch, lambda: relayout.pack_image_plain(img_cot), reps, flush)
+    lib = time_ms(torch, library, reps, flush)
+    b, by = bound(2 * img_cot.numel() * 4, 0)
+    return dict(KERNELS["K5b"], max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=lib)
+
+
+def hold_k2(torch, args, kw, flush, reps: int = 20) -> tuple:
+    """K2 on the recorded backward inputs against its plain version: the
+    live-chunk counts exactly and every row of every tile within K2_REL of
+    its column's largest value; timed as in 1. Returns (its kernels-line
+    row, the work its bound counts)."""
+    from ed3dgs_torch.ops import rasterize_cuda
+    pp, ts, tc, packed, cot = args
+    chunk = kw["chunk"]
+    dpay, live = rasterize_cuda.rasterize_backward(pp, ts, tc, packed, cot, **kw)
+    dpay_plain, live_plain = rasterize_cuda.rasterize_backward_plain(
+        pp, ts, tc, packed, cot, **kw)
+    total = int(tc.sum())     # K2 writes every row of every tile
+    got, want = dpay[:total], dpay_plain[:total]
+    col_max = want.abs().amax(dim=0)
+    col_err = (got - want).abs().amax(dim=0)
+    live_same = torch.equal(live, live_plain)
+    err = float(col_err.max())
+    worst = float((col_err / torch.clamp_min(col_max, 1e-30)).max())
+    print(f"K2 backward_blend: tiles={ts.numel()} pair rows={total} live_chunks "
+          f"equal={live_same} max_abs_err={err:.3e} worst column error / column max "
+          f"{worst:.3e} (limit {K2_REL})", flush=True)
+    if not live_same or not bool(torch.isfinite(got).all()) or not bool(
+            (col_err <= K2_REL * col_max).all()):
+        fail("K2 disagrees with its plain version")
+    del dpay, dpay_plain, got, want
+    ms = time_ms(torch, lambda: rasterize_cuda.rasterize_backward(
+        pp, ts, tc, packed, cot, **kw), reps, flush)
+    plain = time_ms(torch, lambda: rasterize_cuda.rasterize_backward_plain(
+        pp, ts, tc, packed, cot, **kw), 2, flush)
+    stats = {}
+    rasterize_cuda.rasterize_forward_plain(pp, ts, tc, stats=stats, **kw)
+    # the live rows read, the gradient rows written, the channels read, the
+    # tile bounds read and the live-chunk counts written
+    rows_live = int(torch.minimum(torch.clamp_max(tc, chunk * rasterize_cuda.MAX_CHUNKS),
+                                  live * chunk).sum())
+    ntiles = ts.numel()
+    nbytes = ((rows_live + total) * pp.shape[1] * 4 + K2_CHANNELS_READ * ntiles * 256 * 4
+              + 2 * 4 * ntiles + 4 * ntiles)
+    ops = K2_OPS_PER_EVAL * stats["evals"] + K2_OPS_PER_INCLUDE * stats["includes"]
+    b2, by2 = bound(nbytes, ops)
+    print(f"  K2 work: live rows {rows_live}, pair-pixel evaluations {stats['evals']}, "
+          f"blended {stats['includes']}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP",
+          flush=True)
+    info = rasterize_cuda.kernel_info("rasterize_backward", chunk)
+    print(f"  K2 {ms:.4f} ms; {info}", flush=True)
+    row = dict(KERNELS["K2"], max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b2,
+               bound_by=by2, library_ms=None, **info)
+    return row, dict(rows_live=rows_live, rows=total, bytes=nbytes, ops=ops, **stats)
+
+
+def hold_k3(torch, args, flush, reps: int = 50) -> dict:
+    """K3 as the main path calls it (the pair-gradient rows read through
+    the inverse of the pair permutation) and on the gathered rows, each
+    against its plain version within K3_REL of the largest output; timed as
+    in 1 beside the gather then K3, and `torch.segment_reduce` on the same
+    contiguous segments. Returns {"row": its kernels-line row, "work",
+    and for K8 (the same kernel on K3's own function): "rows" (the
+    gathered rows), "starts", "ends", "want" (the plain output), "scale",
+    "rows_plain_ms", "rows_bound" (ms, by), "library_ms"}."""
+    from ed3dgs_torch.ops import segment_sum
+    src, idx, st, en = args
+    out = segment_sum.segment_sum_rows_gathered(src, idx, st, en)
+    want = segment_sum.segment_sum_rows_gathered_plain(src, idx, st, en)
+    err = float((out - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"K3 segment_sum_rows_gathered: rows {tuple(src.shape)} through idx "
+          f"{tuple(idx.shape)}, segments {st.numel()} max_abs_err={err:.3e} "
+          f"(limit {K3_REL} x {scale:.3e})", flush=True)
+    if not err <= K3_REL * scale or not bool(torch.isfinite(out).all()):
+        fail("K3 (gathered) disagrees with its plain version")
+    # and K3's own function on the gathered rows, as the unfolded path ran it
+    rows = src[idx.long()]
+    out_r = segment_sum.segment_sum_rows(rows, st, en)
+    err_r = float((out_r - want).abs().max())
+    print(f"K3 segment_sum_rows: rows {tuple(rows.shape)} max_abs_err={err_r:.3e} "
+          f"(limit {K3_REL} x {scale:.3e})", flush=True)
+    if not err_r <= K3_REL * scale or not bool(torch.isfinite(out_r).all()):
+        fail("K3 disagrees with its plain version")
+    ms = time_ms(torch, lambda: segment_sum.segment_sum_rows_gathered(src, idx, st, en),
+                 reps, flush)
+    plain = time_ms(torch, lambda: segment_sum.segment_sum_rows_gathered_plain(
+        src, idx, st, en), max(1, reps * 2 // 5), flush)
+    ms_r = time_ms(torch, lambda: segment_sum.segment_sum_rows(rows, st, en), reps, flush)
+    plain_r = time_ms(torch, lambda: segment_sum.segment_sum_rows_plain(rows, st, en),
+                      max(1, reps * 2 // 5), flush)
+    unfolded = time_ms(torch, lambda: segment_sum.segment_sum_rows(src[idx.long()], st, en),
+                       reps, flush)
+    summed = int((en - st).sum())
+    # the library yardstick: one segment_reduce over the same contiguous
+    # segments of the gathered rows (the binning's CSR bounds tile the rows
+    # from 0 without gaps)
+    contiguous = bool((st[1:] == en[:-1]).all()) and int(st[0]) == 0
+    lib = None
+    if contiguous:
+        lengths = (en - st).long()
+        data = rows[:summed]
+        lib_out = torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
+        print(f"  K3 library segment_reduce max|diff| {float((lib_out - out).abs().max()):.3e}",
+              flush=True)
+        lib = time_ms(torch, lambda: torch.segment_reduce(data, "sum", lengths=lengths,
+                                                           axis=0), reps, flush)
+        del lib_out, data
+    F = src.shape[1]
+    out_bytes = 2 * 4 * st.numel() + out.numel() * 4
+    b_r, by_r = bound(summed * F * 4 + out_bytes, summed * F)
+    # the gathered call reads the index of every summed row and the whole
+    # 32-byte sectors its rows cover in src
+    used = idx[int(st[0]):int(en[-1])].long()
+    first_sec = used * (F * 4) // 32
+    last_sec = (used * (F * 4) + F * 4 - 1) // 32
+    covered = torch.zeros(int(last_sec.max()) + 1, dtype=torch.bool, device=src.device)
+    for k in range(int((last_sec - first_sec).max()) + 1):   # a sector counts once
+        sec = first_sec + k
+        covered[sec[sec <= last_sec]] = True
+    n_sec = int(covered.sum())
+    del used, first_sec, last_sec, covered, out, out_r
+    b3, by3 = bound(summed * 4 + n_sec * 32 + out_bytes, summed * F)
+    print(f"  K3 gathered {ms:.5f} ms (bound {b3:.5f}, {n_sec} sectors), K3 on the rows "
+          f"{ms_r:.5f} ms (bound {b_r:.5f}), gather + K3 {unfolded:.5f} ms; plain "
+          f"{plain:.4f} / {plain_r:.4f} ms; segment_reduce {lib}", flush=True)
+    row = dict(KERNELS["K3"], max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b3,
+               bound_by=by3, library_ms=lib, rows_ms=ms_r, rows_plain_ms=plain_r,
+               rows_bound_ms=b_r, rows_max_abs_err=err_r, gather_then_rows_ms=unfolded)
+    return dict(row=row, work=dict(rows=summed, sectors=n_sec, segments=st.numel()),
+                rows=rows, starts=st, ends=en, want=want, scale=scale,
+                rows_plain_ms=plain_r, rows_bound=(b_r, by_r), library_ms=lib)
+
+
+def family_cloud(n: int, cam, seed: int = 0) -> dict:
+    """bench_cloud's fields with its means spread over the frustum of `cam`
+    (depth 1.2-3.5 in front of it, across its whole width and height) and
+    its log-scales about FAM_LOG_SCALE."""
+    fields = bench_cloud(n, seed)
+    rng = np.random.default_rng(seed + 3)
+    z = rng.uniform(1.2, 3.5, n)
+    fields["xyz"] = np.stack([rng.uniform(-1, 1, n) * z * cam.tan_fovx,
+                              rng.uniform(-1, 1, n) * z * cam.tan_fovy, z], 1).astype(np.float32)
+    fields["scaling"] = rng.normal(FAM_LOG_SCALE, 0.5, (n, 3)).astype(np.float32)
+    return fields
+
+
+def schedule_keys(cfg, setup) -> dict:
+    """{StepBranches: the first iteration (the state's count) that meets
+    it} over the config's whole schedule, the SSIM gate drawn by
+    CameraSampler as tools/train.py draws it (tests/test_torch_families.py
+    pins each family's set)."""
+    from ed3dgs_torch.train import sampling
+    from ed3dgs_torch.train.trainer import step_branches
+    opt = cfg.opt
+    sampler = sampling.CameraSampler(
+        num_cams=1, maxtime=opt.maxtime, camera_centers=np.zeros((1, 3)),
+        batch_size=opt.batch_size, random_until=opt.random_until,
+        num_multiview_ssim=opt.num_multiview_ssim, seed=0)
+    keys = {}
+    # the cameras and frames drawn do not enter the gate: cheap stand-ins
+    # for the walk and the error-CDF draw (its percentiles are most of a
+    # sample's time) keep the scan to seconds
+    walk, by_error = sampling.sample_camera_walk, sampling.sample_frames_by_error
+    sampling.sample_camera_walk = lambda *a: 0
+    sampling.sample_frames_by_error = lambda batch, *a: np.zeros(batch, np.int64)
+    try:
+        for iteration in range(1, opt.iterations + 1):
+            _, _, use_ssim = sampler.sample(iteration, opt.iterations)
+            keys.setdefault(step_branches(setup, iteration - 1,
+                                          {"use_ssim": use_ssim, "pcd_valid": True}),
+                            iteration - 1)
+    finally:
+        sampling.sample_camera_walk, sampling.sample_frames_by_error = walk, by_error
+    return keys
+
+
+def densify_against_eager(torch, state, aux, opt, extent, thresholds, what):
+    """make_densify_step eager, then graphed twice (its first call runs
+    eagerly and captures, the second replays), each from one state with a
+    generator of one seed, at each of `thresholds` in turn until one clones
+    or splits: bit for bit (parameters, aux, every Adam moment, the
+    counts), each timed by CUDA events and on the host. Returns (state,
+    aux, one record a threshold, the graphed densify step); fails where
+    none clones or splits."""
+    from ed3dgs_torch.train.trainer import make_densify_step
+    graphed = make_densify_step(opt, opt.percent_dense, extent)
+    eager = make_densify_step(opt, opt.percent_dense, extent, graph=False)
+    n_before = int(aux.alive.sum())
+
+    def timed(fn, thr):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        res = fn(state, aux, torch.Generator(device=DEVICE).manual_seed(0), thr)
+        end.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+    records = []
+    for thr in thresholds:
+        (e_state, e_aux, e_c, e_s), e_ms, e_host = timed(eager, thr)
+        want = densify_tensors(torch, e_state, e_aux, e_c, e_s)
+        del e_state, e_aux
+        runs = []
+        for _ in range(2):
+            (g_state, g_aux, n_c, n_s), ms, host_ms = timed(graphed, thr)
+            got = densify_tensors(torch, g_state, g_aux, n_c, n_s)
+            runs.append(dict(ms=ms, host_ms=host_ms,
+                             differ=sorted(k for k in want if not torch.equal(want[k], got[k]))))
+            del got
+        del want
+        n_after = int(g_aux.alive.sum())
+        same = not any(r["differ"] for r in runs)
+        records.append(dict(threshold=thr, n_cloned=int(n_c), n_split=int(n_s),
+                            alive_before=n_before, alive_after=n_after, ms=runs[1]["ms"],
+                            host_ms=runs[1]["host_ms"], eager_ms=e_ms, eager_host_ms=e_host,
+                            first_call_ms=runs[0]["ms"], first_call_host_ms=runs[0]["host_ms"],
+                            graphed_equals_eager=same))
+        print(f"{what} densify step at the threshold {thr:.3e} (percent_dense "
+              f"{opt.percent_dense}, extent {extent:.4f}): n_cloned {int(n_c)}, n_split "
+              f"{int(n_s)}, alive {n_before} -> {n_after} of {aux.alive.shape[0]}; eager "
+              f"{e_ms:.3f} ms (CUDA events), host wall {e_host:.3f} ms; graphed: "
+              + "; ".join(f"{run} {r['ms']:.3f} ms (events), host wall {r['host_ms']:.3f} ms"
+                          for run, r in zip(("first call", "again"), runs))
+              + f"; graphed bit-identical to eager (params, aux, moments, counts)={same}"
+              + "".join(f"; differs in {r['differ'][:6]}" for r in runs if r["differ"]),
+              flush=True)
+        if not same:
+            fail(f"{what}: the graphed densify step differs from the eager one")
+        if n_after != n_before + int(n_c) + int(n_s):
+            fail(f"{what}: the densify step lost count of the Gaussians it added")
+        if n_after > n_before:
+            return g_state, g_aux, records, graphed
+    fail(f"{what}: no densify step cloned or split")
+
+
+def family_step_phase(torch, fam, counters) -> dict:
+    """5c (a): one family's per-scene config at full width on FAM_N
+    Gaussians in FAM_CAPACITY slots spread over its camera's frustum, at its
+    reader's frame size (and principal point): the pair capacity sized as
+    tools.train sizes it, K1-K5b held to their plain versions on a step's
+    inputs, the graphed step against the eager one over every key of the
+    config's schedule, a densify, both refreshes and FAM_MORE replays."""
+    from ed3dgs_torch.config.loader import load_full_config
+    from ed3dgs_torch.convert import gaussians_from_numpy
+    from ed3dgs_torch.models.gaussians import compute_3d_filter
+    from ed3dgs_torch.ops import binning, cuda_lib, knn, rasterize, relayout
+    from ed3dgs_torch.render import raster_config_from_camera
+    from ed3dgs_torch.train import trainer as trainer_mod
+    from ed3dgs_torch.train.capacity import CapacityPolicy
+    from ed3dgs_torch.train.trainer import (KNN_CAPS_DEFAULT, init_train_state,
+                                            make_train_step, refresh_knn_cache)
+
+    name = fam["name"]
+    cfg = load_full_config(os.path.join(REPO, fam["cfg"]))
+    hidden, opt = cfg.hidden, cfg.opt
+    W, H = fam["size"]
+    cam_kw = dict(cx_ratio=fam["pp"], cy_ratio=-fam["pp"]) if fam["pp"] else {}
+    cam = bench_camera(W, H, **cam_kw)
+    rcfg = raster_config_from_camera(cam, pair_capacity=opt.pair_capacity,
+                                     chunk=opt.raster_chunk)
+    setup = train_setup(cfg, rcfg)
+    B = setup.batch_size
+    out = dict(config=fam["cfg"], size=[W, H], batch=B, n=FAM_N, capacity=FAM_CAPACITY,
+               structure=dict(defor_depth=hidden.defor_depth, no_do=hidden.no_do,
+                              no_dc=hidden.no_dc, zero_temporal=hidden.zero_temporal,
+                              use_anneal=hidden.use_anneal,
+                              no_c2f=hidden.no_c2f_temporal_embedding,
+                              lambda_dssim=opt.lambda_dssim,
+                              tv_temporal=opt.coef_tv_temporal_embedding,
+                              reg_coef=opt.reg_coef, principal_point=fam["pp"]))
+    print(f"families, {name} ({fam['cfg']}): {W}x{H}, batch {B}, net_width "
+          f"{hidden.net_width}, temporal {hidden.temporal_embedding_dim}, embedding "
+          f"{hidden.gaussian_embedding_dim}, bf16 {hidden.bf16_activations}, SH "
+          f"{cfg.model.sh_degree}; {out['structure']}", flush=True)
+    t_phase = time.perf_counter()
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+    flush = flush_buf.zero_
+    params, aux = gaussians_from_numpy(family_cloud(FAM_N, cam), capacity=FAM_CAPACITY,
+                                       device=DEVICE)
+    fargs, extent = filter_cameras(torch, DEVICE, W, H, **cam_kw)
+    aux = aux._replace(filter_3d=compute_3d_filter(params.xyz, aux.alive, *fargs))
+    caps = dict(KNN_CAPS_DEFAULT)
+    knn.knn.launches = 0
+    cache = refresh_knn_cache(params, aux, caps, coverage_target=opt.knn_coverage_target)
+    if knn.knn.launches != 1:
+        fail(f"{name}: the KNN refresh launched X1 {knn.knn.launches} times, not once")
+    state, optimizer = init_train_state(params, hidden, opt, extent, seed=0)
+    keys = schedule_keys(cfg, setup)
+    it_all = max(keys.values()) + 3       # every term live, as at TRAIN_ITERATION
+    state = state._replace(iteration=it_all)
+
+    # the pair capacity as tools.train moves it: one eager step at the
+    # config's, its demand handed to CapacityPolicy window after window
+    # until the policy settles (a grow at once, a shrink after its patience)
+    sizing = make_train_step(setup, optimizer, graph=False)
+    _, _, m0 = sizing(state, aux, make_batch(torch, cam, B, 0.3, False, 1000, DEVICE), cache)
+    demand = int(m0["num_pairs"])
+    policy = CapacityPolicy(capacity=rcfg.pair_capacity)
+    policy.start(0)
+    moves = []
+    for w in range(policy.shrink_patience + 1):
+        want = policy.observe(policy._next_check, demand)
+        if want is not None:
+            moves.append(want)
+    del sizing, m0
+    out["pairs"] = dict(demand=demand, config=rcfg.pair_capacity, moves=moves,
+                        capacity=policy.capacity)
+    rcfg = dataclasses.replace(rcfg, pair_capacity=policy.capacity)
+    setup = dataclasses.replace(setup, raster=rcfg)
+    print(f"  pairs a step {demand} at the config's capacity {out['pairs']['config']}: "
+          f"CapacityPolicy moves {moves} -> {policy.capacity}", flush=True)
+
+    # K1-K5b on the inputs of one eager step at the settled capacity
+    seen = {}
+    restore = [recorder(seen, binning, "fused_bin_scans", "K4"),
+               recorder(seen, rasterize, "rasterize_forward", "K1"),
+               recorder(seen, relayout, "unpack_image", "K5a"),
+               recorder(seen, rasterize, "rasterize_backward", "K2"),
+               recorder(seen, rasterize, "segment_sum_rows_gathered", "K3"),
+               recorder(seen, relayout, "pack_image", "K5b")]
+    try:
+        make_train_step(setup, optimizer, graph=False)(
+            state, aux, make_batch(torch, cam, B, 0.35, True, 1001, DEVICE), cache)
+        torch.cuda.synchronize()
+    finally:
+        for r in restore:
+            r()
+    # bin_rows launches K4 only on its packed-key path; the cummax fill
+    # takes the shapes whose (tile, rank) key would pass 31 bits
+    if set(seen) != {"K1", "K2", "K3", "K4", "K5a", "K5b"}:
+        fail(f"{name}: the step did not reach every blend kernel (no K4: the cummax-fill "
+             f"binning): {sorted(seen)}")
+    kw4 = seen["K4"][1]
+    out["binning"] = dict(path="K4", rank_bits=kw4["rank_bits"], tile_bits=kw4["b"],
+                          tiles=kw4["num_tiles"])
+    print(f"  binning: {out['binning']}", flush=True)
+    torch.set_grad_enabled(False)
+    kernels = {"K4": hold_k4(torch, *seen["K4"], flush, FAM_REPS)}
+    kernels["K1"], _, _ = hold_k1(torch, *seen["K1"], flush, FAM_REPS)
+    kernels["K5a"] = hold_k5a(torch, seen["K5a"][0][0], flush, FAM_REPS)
+    kernels["K5b"] = hold_k5b(torch, seen["K5b"][0][0], flush, FAM_REPS)
+    kernels["K2"], _ = hold_k2(torch, *seen["K2"], flush, FAM_REPS)
+    kernels["K3"] = hold_k3(torch, seen["K3"][0], flush, FAM_REPS)["row"]
+    torch.set_grad_enabled(True)
+    del seen
+    out["kernels"] = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "max_abs_err")}
+                      for k, v in kernels.items()}
+    out["kernels"]["K4"]["key_bits"] = kernels["K4"]["key_bits"]
+
+    # the graphed step against the eager one over every key of the schedule:
+    # each key at its first iteration (captures), then again (replays). A
+    # step whose pairs pass the capacity grows it at once, as tools.train
+    # does (CapacityPolicy), on a new step whose graphs are captured anew,
+    # and the sweep starts again from the state it reached
+    per_step = per_step_launches(setup, counters)
+    order = sorted(keys.items(), key=lambda kv: kv[1])
+    plan = [(it, k.use_ssim) for k, it in order] + [(it + 1, k.use_ssim) for k, it in order]
+    every, grown = [], []
+    for sweep in range(FAM_SWEEPS):
+        eager = make_train_step(setup, optimizer, graph=False)
+        step = make_train_step(setup, optimizer)
+        steps, n_grown = [], len(grown)
+        for i, (it, ssim) in enumerate(plan):
+            b = make_batch(torch, cam, B, 0.05 + 0.9 * i / len(plan), ssim,
+                           1100 + 100 * sweep + i, DEVICE)
+            state, aux, rec = steps_against_eager(
+                torch, eager, step, state, aux, cache, [b], counters, per_step,
+                f"{name} step", iterations=[it])
+            steps += rec
+            demand = int(rec[0]["metrics"]["num_pairs"])
+            if demand > rcfg.pair_capacity:
+                want = policy.observe(-1, demand)      # grows at once
+                grown.append(dict(iteration=rec[0]["iteration"], pairs=demand,
+                                  capacity=rcfg.pair_capacity, to=want,
+                                  pool_bytes=step.graphs.pool_bytes))
+                print(f"  {name}: pairs {demand} passed the capacity {rcfg.pair_capacity} at "
+                      f"iteration {rec[0]['iteration']}: grown to {want}, a new step and "
+                      "its captures", flush=True)
+                rcfg = dataclasses.replace(rcfg, pair_capacity=want)
+                setup = dataclasses.replace(setup, raster=rcfg)
+                break
+        every += steps
+        if len(grown) == n_grown:
+            break
+        del step, eager
+    else:
+        fail(f"{name}: the pair demand passed the capacity in each of {FAM_SWEEPS} sweeps")
+    out["pairs"]["grown"] = grown
+    met = {trainer_mod.step_branches(setup, s["iteration"], {"use_ssim": s["ssim"],
+                                                             "pcd_valid": True})
+           for s in steps}
+    if met != set(keys) or sum(s["replay"] for s in steps) != len(keys):
+        fail(f"{name}: the steps met {len(met)} of the schedule's {len(keys)} keys with "
+             f"{sum(s['replay'] for s in steps)} replays")
+    for s in steps:
+        m = s["metrics"]
+        if m["num_pairs"] > rcfg.pair_capacity or m["tile_overflow"] or m["emb_loss"] <= 0:
+            fail(f"{name} step at iteration {s['iteration']}: pairs {m['num_pairs']} of "
+                 f"{rcfg.pair_capacity}, tile overflow {m['tile_overflow']}, emb_loss "
+                 f"{m['emb_loss']}")
+    # the temporal TV term (HyperNeRF) is live once the zero table has moved
+    if (opt.coef_tv_temporal_embedding > 0) != any(s["metrics"]["tv_loss"] > 0 for s in steps):
+        fail(f"{name}: the temporal TV term is not live as configured "
+             f"(coef {opt.coef_tv_temporal_embedding})")
+    out["keys"] = [dict(key=list(k), first_iteration=it) for k, it in order]
+    out["steps"] = step_summary(step, steps)
+    out["steps"]["launches_per_step"] = steps[-1]["launches"]
+    out["steps"]["pairs"] = [int(s["metrics"]["num_pairs"]) for s in every]
+    out["steps"]["capacity"] = rcfg.pair_capacity
+    print(f"  {name} step: {out['steps']}", flush=True)
+    launches = {k: sum(s["launches"][k] for s in every) for k in counters}
+
+    # densify at the config's threshold at this iteration, else at the
+    # 99.9th percentile of the statistics; then both refreshes and steps
+    # that replay known keys on the new cloud and graph
+    it = int(state.iteration)
+    thr_cfg = (opt.densify_grad_threshold_fine_init
+               - it * (opt.densify_grad_threshold_fine_init - opt.densify_grad_threshold_after)
+               / opt.densify_until_iter)
+    grads = (aux.xyz_grad_accum / aux.denom.clamp_min(1.0))[aux.alive & (aux.denom > 0)]
+    q999 = float(torch.quantile(grads, 0.999))
+    for fn in counters.values():
+        fn.launches = 0
+    state, aux, tried, densify = densify_against_eager(
+        torch, state, aux, opt, extent, (thr_cfg, q999), name)
+    out["densify"] = dict(tried[-1], pool_bytes=densify.graphs.pool_bytes)
+    del densify
+    aux = aux._replace(filter_3d=compute_3d_filter(state.params["gaussians"].xyz, aux.alive,
+                                                   *fargs))
+    cache, refresh_ms = wall_ms_of(torch, lambda: refresh_knn_cache(
+        state.params["gaussians"], aux, caps, coverage_target=opt.knn_coverage_target))
+    if counters["X1"].launches != 1:
+        fail(f"{name}: the refresh after the densify launched X1 {counters['X1'].launches} "
+             "times, not once")
+    n_caps = len(step.graphs.captures)
+    last = order[-2:] if len(order) > 1 else order
+    more = [make_batch(torch, cam, B, 0.5 + 0.1 * i, k.use_ssim, 1200 + i, DEVICE)
+            for i, (k, _) in enumerate(last[:FAM_MORE])]
+    state, aux, steps2 = steps_against_eager(
+        torch, eager, step, state, aux, cache, more, counters, per_step,
+        f"{name} step after densify", iterations=[it + 10 + i for i, (_, it) in
+                                                   enumerate(last[:FAM_MORE])])
+    if not all(s["replay"] for s in steps2) or len(step.graphs.captures) != n_caps:
+        fail(f"{name}: after the densify and refreshes the graphed step did not replay its "
+             "known keys")
+    for s in steps2:
+        for k in counters:
+            launches[k] += s["launches"][k]
+    out.update(refresh_after_ms=refresh_ms, x1_launches=2, launches=launches,
+               steps_after=[dict(eager_ms=s["eager_ms"], graphed_ms=s["graphed_ms"])
+                            for s in steps2],
+               wall_s=time.perf_counter() - t_phase)
+    print(f"  {name}: densify {out['densify']['n_cloned']} cloned, "
+          f"{out['densify']['n_split']} split; refresh {refresh_ms:.1f} ms; "
+          f"{len(steps2)} replays after it; launches {launches}; {out['wall_s']:.1f} s",
+          flush=True)
+    del step, eager, state, aux, cache, params, flush_buf, more
+    return out
+
+
+def family_cli_phase(torch, fam, B, bare_step_ms, tmp) -> dict:
+    """5c (b) and (c): tools.train.main with the family's per-scene config
+    (FAM_CLI_ITERS iterations, only schedule keys cut by FAM_CLI_SET: one
+    densify event) on a scene generated on the card at the family's raw
+    frame size (FAM_CLI_CAMS cameras of FAM_CLI_FRAMES frames, Technicolor's
+    from cam10 with the principal point off centre; FAM_HYPER_FRAMES
+    monocular frames in the HyperNeRF layout), then tools.render.main of the
+    saved model (FAM_SERVE_FRAMES a split; DyNeRF's spiral video cameras
+    too). Fails on a kernel of K1-K7 that did not launch, launches off the
+    steps, refreshes and frames, a loss that is not finite, or a PNG
+    missing."""
+    from ed3dgs_torch.data.synthetic import generate_hyper_scene, generate_scene
+    from ed3dgs_torch.ops import cuda_lib
+    from ed3dgs_torch.tools import render as render_tool
+    from ed3dgs_torch.tools import train as train_tool
+
+    name = fam["name"]
+    scene_dir, model_dir = os.path.join(tmp, name), os.path.join(tmp, name + "_model")
+    # the scene, generated on the card at the family's raw frame size
+    w, h = fam["raw"]
+    t0 = time.perf_counter()
+    if name == "hypernerf":
+        generate_hyper_scene(scene_dir, n_frames=FAM_HYPER_FRAMES, width=w, height=h,
+                             n_points=FAM_CLI_POINTS, seed=0, device=DEVICE)
+        flags = []          # the reader takes half the ids as the duration
+    else:
+        generate_scene(scene_dir, n_cams=FAM_CLI_CAMS, n_frames=FAM_CLI_FRAMES, width=w,
+                       height=h, n_points=FAM_CLI_POINTS, seed=0, cam_start=fam["cam_start"],
+                       principal_point=fam["pp"], device=DEVICE)
+        flags = ["--duration", str(FAM_CLI_FRAMES)]
+    scene_s = time.perf_counter() - t0
+    argv = ["-s", scene_dir, "-m", model_dir, "--configs", os.path.join(REPO, fam["cfg"]),
+            *flags, "--test_every", str(FAM_CLI_ITERS // 2), "--quiet", "--seed", "0",
+            "--device", DEVICE, "--iterations", str(FAM_CLI_ITERS), "--set", *FAM_CLI_SET]
+    keys = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "X1")
+    t0 = time.perf_counter()
+    with cuda_lib.DeviceLaunches() as trace:
+        _, state, aux, log = train_tool.main(argv)
+    train_s = time.perf_counter() - t0
+    launches = card_launches(trace, keys)
+    n = len(log["iter_ms"])
+    del state, aux
+    med = lambda xs: float(np.median(xs)) if xs else None  # noqa: E731
+    out = dict(scene_s=scene_s, train_s=train_s, iterations=n,
+               median_iter_ms=med(log["iter_ms"]), bare_step_ms=bare_step_ms,
+               read_wait_ms=med(log["read_wait_ms"]),
+               decode_ms_per_frame=med(log["decode_ms"]),
+               stager_wait_ms_per_iter=float(np.sum(log["wait_ms"]) / n),
+               loss_first=float(log["loss"][0]), loss_last=float(log["loss"][-1]),
+               test_psnr=[(int(i), float(v)) for i, v in log["test_psnr"]],
+               points_start=log["points_start"], points_end=log["points_end"],
+               densify=log["densify"], capacity=log["capacity"],
+               graph_captures=log["graph_captures"], launches=launches)
+    print(f"families, {name} cli: " + ", ".join(f"{k}={v}" for k, v in out.items()),
+          flush=True)
+    if any(v == 0 for v in launches.values()):
+        fail(f"{name} cli: a kernel did not launch on the card: {launches}")
+    if not (launches["K6"] == launches["K7"] == n and launches["K2"] == B * n
+            and launches["K2"] == launches["K3"] == launches["K5b"]):
+        fail(f"{name} cli: {n} steps of batch {B} launched {launches} on the card")
+    if launches["X1"] != 2 + len(log["densify"]) or len(log["densify"]) != 1:
+        fail(f"{name} cli: X1 launched {launches['X1']} times with {len(log['densify'])} "
+             "densify events (want one event, and X1 once for the initial scales, once for "
+             "the first refresh and once for the event)")
+    if not all(math.isfinite(x) for x in log["loss"]):
+        fail(f"{name} cli: a loss is not finite")
+
+    # (c) tools.render of the saved model at the same size
+    rargv = ["-m", model_dir, "-s", scene_dir, "--configs", os.path.join(REPO, fam["cfg"]),
+             *flags, "--iteration", str(FAM_CLI_ITERS), "--device", DEVICE,
+             "--max_frames", str(FAM_SERVE_FRAMES), "--set", *FAM_CLI_SET]
+    if not fam["video"]:
+        rargv.append("--skip_video")
+    t0 = time.perf_counter()
+    with cuda_lib.DeviceLaunches() as trace:
+        stats = render_tool.main(rargv)
+    render_s = time.perf_counter() - t0
+    rl = card_launches(trace, ("K1", "K4", "K5a"))
+    frames = sum(v["frames"] for v in stats.values())
+    missing = []
+    for split, v in stats.items():
+        d = os.path.join(model_dir, split, f"ours_{FAM_CLI_ITERS}", "renders")
+        pngs = sorted(f for f in os.listdir(d) if f.endswith(".png")) if os.path.isdir(d) else []
+        if pngs != [f"{i:05d}.png" for i in range(v["frames"])]:
+            missing.append((split, len(pngs), v["frames"]))
+    out["render"] = dict(frames={k: v["frames"] for k, v in stats.items()}, render_s=render_s,
+                         render_ms=med([x for v in stats.values() for x in v["render_ms"][1:]]),
+                         save_ms=med([x for v in stats.values() for x in v["save_ms"]]),
+                         launches=rl, missing=missing)
+    print(f"families, {name} render: {out['render']}", flush=True)
+    if missing or (fam["video"] and not stats.get("video", {}).get("frames")):
+        fail(f"{name} render: PNGs missing {missing} or no video frames")
+    if rl != {k: frames for k in rl}:
+        fail(f"{name} render: {frames} frames launched {rl}")
+    return out
+
+
+def families_phase(torch, counters) -> dict:
+    """5c: for each of FAMILIES, the step (a) and then tools.train and
+    tools.render (b, c) in a temporary directory; each family's graphs and
+    buffers are released before the next."""
+    import tempfile
+    out = {}
+    t0 = time.perf_counter()
+    for fam in FAMILIES:
+        rec = family_step_phase(torch, fam, counters)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix=f"ed3dgs_{fam['name']}_") as tmp:
+            rec["cli"] = family_cli_phase(torch, fam, rec["batch"], rec["steps"]["graphed_ms"],
+                                          tmp)
+        torch.cuda.empty_cache()
+        out[fam["name"]] = rec
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"families phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def _scene_cameras(scene_dir, cfg, capacity):
     """The test cameras of the cli phase's scene, read as tools.train reads them."""
     from ed3dgs_torch.data.scene import Scene
@@ -2653,9 +3426,8 @@ def main():
     from ed3dgs_torch.render import raster_config_from_camera, render, settings_from_camera
     from ed3dgs_torch.train.trainer import (KNN_CAPS_DEFAULT, KNN_K, _cache_inputs,
                                             _prepare_cache, init_train_state,
-                                            make_densify_step, make_loss_and_grads,
-                                            make_train_step, refresh_knn_cache,
-                                            update_knn_cache)
+                                            make_loss_and_grads, make_train_step,
+                                            refresh_knn_cache, update_knn_cache)
     from ed3dgs_torch.train.densify import densify
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2722,90 +3494,11 @@ def main():
     rows = {}
 
     (dv, dpk, total), kw4 = seen["K4"]
-    key = binning_scan.fused_bin_scans(dv, dpk, total, **kw4)
-    key_plain = binning_scan.fused_bin_scans_plain(dv, dpk, total, **kw4)
-    err4 = int((key.to(torch.int64) - key_plain.to(torch.int64)).abs().max())
-    print(f"K4 fused_bin_scans: K={dv.shape[0]} total={int(total)} "
-          f"max_abs_err={err4} (must be 0)", flush=True)
-    if err4 != 0:
-        fail("K4 disagrees with its plain version")
-    ms4 = time_ms(torch, lambda: binning_scan.fused_bin_scans(dv, dpk, total, **kw4), 50, flush)
-    plain4 = time_ms(torch, lambda: binning_scan.fused_bin_scans_plain(dv, dpk, total, **kw4),
-                     20, flush)
-    K = dv.shape[0]
-    b4, by4 = bound(4 * (3 * K + 1), 25 * K)
-    rows["K4"] = dict(KERNELS["K4"], max_abs_err=err4, ms=ms4, plain_ms=plain4,
-                      bound_ms=b4, bound_by=by4, library_ms=None)
-
-    (pair_payload, tile_start, tile_count), kw1 = seen["K1"]
-    gx, gy, chunk = kw1["grid_x"], kw1["grid_y"], kw1["chunk"]
-    packed = rasterize_cuda.rasterize_forward(pair_payload, tile_start, tile_count, **kw1)
-    stats = {}
-    packed_plain = rasterize_cuda.rasterize_forward_plain(
-        pair_payload, tile_start, tile_count, stats=stats, **kw1)
-    a = packed[:, :gx, :rasterize_cuda.OUT_DIM].permute(2, 0, 1, 3).reshape(
-        rasterize_cuda.OUT_DIM, -1)
-    b = packed_plain[:, :gx, :rasterize_cuda.OUT_DIM].permute(2, 0, 1, 3).reshape(
-        rasterize_cuda.OUT_DIM, -1)
-    if not bool(torch.isfinite(a).all()):
-        fail("K1 wrote non-finite values")
-    diff = (a - b).abs()
-    off = diff > K1_ATOL + K1_RTOL * b.abs()
-    flipped = off.float().mean(1)
-    err1 = float(diff.max())
-    names = [n for n, s in rasterize_cuda.OUT_CHANNELS.items() for _ in range(s.start, s.stop)]
-    median_ch = [ch for ch, n in enumerate(names) if n in ("mcoord", "mdepth")]
-    for ch in range(rasterize_cuda.OUT_DIM):
-        print(f"  K1 ch{ch:2d} {names[ch]:10s} max|diff|={float(diff[ch].max()):.3e} "
-              f"outside tol: {float(flipped[ch]):.2e}")
-    worst_median = float(flipped[median_ch].max())
-    off_other = int(sum(int(off[ch].sum()) for ch in range(rasterize_cuda.OUT_DIM)
-                        if ch not in median_ch))
-    print(f"K1 forward_blend: tiles={gx * gy} pairs={int(tile_count.sum())} chunk={chunk} "
-          f"max_abs_err={err1:.3e}; outside {K1_ATOL}+{K1_RTOL}*|v|: {off_other} values "
-          f"of the non-median channels (must be 0), worst median-channel fraction "
-          f"{worst_median:.2e} (limit {K1_MAX_FLIPPED})", flush=True)
-    if off_other or worst_median > K1_MAX_FLIPPED:
-        fail("K1 disagrees with its plain version")
-    ms1 = time_ms(torch, lambda: rasterize_cuda.rasterize_forward(
-        pair_payload, tile_start, tile_count, **kw1), 30, flush)
-    plain1 = time_ms(torch, lambda: rasterize_cuda.rasterize_forward_plain(
-        pair_payload, tile_start, tile_count, **kw1), 3, flush)
-    rows_read = int(torch.clamp_max(tile_count, chunk * rasterize_cuda.MAX_CHUNKS).sum())
-    bytes1 = (rows_read * pair_payload.shape[1] * 4 + 2 * 4 * gx * gy
-              + gx * gy * rasterize_cuda.OUT_PAD * 256 * 4)
-    ops1 = K1_OPS_PER_EVAL * stats["evals"] + K1_OPS_PER_INCLUDE * stats["includes"]
-    b1, by1 = bound(bytes1, ops1)
-    print(f"  K1 work: rows read {rows_read}, pair-pixel evaluations {stats['evals']}, "
-          f"blended {stats['includes']}; {bytes1 / 1e6:.1f} MB, {ops1 / 1e9:.2f} GFLOP")
-    info1 = rasterize_cuda.kernel_info("rasterize_forward", chunk)
-    print(f"  K1 {ms1:.4f} ms; {info1}", flush=True)
-    rows["K1"] = dict(KERNELS["K1"], max_abs_err=err1, ms=ms1, plain_ms=plain1,
-                      bound_ms=b1, bound_by=by1, library_ms=None, **info1)
-    result["K1_flipped_fraction"] = {names[c]: float(flipped[c]) for c in range(len(names))}
-    result["K1_work"] = dict(rows_read=rows_read, bytes=bytes1, ops=ops1, **stats)
-    del packed, packed_plain, a, b, diff, off
-
-    (packed5,), _ = seen["K5a"]
-    img = relayout.unpack_image(packed5)
-    img_plain = relayout.unpack_image_plain(packed5)
-    same = torch.equal(img.view(torch.int32), img_plain.view(torch.int32))
-    print(f"K5a unpack_image: {tuple(packed5.shape)} -> {tuple(img.shape)} bit-exact={same}",
-          flush=True)
-    if not same:
-        fail("K5a disagrees with its plain version")
-    gy5, gxp5, C5, _ = packed5.shape
-
-    def library5():
-        return (packed5.reshape(gy5, gxp5, C5, 16, 16).permute(2, 0, 3, 1, 4)
-                .reshape(C5, gy5 * 16, gxp5 * 16).contiguous())
-    ms5 = time_ms(torch, lambda: relayout.unpack_image(packed5), 50, flush)
-    plain5 = time_ms(torch, lambda: relayout.unpack_image_plain(packed5), 50, flush)
-    lib5 = time_ms(torch, library5, 50, flush)
-    b5, by5 = bound(2 * packed5.numel() * 4, 0)
-    rows["K5a"] = dict(KERNELS["K5a"], max_abs_err=0.0, ms=ms5, plain_ms=plain5,
-                       bound_ms=b5, bound_by=by5, library_ms=lib5)
-    del seen, img, img_plain, warm
+    rows["K4"] = hold_k4(torch, (dv, dpk, total), kw4, flush)
+    rows["K1"], result["K1_flipped_fraction"], result["K1_work"] = hold_k1(
+        torch, *seen["K1"], flush)
+    rows["K5a"] = hold_k5a(torch, seen["K5a"][0][0], flush)
+    del seen, warm
 
     # ---- 2. the forward main path: three frames ------------------------------
     for t in FRAME_TIMES:       # warm-up at the frames' own times
@@ -3201,8 +3894,6 @@ def main():
     thr = (opt.densify_grad_threshold_fine_init
            - TRAIN_ITERATION * (opt.densify_grad_threshold_fine_init
                                 - opt.densify_grad_threshold_after) / opt.densify_until_iter)
-    densify_step = make_densify_step(opt, opt.percent_dense, extent)
-    densify_eager = make_densify_step(opt, opt.percent_dense, extent, graph=False)
     n_before = int(taux.alive.sum())
     mean_grad = (taux.xyz_grad_accum / taux.denom.clamp_min(1.0))[taux.alive & (taux.denom > 0)]
     q = torch.quantile(mean_grad, torch.tensor([0.5, 0.99, 0.999], device=mean_grad.device))
@@ -3211,7 +3902,6 @@ def main():
           f"seen Gaussians: median {q[0]:.3e}, 99th percentile {q[1]:.3e}, max "
           f"{float(mean_grad.max()):.3e}; {int((mean_grad >= thr).sum())} at or above the "
           f"config's threshold {thr}; {CAPACITY - n_before} free slots", flush=True)
-    densified = []
     # the densification cadence's launches: every count set to 0 here, read
     # after the KNN refresh (X1 once: one search, as the default config has
     # no tongue graph; 5b's refresh searches twice)
@@ -3219,65 +3909,13 @@ def main():
         fn.launches = 0
     # the config's threshold; if that finds nothing hot (random targets give
     # small screen-space gradients), the 99.9th percentile of the same
-    # statistics instead, so that the full-size step clones or splits. At
-    # each threshold the eager densify step, then the graphed one twice (its
-    # very first call runs eagerly and captures, later ones replay), each
-    # from the same state with a generator of the same seed: bit for bit
-    state0, taux0 = state, taux
-
-    def timed(fn, t):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        out = fn(state0, taux0, torch.Generator(device=DEVICE).manual_seed(0), t)
-        end.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
-
-    for what, t in (("config", thr), ("99.9th percentile", q[2])):
-        (e_state, e_aux, e_c, e_s), e_ms, e_host = timed(densify_eager, t)
-        want = densify_tensors(torch, e_state, e_aux, e_c, e_s)
-        del e_state, e_aux
-        runs = []
-        for run in ("graphed", "graphed again"):
-            (state, taux, n_c, n_s), ms, host_ms = timed(densify_step, t)
-            got = densify_tensors(torch, state, taux, n_c, n_s)
-            differ = sorted(k for k in want if not torch.equal(want[k], got[k]))
-            runs.append(dict(run=run, ms=ms, host_ms=host_ms, differ=differ))
-            del got
-        n_after = int(taux.alive.sum())
-        same = not any(r["differ"] for r in runs)
-        print(f"densify step at the {what} threshold {t:.3e} (percent_dense "
-              f"{opt.percent_dense}, extent {extent:.4f}): n_cloned {int(n_c)}, n_split "
-              f"{int(n_s)}, alive {n_before} -> {n_after} of {CAPACITY}; eager "
-              f"{e_ms:.3f} ms (CUDA events), host wall {e_host:.3f} ms; graphed: "
-              + "; ".join(f"{r['run']} {r['ms']:.3f} ms (events), host wall "
-                          f"{r['host_ms']:.3f} ms" for r in runs)
-              + f"; graphed bit-identical to eager (params, aux, moments, counts)={same}"
-              + "".join(f"; {r['run']} differs in {r['differ'][:6]}" for r in runs
-                        if r["differ"]), flush=True)
-        if not same:
-            fail("the graphed densify step differs from the eager one")
-        if n_after != n_before + int(n_c) + int(n_s):
-            fail("the densify step lost count of the Gaussians it added")
-        densified.append(dict(threshold=t, n_cloned=int(n_c), n_split=int(n_s),
-                              alive_before=n_before, alive_after=n_after,
-                              ms=runs[1]["ms"], host_ms=runs[1]["host_ms"], eager_ms=e_ms,
-                              eager_host_ms=e_host, first_call_ms=runs[0]["ms"],
-                              first_call_host_ms=runs[0]["host_ms"],
-                              graphed_equals_eager=same))
-        del want
-        if n_after > n_before:
-            break
+    # statistics instead, so that the full-size step clones or splits
+    state, taux, densified, densify_step = densify_against_eager(
+        torch, state, taux, opt, extent, (thr, q[2]), "train")
     captures = densify_step.graphs.captures
     print(f"  densify graph: {len(captures)} capture(s), "
           f"{sum(c[1] for c in captures):.3f} s with their eager runs, pool "
           f"{densify_step.graphs.pool_bytes} bytes", flush=True)
-    if n_after == n_before:
-        fail("no densify step cloned or split")
-    del state0, taux0
     t0 = time.perf_counter()
     taux = refresh_filter(state.params["gaussians"], taux)
     torch.cuda.synchronize()
@@ -3319,135 +3957,16 @@ def main():
     # (the recorded inputs include the forward's saved output, which carries
     # its autograd history: compare without building a graph)
     torch.set_grad_enabled(False)
-    (img_cot,), _ = seen["K5b"]
-    pk = relayout.pack_image(img_cot)
-    pk_plain = relayout.pack_image_plain(img_cot)
-    same = torch.equal(pk.view(torch.int32), pk_plain.view(torch.int32))
-    print(f"K5b pack_image: {tuple(img_cot.shape)} -> {tuple(pk.shape)} bit-exact={same}",
-          flush=True)
-    if not same:
-        fail("K5b disagrees with its plain version")
-    C6, H6, W6 = img_cot.shape
-
-    def library5b():
-        return (img_cot.reshape(C6, H6 // 16, 16, W6 // 16, 16).permute(1, 3, 0, 2, 4)
-                .reshape(H6 // 16, W6 // 16, C6, 256).contiguous())
-    ms5b = time_ms(torch, lambda: relayout.pack_image(img_cot), 50, flush)
-    plain5b = time_ms(torch, lambda: relayout.pack_image_plain(img_cot), 50, flush)
-    lib5b = time_ms(torch, library5b, 50, flush)
-    b5b, by5b = bound(2 * img_cot.numel() * 4, 0)
-    rows["K5b"] = dict(KERNELS["K5b"], max_abs_err=0.0, ms=ms5b, plain_ms=plain5b,
-                       bound_ms=b5b, bound_by=by5b, library_ms=lib5b)
-    del pk, pk_plain
-
-    (pp2, ts2, tc2, packed2, cot2), kw2 = seen["K2"]
-    chunk2 = kw2["chunk"]
-    dpay, live = rasterize_cuda.rasterize_backward(pp2, ts2, tc2, packed2, cot2, **kw2)
-    dpay_plain, live_plain = rasterize_cuda.rasterize_backward_plain(
-        pp2, ts2, tc2, packed2, cot2, **kw2)
-    total2 = int(tc2.sum())     # K2 writes every row of every tile
-    got2, want2 = dpay[:total2], dpay_plain[:total2]
-    col_max = want2.abs().amax(dim=0)
-    col_err = (got2 - want2).abs().amax(dim=0)
-    live_same = torch.equal(live, live_plain)
-    err2 = float(col_err.max())
-    worst2 = float((col_err / torch.clamp_min(col_max, 1e-30)).max())
-    print(f"K2 backward_blend: tiles={ts2.numel()} pair rows={total2} live_chunks equal={live_same} max_abs_err={err2:.3e} "
-          f"worst column error / column max {worst2:.3e} (limit {K2_REL})", flush=True)
-    if not live_same or not bool(torch.isfinite(got2).all()) or not bool(
-            (col_err <= K2_REL * col_max).all()):
-        fail("K2 disagrees with its plain version")
-    ms2 = time_ms(torch, lambda: rasterize_cuda.rasterize_backward(
-        pp2, ts2, tc2, packed2, cot2, **kw2), 20, flush)
-    plain2 = time_ms(torch, lambda: rasterize_cuda.rasterize_backward_plain(
-        pp2, ts2, tc2, packed2, cot2, **kw2), 2, flush)
-    stats2 = {}
-    rasterize_cuda.rasterize_forward_plain(pp2, ts2, tc2, stats=stats2, **kw2)
-    # the live rows read, the gradient rows written, the channels read, the
-    # tile bounds read and the live-chunk counts written
-    rows_live = int(torch.minimum(torch.clamp_max(tc2, chunk2 * rasterize_cuda.MAX_CHUNKS),
-                                  live * chunk2).sum())
-    ntiles2 = ts2.numel()
-    bytes2 = ((rows_live + total2) * pp2.shape[1] * 4 + K2_CHANNELS_READ * ntiles2 * 256 * 4
-              + 2 * 4 * ntiles2 + 4 * ntiles2)
-    ops2 = K2_OPS_PER_EVAL * stats2["evals"] + K2_OPS_PER_INCLUDE * stats2["includes"]
-    b2, by2 = bound(bytes2, ops2)
-    print(f"  K2 work: live rows {rows_live}, pair-pixel evaluations {stats2['evals']}, "
-          f"blended {stats2['includes']}; {bytes2 / 1e6:.1f} MB, {ops2 / 1e9:.2f} GFLOP",
-          flush=True)
-    info2 = rasterize_cuda.kernel_info("rasterize_backward", chunk2)
-    print(f"  K2 {ms2:.4f} ms; {info2}", flush=True)
-    rows["K2"] = dict(KERNELS["K2"], max_abs_err=err2, ms=ms2, plain_ms=plain2,
-                      bound_ms=b2, bound_by=by2, library_ms=None, **info2)
-    result["K2_work"] = dict(rows_live=rows_live, rows=total2, bytes=bytes2, ops=ops2, **stats2)
-    del dpay, dpay_plain, got2, want2
-
+    rows["K5b"] = hold_k5b(torch, seen["K5b"][0][0], flush)
+    rows["K2"], result["K2_work"] = hold_k2(torch, *seen["K2"], flush)
     # K3 as the main path calls it: the pair-gradient rows read through the
     # inverse of the pair permutation (the un-permute folded into the sum)
-    (src3, idx3, st3, en3), _ = seen["K3"]
-    out3 = segment_sum.segment_sum_rows_gathered(src3, idx3, st3, en3)
-    out3_plain = segment_sum.segment_sum_rows_gathered_plain(src3, idx3, st3, en3)
-    err3 = float((out3 - out3_plain).abs().max())
-    scale3 = float(out3_plain.abs().max())
-    print(f"K3 segment_sum_rows_gathered: rows {tuple(src3.shape)} through idx "
-          f"{tuple(idx3.shape)}, segments {st3.numel()} max_abs_err={err3:.3e} "
-          f"(limit {K3_REL} x {scale3:.3e})", flush=True)
-    if not err3 <= K3_REL * scale3 or not bool(torch.isfinite(out3).all()):
-        fail("K3 (gathered) disagrees with its plain version")
-    # and K3's own function on the gathered rows, as the unfolded path ran it
-    rows3 = src3[idx3.long()]
-    out3r = segment_sum.segment_sum_rows(rows3, st3, en3)
-    err3r = float((out3r - out3_plain).abs().max())
-    print(f"K3 segment_sum_rows: rows {tuple(rows3.shape)} max_abs_err={err3r:.3e} "
-          f"(limit {K3_REL} x {scale3:.3e})", flush=True)
-    if not err3r <= K3_REL * scale3 or not bool(torch.isfinite(out3r).all()):
-        fail("K3 disagrees with its plain version")
-    ms3 = time_ms(torch, lambda: segment_sum.segment_sum_rows_gathered(src3, idx3, st3, en3),
-                  50, flush)
-    plain3 = time_ms(torch, lambda: segment_sum.segment_sum_rows_gathered_plain(
-        src3, idx3, st3, en3), 20, flush)
-    ms3r = time_ms(torch, lambda: segment_sum.segment_sum_rows(rows3, st3, en3), 50, flush)
-    plain3r = time_ms(torch, lambda: segment_sum.segment_sum_rows_plain(rows3, st3, en3),
-                      20, flush)
-    unfolded3 = time_ms(torch, lambda: segment_sum.segment_sum_rows(src3[idx3.long()], st3,
-                                                                     en3), 50, flush)
-    summed = int((en3 - st3).sum())
-    # the library yardstick: one segment_reduce over the same contiguous
-    # segments of the gathered rows (the binning's CSR bounds tile the rows
-    # from 0 without gaps)
-    contiguous = bool((st3[1:] == en3[:-1]).all()) and int(st3[0]) == 0
-    lib3 = None
-    if contiguous:
-        lengths3 = (en3 - st3).long()
-        data3 = rows3[:summed]
-        lib_out = torch.segment_reduce(data3, "sum", lengths=lengths3, axis=0)
-        print(f"  K3 library segment_reduce max|diff| {float((lib_out - out3).abs().max()):.3e}",
-              flush=True)
-        lib3 = time_ms(torch, lambda: torch.segment_reduce(data3, "sum", lengths=lengths3,
-                                                            axis=0), 50, flush)
-    F3 = src3.shape[1]
-    out_bytes3 = 2 * 4 * st3.numel() + out3.numel() * 4
-    b3r, by3r = bound(summed * F3 * 4 + out_bytes3, summed * F3)
-    # the gathered call reads the index of every summed row and the whole
-    # 32-byte sectors its rows cover in src
-    used = idx3[int(st3[0]):int(en3[-1])].long()
-    first_sec = used * (F3 * 4) // 32
-    last_sec = (used * (F3 * 4) + F3 * 4 - 1) // 32
-    covered = torch.zeros(int(last_sec.max()) + 1, dtype=torch.bool, device=src3.device)
-    for k in range(int((last_sec - first_sec).max()) + 1):   # a sector counts once
-        sec = first_sec + k
-        covered[sec[sec <= last_sec]] = True
-    n_sec = int(covered.sum())
-    del used, first_sec, last_sec, covered
-    b3, by3 = bound(summed * 4 + n_sec * 32 + out_bytes3, summed * F3)
-    print(f"  K3 gathered {ms3:.5f} ms (bound {b3:.5f}, {n_sec} sectors), K3 on the rows "
-          f"{ms3r:.5f} ms (bound {b3r:.5f}), gather + K3 {unfolded3:.5f} ms; plain "
-          f"{plain3:.4f} / {plain3r:.4f} ms; segment_reduce {lib3}", flush=True)
-    rows["K3"] = dict(KERNELS["K3"], max_abs_err=err3, ms=ms3, plain_ms=plain3,
-                      bound_ms=b3, bound_by=by3, library_ms=lib3, rows_ms=ms3r,
-                      rows_plain_ms=plain3r, rows_bound_ms=b3r, rows_max_abs_err=err3r,
-                      gather_then_rows_ms=unfolded3)
-    result["K3_work"] = dict(rows=summed, sectors=n_sec, segments=st3.numel())
+    k3 = hold_k3(torch, seen["K3"][0], flush)
+    rows["K3"], result["K3_work"] = k3["row"], k3["work"]
+    rows3, st3, en3, out3_plain, scale3 = (k3[k] for k in ("rows", "starts", "ends", "want",
+                                                           "scale"))
+    plain3r, (b3r, by3r), lib3 = k3["rows_plain_ms"], k3["rows_bound"], k3["library_ms"]
+    del k3
 
     # K8 is the K3 kernel under its own counter, on K3's own function: the
     # same inputs, the same bound and the same library yardstick
@@ -3461,7 +3980,7 @@ def main():
                   flush)
     rows["K8"] = dict(KERNELS["K8"], max_abs_err=err8, ms=ms8, plain_ms=plain3r,
                       bound_ms=b3r, bound_by=by3r, library_ms=lib3)
-    del out3, out3_plain, out3r, out8, rows3
+    del out3_plain, out8, rows3
 
     # K6 -> K7 on the graph and embedding table the warm-up step handed them
     (emb_r, nbr, w_eff, coef), _ = seen["K6"]
@@ -3677,6 +4196,9 @@ def main():
     result["tongue"] = tongue_phase(torch, cam, rcfg, fargs, extent, counters)
     snap.update(result["tongue"].pop("snaps"))
 
+    # ---- 5c. the upstream dataset families --------------------------------
+    result["families"] = families_phase(torch, counters)
+
     # ---- 6. the training CLI on a scene on disk, 7. the serving tools ------
     import tempfile
     with tempfile.TemporaryDirectory(prefix="ed3dgs_cli_") as tmp:
@@ -3697,15 +4219,23 @@ def main():
     # refreshes of 3 and 5b's two tongue refreshes, beside its cli and serve
     # counts
     tongue = result["tongue"]
+    fams = [v for k, v in result["families"].items() if k != "wall_s"]
+    fam_launches = {k: sum(f["launches"][k] for f in fams) for k in order}
     kernel_rows = [dict(rows[k], launches=train_launches[k] + tongue["launches"][k]
-                        + result["multi"]["launches"][k], tongue_launches=tongue["launches"][k])
+                        + fam_launches[k] + result["multi"]["launches"][k],
+                        tongue_launches=tongue["launches"][k], families_launches=fam_launches[k],
+                        families_ms={n: f["kernels"][k]["ms"] for n, f in
+                                     result["families"].items()
+                                     if n != "wall_s" and k in f["kernels"]})
                    for k in order]
     for k, key in (("K6", "k6_ms"), ("K7", "k7_ms")):
         kernel_rows[order.index(k)].update(tongue_graph_ms=tongue["knn_kernels"][key],
                                            tongue_graph_in_edges=tongue["knn_kernels"]["in_edges"])
     x1_tongue = tongue["x1"][1]
     kernel_rows.append(dict(rows["X1"], launches=result["densify"]["launches"]["X1"]
-                            + tongue["x1_launches"], tongue_launches=tongue["x1_launches"],
+                            + tongue["x1_launches"] + sum(f["x1_launches"] for f in fams),
+                            tongue_launches=tongue["x1_launches"],
+                            families_launches=sum(f["x1_launches"] for f in fams),
                             tongue_input_ms=x1_tongue["ms"], tongue_input_equal=x1_tongue["equal"],
                             cli_launches=result["cli"]["launches"]["X1"],
                             serve_launches=result["serve"]["launches"]["X1"]))
@@ -3726,6 +4256,7 @@ def main():
     tongue_line["cli"] = {k: v for k, v in result["tongue_cli"].items()
                           if k not in ("scene_dir", "model_dir")}
     tongue_line["serve"] = result["tongue_serve"]
+    print(json.dumps({"families": {"card": card, **result["families"]}}), flush=True)
     print(json.dumps({"tongue": tongue_line}), flush=True)
     print(json.dumps({"cli": {k: result["cli"][k] for k in cli_keys}}), flush=True)
     serve_keys = ("frames", "fps", "render_ms_median", "render_ms_median_counted",

@@ -61,8 +61,35 @@ def sym3_eigenvector(p: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     return v / torch.clamp_min(norm, 1e-30)
 
 
+class _Reciprocal(torch.autograd.Function):
+    """1 / x whose backward takes the cotangent through -1/x one factor at
+    a time, -(g * y) * y with y = 1 / x, so that a zero cotangent gives 0
+    where y * y overflows float32 (|x| below ~1e-19). Autograd's reciprocal
+    (and JAX's, ed3dgs_tpu/core/sym3.py) forms g * -(y * y): 0 * inf = NaN.
+    The forward is autograd's `1.0 / x`, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.reciprocal(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return -(g * y) * y
+
+
 def sym3_inverse(p: torch.Tensor, det_eps: float = 0.0) -> torch.Tensor:
-    """Adjugate inverse of packed symmetric matrices -> packed [..., 6]."""
+    """Adjugate inverse of packed symmetric matrices -> packed [..., 6].
+
+    A covariance whose determinant is below ~1e-19 is still inverted (its
+    smallest eigenvalue passes `sym3_pseudo_inverse_min`'s threshold) but
+    1 / det**2 overflows: a cloud's dead slots at a 3D filter below ~7e-4
+    (the largest alive filter, which `compute_3d_filter` gives them), as a
+    1600x1200 DyNeRF frame's focal makes it. Their cotangent is 0, and the
+    reciprocal's gradient keeps it 0 (`_Reciprocal`); JAX's turns it into
+    NaN in every parameter the step updates."""
     a00, a01, a02, a11, a12, a22 = (p[..., i] for i in range(6))
     c00 = a11 * a22 - a12 * a12
     c01 = a02 * a12 - a01 * a22
@@ -72,7 +99,7 @@ def sym3_inverse(p: torch.Tensor, det_eps: float = 0.0) -> torch.Tensor:
     c22 = a00 * a11 - a01 * a01
     det = a00 * c00 + a01 * c01 + a02 * c02
     tiny = torch.where(det >= 0, torch.full_like(det, 1e-30), torch.full_like(det, -1e-30))
-    inv_det = 1.0 / torch.where(torch.abs(det) > det_eps, det, tiny)
+    inv_det = _Reciprocal.apply(torch.where(torch.abs(det) > det_eps, det, tiny))
     return torch.stack([c00, c01, c02, c11, c12, c22], dim=-1) * inv_det[..., None]
 
 

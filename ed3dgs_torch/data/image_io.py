@@ -18,7 +18,10 @@ images on a machine without Pillow.
   arrays: the same separable filter (support 3, stretched by the scale
   when shrinking), the same fixed-point coefficients (22 fraction bits)
   and rounding, horizontal pass first, each pass rounded to 8 bits, and
-  RGBA / gray+alpha resized premultiplied by alpha as PIL does.
+  RGBA / gray+alpha resized premultiplied by alpha as PIL does. Each pass
+  runs in csrc/png_unfilter.cpp (`ed3dgs_resample_axis`), exact integer
+  sums as `_resample_axis_plain`, the numpy version the tests hold it to;
+  numpy takes seconds for a DyNeRF frame (2704x2028 -> 1600x1200).
 - `resize_bilinear`: `Image.resize(size, Image.BILINEAR)` through the
   same fixed-point passes with PIL's triangle filter (support 1).
 - `load_image`: a PNG as PIL's `np.asarray(Image.open(path).resize(...))`
@@ -28,6 +31,7 @@ images on a machine without Pillow.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import struct
 import zlib
@@ -189,12 +193,14 @@ def _bilinear(x: float) -> float:
     return 1.0 - x if x < 1.0 else 0.0
 
 
+@functools.lru_cache(maxsize=32)
 def _coefficients(in_size: int, out_size: int, kernel=_lanczos, support=LANCZOS_SUPPORT):
     """PIL's precompute_coeffs + normalize_coeffs_8bpc, in its operation
     order (scalar libm arithmetic, sequential sums), for the filter
     `kernel` of half-width `support`: per output index, the first input
     index and the integer weights [out_size, ksize] (zeros past each
-    window)."""
+    window). Cached: a loader resizes every frame of a camera alike; the
+    arrays are read-only."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = support * filterscale
@@ -216,11 +222,33 @@ def _coefficients(in_size: int, out_size: int, kernel=_lanczos, support=LANCZOS_
             # C's (int) cast truncates toward zero
             fixed[xx, x] = int(-0.5 + v * one) if v < 0 else int(0.5 + v * one)
         xmins[xx] = xmin
+    xmins.flags.writeable = fixed.flags.writeable = False
     return xmins, fixed
 
 
 def _resample_axis(img: np.ndarray, out_size: int, axis: int, kernel, support) -> np.ndarray:
-    """One 8-bit pass along `axis` of an int64 [H, W, C] image."""
+    """One 8-bit pass along `axis` of a uint8 [H, W, C] image, in
+    csrc/png_unfilter.cpp: `_resample_axis_plain`'s integers, byte for
+    byte. Builds the helper at first use and raises if it does not build."""
+    from ..ops import cuda_lib
+
+    src = np.ascontiguousarray(img, np.uint8)
+    h, w, c = src.shape
+    outer, in_size, inner = (1, h, w * c) if axis == 0 else (h, w, c)
+    xmins, k = _coefficients(in_size, out_size, kernel, support)
+    shape = (out_size, w, c) if axis == 0 else (h, out_size, c)
+    out = np.empty(shape, np.uint8)
+    cuda_lib.lib("png_unfilter").ed3dgs_resample_axis(
+        src.ctypes.data_as(ctypes.c_void_p), out.ctypes.data_as(ctypes.c_void_p),
+        outer, in_size, inner, out_size, xmins.ctypes.data_as(ctypes.c_void_p),
+        k.ctypes.data_as(ctypes.c_void_p), k.shape[1], PRECISION_BITS)
+    return out
+
+
+def _resample_axis_plain(img: np.ndarray, out_size: int, axis: int, kernel,
+                         support) -> np.ndarray:
+    """One 8-bit pass along `axis` of an int64 [H, W, C] image (numpy:
+    every tap of every output gathered at once)."""
     in_size = img.shape[axis]
     xmins, k = _coefficients(in_size, out_size, kernel, support)
     taps = np.clip(xmins[:, None] + np.arange(k.shape[1])[None, :], 0, in_size - 1)
@@ -250,21 +278,26 @@ def _unpremultiply(img: np.ndarray) -> np.ndarray:
     return np.concatenate([np.where(keep, img[..., :-1], div), a], axis=-1)
 
 
-def _resize(img: np.ndarray, width: int, height: int, kernel, support) -> np.ndarray:
+def _resize(img: np.ndarray, width: int, height: int, kernel, support,
+            resample=_resample_axis) -> np.ndarray:
+    """`resample` is one pass: `_resample_axis` (the C++ helper, on uint8)
+    or `_resample_axis_plain` (numpy, on int64); both give the same bytes."""
     arr = np.asarray(img)
     if arr.shape[0] == height and arr.shape[1] == width:
         return arr
     gray = arr.ndim == 2
-    x = arr.astype(np.int64)[..., None] if gray else arr.astype(np.int64)
+    x = arr[..., None] if gray else arr
     alpha = x.shape[2] in (2, 4)
     if alpha:
-        x = _premultiply(x)
+        x = _premultiply(x.astype(np.int64))
+    dtype = np.int64 if resample is _resample_axis_plain else np.uint8
+    x = x.astype(dtype, copy=False)     # premultiplied values lie in [0, 255]
     if x.shape[1] != width:
-        x = _resample_axis(x, width, 1, kernel, support)
+        x = resample(x, width, 1, kernel, support)
     if x.shape[0] != height:
-        x = _resample_axis(x, height, 0, kernel, support)
+        x = resample(x, height, 0, kernel, support)
     if alpha:
-        x = _unpremultiply(x)
+        x = _unpremultiply(x.astype(np.int64))
     out = x.astype(np.uint8)
     return out[..., 0] if gray else out
 
@@ -276,12 +309,22 @@ def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
     return _resize(img, width, height, _lanczos, LANCZOS_SUPPORT)
 
 
+def resize_lanczos_plain(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """`resize_lanczos` through the numpy passes (`_resample_axis_plain`)."""
+    return _resize(img, width, height, _lanczos, LANCZOS_SUPPORT, _resample_axis_plain)
+
+
 def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
     """uint8 [H, W] or [H, W, C] -> [height, width(, C)] as PIL's
     `Image.resize((width, height), Image.BILINEAR)` gives it: the same
     fixed-point passes with the triangle filter (support 1, stretched by
     the scale when shrinking)."""
     return _resize(img, width, height, _bilinear, BILINEAR_SUPPORT)
+
+
+def resize_bilinear_plain(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """`resize_bilinear` through the numpy passes (`_resample_axis_plain`)."""
+    return _resize(img, width, height, _bilinear, BILINEAR_SUPPORT, _resample_axis_plain)
 
 
 def load_image(path: str, width: int, height: int) -> np.ndarray:

@@ -1,5 +1,6 @@
 """Build and bind the port's native libraries: the CUDA kernels (csrc/*.cu)
-and the host PNG unfilter (csrc/png_unfilter.cpp).
+and the host image helpers (csrc/png_unfilter.cpp: the PNG unfilter and the
+resampling pass of the loaders' resizes).
 
 Each CUDA source is compiled by nvcc for sm_90a, each host source by g++,
 into its own shared library with a plain C interface and loaded with
@@ -106,6 +107,9 @@ SIGNATURES = {
     "png_unfilter": {            # host code (csrc/png_unfilter.cpp)
         # filtered rows, out, height, row bytes, bytes per pixel
         "ed3dgs_png_unfilter": [_P, _P, _I, _I, _I],
+        # in, out, outer, in size, inner, out size, first taps, weights, taps,
+        # fraction bits
+        "ed3dgs_resample_axis": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I],
     },
 }
 

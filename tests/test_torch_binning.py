@@ -104,3 +104,37 @@ def test_payload_layout_matches_jax():
     assert binning.PAYLOAD_WIDTH == 26
     assert binning.PAYLOAD_SLICES == j_binning.PAYLOAD_SLICES
     assert binning.tile_grid(802, 550) == j_binning.tile_grid(802, 550) == (51, 35)
+
+
+def test_bin_rows_at_the_widest_packed_key_matches_jax(monkeypatch):
+    """chip_smoke.py 5c's DyNeRF bit widths: 200,704 rows (the 200,000-
+    Gaussian cap rounded to 1024: an 18-bit rank) on the 100x75 grid of a
+    1600x1200 frame (13 tile bits), so K4's packed key takes all 31 bits;
+    most rows lie off screen (no tiles), the rest reach the grid's last
+    tiles, and K is a small multiple of 128 that the pairs overflow. The
+    port takes the K4 path there, and bins exactly as the JAX package."""
+    n, gx, gy, cap = 200_704, 100, 75, 128 * 100
+    rng = np.random.default_rng(31)
+    depth, valid, tiles, rmin, rmax = random_rows(rng, n, gx, gy, max_span=6)
+    valid &= rng.uniform(size=n) < 0.03            # ~97% off screen
+    valid[-64:] = True                             # the highest rows too
+    rmin[-8:] = (gx - 1, gy - 1)                   # the last tile
+    rmax[-8:] = (gx, gy)
+    tiles = np.where(valid, (rmax[:, 0] - rmin[:, 0]) * (rmax[:, 1] - rmin[:, 1]),
+                     0).astype(np.int32)
+    rows = (depth, valid, tiles, rmin, rmax)
+    seen = []
+    scan = binning.fused_bin_scans
+
+    def k4(*a, **kw):
+        seen.append(kw)
+        return scan(*a, **kw)
+    monkeypatch.setattr(binning, "fused_bin_scans", k4)
+    tb = binning.bin_rows(*(torch.as_tensor(x) for x in rows), grid_x=gx, grid_y=gy,
+                          pair_capacity=cap)
+    assert [(kw["rank_bits"], kw["b"]) for kw in seen] == [(18, 13)]
+    assert 18 + 13 == 31 and int(tb.num_pairs) > cap
+    jb = j_binning.bin_rows(*(jnp.asarray(x) for x in rows), grid_x=gx, grid_y=gy,
+                            pair_capacity=cap, fused_scan=True)
+    assert_bins_equal(jb, tb)
+    assert int(np.asarray(tb.pair_tile).max()) == gx * gy - 1

@@ -786,7 +786,8 @@ def test_blend_kernels_on_edge_cases(dev, case):
 def test_png_unfilter_helper_on_the_card_machine(dev):
     """The host C++ unfilter (csrc/png_unfilter.cpp) builds with the card
     machine's g++ and equals its numpy version on random filtered streams
-    of every filter type, and a PNG the port encodes decodes to itself."""
+    of every filter type, a PNG the port encodes decodes to itself, and
+    the library's resampling pass equals the numpy resize."""
     from ed3dgs_torch.data import image_io
     rng = np.random.default_rng(0)
     for h, row_bytes, bpp in ((31, 3 * 57, 3), (12, 4 * 20, 4), (40, 64, 1)):
@@ -797,6 +798,9 @@ def test_png_unfilter_helper_on_the_card_machine(dev):
                                                               bpp))
     img = rng.integers(0, 256, (550, 802, 3), dtype=np.uint8)
     np.testing.assert_array_equal(image_io.decode_png(image_io.encode_png(img)), img)
+    # the resampling pass of the same library against numpy
+    np.testing.assert_array_equal(image_io.resize_lanczos(img, 430, 300),
+                                  image_io.resize_lanczos_plain(img, 430, 300))
 
 
 def test_integrate_points_on_card_matches_cpu(dev):

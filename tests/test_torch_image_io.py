@@ -132,6 +132,35 @@ def test_unfilter_helper_matches_numpy():
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("channels", [1, 2, 3, 4, 6])
+def test_resize_helper_matches_numpy(channels):
+    """Each resampling pass of csrc/png_unfilter.cpp against
+    `_resample_axis_plain`, byte for byte, on random images (extremes that
+    Lanczos's negative lobes push below 0 and above 255), for both
+    filters, shrinking and enlarging, along each axis; the whole resizes
+    too, alpha premultiplied (two and four channels). Six channels take
+    the helper's general row path."""
+    rng = np.random.default_rng(10 + channels)
+    img = rng.integers(0, 256, (61, 83, channels), dtype=np.uint8)
+    img[::7] = 255
+    img[3::7] = 0
+    for kernel, support in ((image_io._lanczos, image_io.LANCZOS_SUPPORT),
+                            (image_io._bilinear, image_io.BILINEAR_SUPPORT)):
+        for axis, size in ((1, 49), (1, 131), (0, 23), (0, 90), (1, 1)):
+            got = image_io._resample_axis(img, size, axis, kernel, support)
+            want = image_io._resample_axis_plain(img.astype(np.int64), size, axis, kernel,
+                                                 support)
+            assert got.dtype == np.uint8
+            np.testing.assert_array_equal(got, want, err_msg=f"{axis} {size}")
+    if channels <= 4:
+        arr = img[..., 0] if channels == 1 else img
+        for size in ((40, 30), (100, 70), (83, 20)):
+            np.testing.assert_array_equal(image_io.resize_lanczos(arr, *size),
+                                          image_io.resize_lanczos_plain(arr, *size))
+            np.testing.assert_array_equal(image_io.resize_bilinear(arr, *size),
+                                          image_io.resize_bilinear_plain(arr, *size))
+
+
 def test_decode_refuses_what_it_does_not_take():
     rng = np.random.default_rng(4)
     raw = rng.integers(0, 256, (4, 13), dtype=np.uint8)
