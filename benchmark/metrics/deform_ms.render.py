@@ -1,0 +1,15 @@
+"""Device ms of the served frame's "deform" stage: ed3dgs_torch's own stage
+stamps (ed3dgs_torch/utils/trace.py `summary()`), averaged over the frame
+region's last 16 graph replays. None where the program has no stamps or no
+such call."""
+
+
+def read(ctx):
+    if not ctx.get("trace"):        # a run without --trace 1: nothing read
+        return None
+    try:
+        from ed3dgs_torch.utils import trace
+    except ImportError:
+        return None
+    r = trace.summary()["regions"].get("frame")
+    return r["stage_ms"]["deform"] if r and r.get("rows") else None

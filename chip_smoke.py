@@ -72,7 +72,7 @@ chunk 128):
    K6's and K7's device time inside it (warm L2), then profiles the eager
    step four times in turns with K3 reading the pair-gradient rows through
    the inverse pair permutation (as shipped) and with the gather before K3
-   (the unfolded path) and reports the segment_sum stage of each. Then
+   (the unfolded path) and reports the backward stage of each. Then
    `make_densify_step` at the config's gradient threshold (n_cloned,
    n_split, the alive count) or, where nothing reaches it, at the 99.9th
    percentile of the same statistics: eager (graph=False), then graphed
@@ -3868,8 +3868,8 @@ def main():
 
     # the un-permute folded into K3 against the unfolded redesign (the
     # gather, then K3 on the gathered rows): the profiled step in turns, and
-    # the device extent of its segment_sum stage (inverse permutation,
-    # gather where unfolded, K3)
+    # the device extent of its backward stage (autograd's whole backward,
+    # which holds the inverse permutation, the gather where unfolded, and K3)
     def unfolded(src, idx, starts, ends):
         return segment_sum.segment_sum_rows(src[idx.long()], starts, ends)
     fold = {"folded": [], "unfolded": []}
@@ -3881,10 +3881,10 @@ def main():
                 torch, profiled_step, os.path.join(out_dir, f"profile_step_{what}.txt"))
         finally:
             rasterize.segment_sum_rows_gathered = segment_sum.segment_sum_rows_gathered
-        stage = f_stages.get("segment_sum", {})
+        stage = f_stages.get("backward", {})
         fold[what].append(dict(extent_ms=stage.get("extent_ms"), kernel_ms=stage.get("kernel_ms"),
                                device_busy_ms=f_busy, wall_ms=f_wall))
-    print("  segment_sum stage, device extent / kernel ms / step device busy ms: " + "; ".join(
+    print("  backward stage, device extent / kernel ms / step device busy ms: " + "; ".join(
         f"{k} " + ", ".join(f"{x['extent_ms']}/{x['kernel_ms']}/{x['device_busy_ms']:.3f}"
                             for x in v) for k, v in fold.items()), flush=True)
     result["fold"] = fold

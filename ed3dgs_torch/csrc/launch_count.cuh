@@ -24,6 +24,7 @@ enum LaunchSlot {
   SLOT_KNN_ROWS = 7,          // K6  knn_loss.knn_rows
   SLOT_KNN_REVERSE = 8,       // K7  knn_loss.knn_reverse
   SLOT_KNN = 9,               // X1  knn.knn
+  SLOT_TRACE_STAMP = 10,      // T1  trace.stamp
 };
 
 static __device__ unsigned long long* g_launch_counters = nullptr;

@@ -19,6 +19,7 @@ from ..core.sh import rgb_to_sh
 from ..data import ply as plyio
 from ..device import resolve_device
 from ..ops.knn import mean_sqdist_3nn
+from ..utils import trace
 
 
 class GaussianParams(NamedTuple):
@@ -172,7 +173,13 @@ def compute_3d_filter(xyz: torch.Tensor, alive: torch.Tensor, view_mats: torch.T
     sees it. view_mats: [M, 4, 4] world->view matrices (math convention);
     focals_x/focals_y, widths/heights: [M]. Returns [C, 1] filter scale
     (distance / focal * sqrt(0.2)); unseen slots get the farthest seen
-    distance."""
+    distance. Traced as the region and host span "filter3d"
+    (utils/trace.py)."""
+    with trace.span("filter3d"), trace.region("filter3d", xyz.device):
+        return _filter_3d(xyz, alive, view_mats, focals_x, focals_y, widths, heights)
+
+
+def _filter_3d(xyz, alive, view_mats, focals_x, focals_y, widths, heights):
     R = view_mats[:, :3, :3]
     t = view_mats[:, :3, 3]
     cam_xyz = torch.einsum("mij,nj->mni", R, xyz) + t[:, None, :]

@@ -104,6 +104,13 @@ SIGNATURES = {
         # *points a tile, *tiles a super-tile, *queries a warp
         "ed3dgs_knn_layout": [_P, _P, _P],
     },
+    "trace_stamp": {
+        "ed3dgs_set_launch_counters": [_P],     # int64 [len(LAUNCH_SLOTS)]
+        # ring, calls, rows, stages, stage, op, replayed, stream
+        "ed3dgs_trace_stamp": [_P, _P, _I, _I, _I, _I, _I, _P],
+        # out (int64 [1]), stream
+        "ed3dgs_trace_clock": [_P, _P],
+    },
     "png_unfilter": {            # host code (csrc/png_unfilter.cpp)
         # filtered rows, out, height, row bytes, bytes per pixel
         "ed3dgs_png_unfilter": [_P, _P, _I, _I, _I],
@@ -269,11 +276,23 @@ def count_launch(wrapper):
 
 # the launch counters' slots, in the order of csrc/launch_count.cuh
 # `LaunchSlot`: the wrapper each kernel counts for. K3's kernel without an
-# index counts for K8, as no path calls K3 without one.
+# index counts for K8, as no path calls K3 without one. "trace.stamp" is
+# utils/trace.py's stage stamp; every other wrapper lives in ops/.
 LAUNCH_SLOTS = ("rasterize_cuda.rasterize_forward", "rasterize_cuda.rasterize_backward",
                 "segment_sum.segment_sum_rows", "segment_sum.segment_sum_rows_packed",
                 "binning_scan.fused_bin_scans", "relayout.unpack_image", "relayout.pack_image",
-                "knn_loss.knn_rows", "knn_loss.knn_reverse", "knn.knn")
+                "knn_loss.knn_rows", "knn_loss.knn_reverse", "knn.knn", "trace.stamp")
+
+
+def slot_wrapper(slot: str):
+    """The wrapper function a slot of LAUNCH_SLOTS counts for (its
+    `launches` the host's count)."""
+    import importlib
+    mod, fn = slot.split(".")
+    pkg = "utils" if mod == "trace" else "ops"
+    return getattr(importlib.import_module(f"ed3dgs_torch.{pkg}.{mod}"), fn)
+
+
 _COUNTERS = {}      # device -> int64 [len(LAUNCH_SLOTS)] on the card, never freed
 _ARMED = set()      # (library, device) whose kernels count into _COUNTERS[device]
 

@@ -21,10 +21,12 @@ would make it run-dependent):
 The port has one backend: the CUDA kernels for CUDA tensors, their plain
 PyTorch versions for CPU tensors.
 
-Each stage runs under a `torch.profiler.record_function` span
-(ed3dgs.bin / .gather / .blend / .relayout; render() adds ed3dgs.deform and
-.project), so a profiler trace attributes device time to the stage; with no
-profiler running, a span only enters and leaves a host-side scope.
+Binning (K4 with the depth-order permute) and the blend (the pair gather,
+K1, K5a and the channels' assembly) are the tracer's stages "bin" and
+"blend" (utils/trace.py; render() adds "deform" and "project"): inside an
+open region (the train step, a frame) each is stamped on the card, also in
+a replayed graph; while a profiler runs each is a scope "ed3dgs.<stage>".
+The backward (K5b, K2, K3) falls in the train step's "backward" stage.
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch.profiler import record_function
 
 from ..core.projection import ProjectedGaussians
+from ..utils import trace
 from .binning import bin_rows, build_gaussian_payload, tile_grid
 from .common import RasterOutputs
 from .rasterize_cuda import MAX_CHUNKS, OUT_CHANNELS, rasterize_backward, rasterize_forward
@@ -80,11 +82,9 @@ class _ExpandRaster(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, payload_sorted, bins, kw):
-        with record_function("ed3dgs.gather"):
-            # one row per (tile, gaussian) pair, in tile order
-            pair_payload = payload_sorted[bins.pair_gauss.long()]
-        with record_function("ed3dgs.blend"):
-            packed = rasterize_forward(pair_payload, bins.tile_start, bins.tile_count, **kw)
+        # one row per (tile, gaussian) pair, in tile order
+        pair_payload = payload_sorted[bins.pair_gauss.long()]
+        packed = rasterize_forward(pair_payload, bins.tile_start, bins.tile_count, **kw)
         ctx.save_for_backward(pair_payload, packed)
         ctx.bins, ctx.kw = bins, kw
         return packed
@@ -99,14 +99,12 @@ def sorted_payload_grad(pair_payload, packed, cot, bins, kw) -> torch.Tensor:
     """The gradient of the blend with respect to the depth-sorted payload
     rows [N, 26]: K2, then K3 over its rows un-permuted. K2 writes every row
     of every tile, and the segments K3 sums cover exactly those rows."""
-    with record_function("ed3dgs.blend_backward"):
-        dpay, _ = rasterize_backward(pair_payload, bins.tile_start, bins.tile_count,
-                                     packed, cot.contiguous(), **kw)
-    with record_function("ed3dgs.segment_sum"):
-        # pre-sort order: slot pair_perm[r] takes sorted row r; K3 reads each
-        # slot's row of dpay through the inverse permutation
-        return segment_sum_rows_gathered(dpay, _inverse_permutation(bins.pair_perm),
-                                         bins.seg_starts, bins.seg_ends)
+    dpay, _ = rasterize_backward(pair_payload, bins.tile_start, bins.tile_count,
+                                 packed, cot.contiguous(), **kw)
+    # pre-sort order: slot pair_perm[r] takes sorted row r; K3 reads each
+    # slot's row of dpay through the inverse permutation
+    return segment_sum_rows_gathered(dpay, _inverse_permutation(bins.pair_perm),
+                                     bins.seg_starts, bins.seg_ends)
 
 
 def rasterize_rows(payload, depth, valid, rect_min, rect_max, tiles_touched, bg,
@@ -116,16 +114,15 @@ def rasterize_rows(payload, depth, valid, rect_min, rect_max, tiles_touched, bg,
     over an explicit tile grid. Rays leave from pixel (half_w, half_h), the
     image centre by default; a strip of a larger image (parallel/
     tile_sharded.py) passes the full image's centre in its own rows."""
-    with record_function("ed3dgs.bin"):
+    with trace.stage("bin"):
         bins = bin_rows(depth.detach(), valid, tiles_touched, rect_min, rect_max,
                         grid_x=grid_x, grid_y=grid_y, pair_capacity=cfg.pair_capacity)
-    with record_function("ed3dgs.gather"):
         payload_sorted = _PermuteRows.apply(payload, bins.order)
     kw = dict(grid_x=grid_x, grid_y=grid_y, width=cfg.width, height=cfg.height,
               focal_x=cfg.focal_x, focal_y=cfg.focal_y, chunk=cfg.chunk, half_w=half_w,
               half_h=half_h)
-    packed = _ExpandRaster.apply(payload_sorted, bins, kw)
-    with record_function("ed3dgs.relayout"):
+    with trace.stage("blend"):
+        packed = _ExpandRaster.apply(payload_sorted, bins, kw)
         # padded tile columns hold garbage: slice before any arithmetic
         img = unpack(packed)[:, :cfg.height, :cfg.width]
     ch = {k: img[s] for k, s in OUT_CHANNELS.items()}

@@ -6,6 +6,11 @@ render_without_tongue (gaussian_renderer/__init__.py:8-431): returns the same
 output dictionary keys. Everything runs on the device of the parameters.
 With `mesh`, one camera is rendered by the ranks of the mesh's gauss axis
 together, through the strip exchange (parallel/tile_sharded.py).
+
+The deformation and the projection are the tracer's stages "deform" and
+"project" (utils/trace.py): stamped on the card inside an open region (the
+train step, a frame), a profiler scope "ed3dgs.deform" / ".project" while a
+profiler runs.
 """
 
 from __future__ import annotations
@@ -13,7 +18,6 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..config.params import DeformHiddenConfig
 from ..core.projection import project_gaussians
@@ -24,6 +28,7 @@ from ..models.deformation import deform_forward
 from ..ops.rasterize import RasterConfig, rasterize
 from ..parallel import comm
 from ..parallel.tile_sharded import tile_sharded_rasterize
+from ..utils import trace
 
 
 class RenderSettings(NamedTuple):
@@ -77,14 +82,14 @@ def project_for_render(
     pixel-space centres: the trainer passes zeros and reads their gradient,
     the screen-space gradient that densification accumulates."""
     shs = gm.get_features(params)
-    with record_function("ed3dgs.deform"):
+    with trace.stage("deform"):
         (xyz_f, scales_f, rot_f, opac_f, shs_f), extras = deform_forward(
             deform_params, hidden_cfg,
             params.xyz, params.scaling, params.rotation, params.opacity, shs,
             params.embedding, settings.time, iteration, cam_no=settings.cam_no,
             num_down_emb_c=num_down_emb_c, num_down_emb_f=num_down_emb_f,
         )
-    with record_function("ed3dgs.project"):
+    with trace.stage("project"):
         # safe normalize: dead slots may carry zero quaternions
         rot_sq = torch.sum(rot_f * rot_f, dim=-1, keepdim=True)
         rot_act = rot_f / torch.sqrt(torch.where(rot_sq < 1e-24, torch.ones_like(rot_sq), rot_sq))

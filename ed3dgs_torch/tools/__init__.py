@@ -81,7 +81,11 @@ class FrameRenderer:
     overwrites: a caller that keeps one clones it.
 
     On the CPU, or with graph=False, it renders eagerly (the same outputs,
-    fresh tensors)."""
+    fresh tensors).
+
+    Each call is the tracer's host span "frame" (children "scalars",
+    "copy_in", "launch"; its call id the renderer's frame number) and its
+    render the device region "frame" (utils/trace.py)."""
 
     def __init__(self, hidden, bg, *, sh_degree, kernel_size, disable_filter3d,
                  num_down_emb, graph=True):
@@ -94,13 +98,23 @@ class FrameRenderer:
         self._inputs = None         # PinnedScalars: view 16, proj 16, campos 3, time, iteration
         self._cam_no = None
         self._model = None          # {path: static tensor}: the model's copy
+        self.frames = 0             # calls so far: the frame's number
 
     def __call__(self, key, model, rcfg, world_view, full_proj, campos, time,
                  iteration=10 ** 9, cam_no=None, tongue_filter=None) -> dict:
+        from ..utils import trace
+        self.frames += 1
+        with trace.span("frame", call=self.frames) as sp:
+            return self._frame(sp, key, model, rcfg, world_view, full_proj, campos, time,
+                               iteration, cam_no, tongue_filter)
+
+    def _frame(self, sp, key, model, rcfg, world_view, full_proj, campos, time, iteration,
+               cam_no, tongue_filter) -> dict:
         import numpy as np
         import torch
 
         from ..render import RenderSettings, render
+        from ..utils import trace
         params, aux, dparams = model
         dev = params.xyz.device
         f32 = dict(dtype=torch.float32, device=dev)
@@ -110,45 +124,51 @@ class FrameRenderer:
                                torch.as_tensor(np.asarray(campos), **f32),
                                torch.tensor(float(time), **f32),
                                None if cam_no is None else torch.tensor(cam_no, device=dev))
-            with torch.no_grad():
+            with torch.no_grad(), trace.region("frame", dev):
                 out = render(params, aux, dparams, self.hidden, s, rcfg, self.bg,
                              iteration=iteration, tongue_filter=tongue_filter, **self.kw)
             return {k: out[k] for k in FRAME_OUTPUTS}
 
         from ..train.optim import flatten_params, unflatten_params
         from ..utils.graphs import GraphCache, PinnedScalars, copy_in
-        if self.graphs is None:
-            self.graphs = GraphCache(dev, "frame")
-            self._inputs = PinnedScalars(37, dev)
-            self._cam_no = torch.zeros((), dtype=torch.int64, device=dev)
-        host = np.concatenate([np.asarray(world_view, np.float32).ravel(),
-                               np.asarray(full_proj, np.float32).ravel(),
-                               np.asarray(campos, np.float32).ravel(),
-                               np.float32([time, iteration])])
-        self._inputs.write(torch.from_numpy(host))
-        if cam_no is not None:
-            self._cam_no.fill_(int(cam_no))
-        flat = flatten_params({"gaussians": params, "deform": dparams})
-        flat.update({f"aux/{f}": getattr(aux, f) for f in aux._fields})
-        if self._model is None or any(self._model[k].shape != t.shape
-                                      for k, t in flat.items()):
-            self._model = {k: torch.empty_like(t) for k, t in flat.items()}
-            self.graphs.clear()
-        for k, t in flat.items():
-            copy_in(self._model[k], t)
-        flat = self._model
         gkey = (key, rcfg, tongue_filter, cam_no is not None)
-        v = self._inputs.values
-        static_cam = None if cam_no is None else self._cam_no
-        tree = unflatten_params({k: t for k, t in flat.items() if not k.startswith("aux/")})
-        static_aux = aux._replace(**{f: flat[f"aux/{f}"] for f in aux._fields})
+        sp.replayed = self.graphs is not None and gkey in self.graphs
+        with trace.span("scalars"):
+            if self.graphs is None:
+                self.graphs = GraphCache(dev, "frame")
+                self._inputs = PinnedScalars(37, dev)
+                self._cam_no = torch.zeros((), dtype=torch.int64, device=dev)
+            host = np.concatenate([np.asarray(world_view, np.float32).ravel(),
+                                   np.asarray(full_proj, np.float32).ravel(),
+                                   np.asarray(campos, np.float32).ravel(),
+                                   np.float32([time, iteration])])
+            self._inputs.write(torch.from_numpy(host))
+            if cam_no is not None:
+                self._cam_no.fill_(int(cam_no))
+        with trace.span("copy_in"):
+            flat = flatten_params({"gaussians": params, "deform": dparams})
+            flat.update({f"aux/{f}": getattr(aux, f) for f in aux._fields})
+            if self._model is None or any(self._model[k].shape != t.shape
+                                          for k, t in flat.items()):
+                self._model = {k: torch.empty_like(t) for k, t in flat.items()}
+                self.graphs.clear()
+                sp.replayed = False
+            nbytes = sum(copy_in(self._model[k], t) for k, t in flat.items())
+            trace.count("copy_in_bytes", "frame", nbytes)
+            trace.count("copy_in_calls", "frame")
+        with trace.span("launch"):
+            flat = self._model
+            v = self._inputs.values
+            static_cam = None if cam_no is None else self._cam_no
+            tree = unflatten_params({k: t for k, t in flat.items() if not k.startswith("aux/")})
+            static_aux = aux._replace(**{f: flat[f"aux/{f}"] for f in aux._fields})
 
-        def body():
-            s = RenderSettings(v[:16].view(4, 4), v[16:32].view(4, 4), v[32:35], v[35],
-                               static_cam)
-            with torch.no_grad():
-                out = render(tree["gaussians"], static_aux, tree["deform"], self.hidden, s,
-                             rcfg, self.bg, iteration=v[36], tongue_filter=tongue_filter,
-                             **self.kw)
-            return {k: out[k] for k in FRAME_OUTPUTS}
-        return self.graphs.run(gkey, body)
+            def body():
+                s = RenderSettings(v[:16].view(4, 4), v[16:32].view(4, 4), v[32:35], v[35],
+                                   static_cam)
+                with torch.no_grad(), trace.region("frame", dev):
+                    out = render(tree["gaussians"], static_aux, tree["deform"], self.hidden, s,
+                                 rcfg, self.bg, iteration=v[36], tongue_filter=tongue_filter,
+                                 **self.kw)
+                return {k: out[k] for k in FRAME_OUTPUTS}
+            return self.graphs.run(gkey, body)

@@ -24,6 +24,9 @@ static buffers. With `--mesh` over NCCL each rank replays its own graph of
 the sharded step, the collectives inside it; over gloo (ranks sharing a
 card, or the CPU) the sharded step runs op by op, as gloo's collectives
 cannot be captured, and the test render runs op by op on any mesh.
+`--profile N` writes a torch.profiler trace of N iterations and, beside
+it, the tracer's Chrome trace of its stage stamps and host spans
+(utils/trace.py `dump`); each densify event is the host span "densify".
 `--backend` is accepted for the JAX tool's command lines and ignored: the
 port has one backend. Densification draws come from a
 `torch.Generator` seeded by `--seed`: the JAX package's `PRNGKey` stream
@@ -54,6 +57,8 @@ import time
 from dataclasses import replace
 
 import numpy as np
+
+from ..utils import trace
 
 
 def parse_args(argv=None):
@@ -101,7 +106,9 @@ def parse_args(argv=None):
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="capture a torch.profiler trace of N steady-state "
                         "iterations (starting at iteration 20) to "
-                        "<model_path>/profile/trace.json")
+                        "<model_path>/profile/trace.json, and the tracer's stage "
+                        "stamps and host spans (utils/trace.py) beside it, "
+                        "stages.json")
     p.add_argument("--seed", type=int, default=6666)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
@@ -610,9 +617,10 @@ def run_training(cfg, args):
                        / opt.densify_until_iter)
                 # on the whole cloud; every rank draws the same noise
                 state, aux = whole(state, aux)
-                state, aux, n_c, n_s = densify_fn(state, aux, generator, thr)
-                aux = refresh_filter(state.params["gaussians"], aux)
-                knn_cache = refresh_knn(state.params["gaussians"], aux)
+                with trace.span("densify", call=iteration):
+                    state, aux, n_c, n_s = densify_fn(state, aux, generator, thr)
+                    aux = refresh_filter(state.params["gaussians"], aux)
+                    knn_cache = refresh_knn(state.params["gaussians"], aux)
                 log["densify"].append((iteration, int(n_c), int(n_s), int(aux.alive.sum())))
                 state, aux = shard(state, aux)
             elif (iteration % 100 == 0 and iteration > opt.densify_until_iter
@@ -697,7 +705,8 @@ def _stop_profile(prof, out_dir):
     prof.stop()
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
-    print(f"profiler trace written to {out_dir}", flush=True)
+    trace.dump(os.path.join(out_dir, "stages.json"))
+    print(f"profiler trace and stage stamps written to {out_dir}", flush=True)
 
 
 def save_checkpoint(model_path, iteration, state, aux):

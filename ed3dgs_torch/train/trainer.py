@@ -51,6 +51,7 @@ from ..parallel import comm
 from ..parallel import sharded as psh
 from ..parallel.tile_sharded import batched_strip_rasterize
 from ..render import RenderSettings, assemble_outputs, project_for_render, render
+from ..utils import trace
 from ..utils.graphs import GraphedFunction, PinnedScalars, agree_on_key
 from . import losses as L
 from .densify import add_densification_stats, densify
@@ -193,7 +194,13 @@ def refresh_knn_cache(params: gm.GaussianParams, aux: gm.GaussianAux,
     `(1 - coverage_target) * alive * k`, then shrink an oversized far
     bucket after three refreshes in a row that did not need it.
     coverage_target=1.0 demands the exact graph. `caps` is MUTATED, so a
-    caller keeps the bucket state across refreshes."""
+    caller keeps the bucket state across refreshes. Traced as the region
+    and host span "knn_refresh" (utils/trace.py)."""
+    with trace.span("knn_refresh"), trace.region("knn_refresh", aux.alive.device):
+        return _refresh_knn_cache(params, aux, caps, tongue_enabled, coverage_target, k, quiet)
+
+
+def _refresh_knn_cache(params, aux, caps, tongue_enabled, coverage_target, k, quiet):
     caps = caps if caps is not None else dict(KNN_CAPS_DEFAULT)
     caps.setdefault("_far_quiet", 0)
     edges = int(aux.alive.sum()) * k
@@ -393,6 +400,15 @@ def make_loss_and_grads(setup: TrainSetup):
         else:
             renders = [_render_one(gparams, aux, dparams, setup, _settings(batch, b),
                                    it, sh, offsets[b]) for b in range(n_cam)]
+        with trace.stage("loss"):
+            return loss_terms(renders, gparams, aux, dparams, batch, knn_cache, br, it,
+                              send_ovf)
+
+    def loss_terms(renders, gparams, aux, dparams, batch, knn_cache, br: StepBranches, it,
+                   send_ovf):
+        """The batch's loss and the step's metrics from its renders."""
+        sh = br.active_sh_degree
+        n_cam = len(renders)
         image = torch.stack([r["render"] for r in renders])           # [B, 3, H, W]
         gt = batch["gt_image"]
         zero = torch.zeros((), device=image.device)
@@ -483,15 +499,16 @@ def make_loss_and_grads(setup: TrainSetup):
             unflatten_params(leaves), offsets, aux, batch, knn_cache,
             step_branches(setup, iteration, batch),
             iteration if device_iteration is None else device_iteration)
-        grads = torch.autograd.grad(loss, [*leaves.values(), offsets], allow_unused=True)
-        g = {p: torch.zeros_like(leaves[p]) if d is None else d
-             for p, d in zip(leaves, grads)}
-        vs_grad = grads[-1].sum(dim=0)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if mesh is not None:
-            g, vs_grad = psh.reduce_gradients(mesh, g, vs_grad)
-            radii, visible = psh.reduce_densify_stats(mesh, radii, visible)
-            metrics = psh.reduce_metrics(mesh, metrics)
+        with trace.stage("backward"):
+            grads = torch.autograd.grad(loss, [*leaves.values(), offsets], allow_unused=True)
+            g = {p: torch.zeros_like(leaves[p]) if d is None else d
+                 for p, d in zip(leaves, grads)}
+            vs_grad = grads[-1].sum(dim=0)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if mesh is not None:
+                g, vs_grad = psh.reduce_gradients(mesh, g, vs_grad)
+                radii, visible = psh.reduce_densify_stats(mesh, radii, visible)
+                metrics = psh.reduce_metrics(mesh, metrics)
         return metrics["loss"], metrics, g, vs_grad, radii, visible
 
     return loss_and_grads
@@ -603,30 +620,36 @@ class GraphedTrainStep(GraphedFunction):
 
     def __call__(self, state: TrainState, aux: gm.GaussianAux, batch, knn_cache: KnnCache):
         check_capturable(self.setup, aux.alive.device)
-        named = self._inputs(state, aux, batch, knn_cache)
         iteration = int(state.iteration)
-        key = (step_branches(self.setup, iteration, batch), self._shapes(named))
-        st = self.prepare(key[1], named,
-                          lambda: self._allocate(named, state, aux, batch, knn_cache))
-        scalars = torch.cat([self.optimizer.update_table(state.opt_state, aux.alive.device)
-                             .reshape(-1), torch.tensor([float(iteration)])])
-        st["scalars"].write(scalars)
-        body = self._body(st, key[0], iteration)
-        mesh = self.setup.mesh
-        if mesh is not None and key not in self._agreed:
-            if mesh.group("world") is not None:
-                agree_on_key(key, mesh.group("world"), aux.alive.device)
-            self._agreed.add(key)
-        replay = self.graphs is not None and key in self.graphs
-        first = len(comm.ledger.records)
-        metrics = self.run(key, body, aux.alive.device)
-        if mesh is not None and replay:
-            comm.ledger.replay(self._records[key])
-        elif mesh is not None:
-            self._records[key] = comm.ledger.records[first:]
-        opt_state = {g: AdamState(state.opt_state[g].count + 1, st["mu"][g], st["nu"][g])
-                     for g in GROUPS}
-        return TrainState(st["params_tree"], opt_state, iteration + 1), st["aux"], metrics
+        with trace.span("step", call=iteration) as sp:
+            with trace.span("inputs"):
+                named = self._inputs(state, aux, batch, knn_cache)
+                key = (step_branches(self.setup, iteration, batch), self._shapes(named))
+                replay = sp.replayed = self.graphs is not None and key in self.graphs
+            with trace.span("copy_in"):
+                st = self.prepare(key[1], named,
+                                  lambda: self._allocate(named, state, aux, batch, knn_cache))
+            with trace.span("scalars"):
+                scalars = torch.cat([self.optimizer.update_table(state.opt_state,
+                                                                 aux.alive.device)
+                                     .reshape(-1), torch.tensor([float(iteration)])])
+                st["scalars"].write(scalars)
+            with trace.span("launch"):
+                body = self._body(st, key[0], iteration)
+                mesh = self.setup.mesh
+                if mesh is not None and key not in self._agreed:
+                    if mesh.group("world") is not None:
+                        agree_on_key(key, mesh.group("world"), aux.alive.device)
+                    self._agreed.add(key)
+                first = len(comm.ledger.records)
+                metrics = self.run(key, body, aux.alive.device)
+            if mesh is not None and replay:
+                comm.ledger.replay(self._records[key])
+            elif mesh is not None:
+                self._records[key] = comm.ledger.records[first:]
+            opt_state = {g: AdamState(state.opt_state[g].count + 1, st["mu"][g], st["nu"][g])
+                         for g in GROUPS}
+            return TrainState(st["params_tree"], opt_state, iteration + 1), st["aux"], metrics
 
     def key(self, state, aux, batch, knn_cache) -> tuple:
         """(StepBranches, the inputs' shapes and dtypes): the graph a call
@@ -703,22 +726,26 @@ class GraphedTrainStep(GraphedFunction):
         def body():
             params, aux = st["params_tree"], st["aux"]
             opt_state = {g: AdamState(0, st["mu"][g], st["nu"][g]) for g in GROUPS}
-            # the branches are the key's: the iteration passed here only
-            # selects them again, the deformation reads `it`
-            _, metrics, grads, vs_grad, radii, visible = self.loss_and_grads(
-                params, aux, batch, st["cache"], iteration, device_iteration=it)
-            new_params, new_opt = optimizer.update(grads, opt_state, params, table=table)
-            aux2 = add_densification_stats(aux, vs_grad, visible, radii)
-            for p, t in flatten_params(new_params).items():
-                st["params"][p].copy_(t)
-            for g in GROUPS:
-                for p in st["mu"][g]:
-                    st["mu"][g][p].copy_(new_opt[g].mu[p])
-                    st["nu"][g][p].copy_(new_opt[g].nu[p])
-            for f in aux._fields:
-                new, old = getattr(aux2, f), getattr(aux, f)
-                if new is not old:
-                    old.copy_(new)
+            with trace.region("step", aux.alive.device):
+                # the branches are the key's: the iteration passed here only
+                # selects them again, the deformation reads `it`
+                _, metrics, grads, vs_grad, radii, visible = self.loss_and_grads(
+                    params, aux, batch, st["cache"], iteration, device_iteration=it)
+                with trace.stage("adam"):
+                    new_params, new_opt = optimizer.update(grads, opt_state, params,
+                                                           table=table)
+                with trace.stage("writeback"):
+                    aux2 = add_densification_stats(aux, vs_grad, visible, radii)
+                    for p, t in flatten_params(new_params).items():
+                        st["params"][p].copy_(t)
+                    for g in GROUPS:
+                        for p in st["mu"][g]:
+                            st["mu"][g][p].copy_(new_opt[g].mu[p])
+                            st["nu"][g][p].copy_(new_opt[g].nu[p])
+                    for f in aux._fields:
+                        new, old = getattr(aux2, f), getattr(aux, f)
+                        if new is not old:
+                            old.copy_(new)
             return metrics
 
         return body
@@ -780,13 +807,16 @@ class GraphedDensifyStep(GraphedFunction):
     def __call__(self, state: TrainState, aux, generator, grad_threshold, noise=None):
         C = aux.alive.shape[0]
         dev = aux.alive.device
-        if noise is None:
-            noise = torch.randn((2, C, 3), generator=generator, device=dev)
-        named = self._inputs(state, aux, noise)
-        signature = tuple((k, tuple(t.shape), t.dtype) for k, t in named.items())
-        st = self.prepare(signature, named, lambda: self._allocate(named, state, aux))
-        st["threshold"].write(torch.tensor([float(grad_threshold)]))
-        counts = self.run(signature, self._body(st), dev)
+        it = state.iteration if isinstance(state.iteration, int) else None
+        with trace.span("densify_step", call=it) as sp:
+            if noise is None:
+                noise = torch.randn((2, C, 3), generator=generator, device=dev)
+            named = self._inputs(state, aux, noise)
+            signature = tuple((k, tuple(t.shape), t.dtype) for k, t in named.items())
+            sp.replayed = self.graphs is not None and signature in self.graphs
+            st = self.prepare(signature, named, lambda: self._allocate(named, state, aux))
+            st["threshold"].write(torch.tensor([float(grad_threshold)]))
+            counts = self.run(signature, self._body(st), dev)
         params = dict(state.params)
         params["gaussians"] = st["params"]
         opt_state = {g: s._replace(mu={**s.mu, **st["mu"][g]}, nu={**s.nu, **st["nu"][g]})
@@ -828,21 +858,24 @@ class GraphedDensifyStep(GraphedFunction):
         """The densify step on the static buffers, writing its results back
         into them; returns the counts. The threshold is read on the card."""
         def body():
-            res = densify(st["params"], st["aux"], grad_threshold=st["threshold"].values[0],
-                          percent_dense=self.percent_dense, scene_extent=self.scene_extent,
-                          max_gaussians=self.max_gaussians, noise=st["flat"]["noise"])
-            reset = reset_moments_at({g: AdamState(0, st["mu"][g], st["nu"][g])
-                                      for g in st["mu"]}, res.reset_mask)
-            for old, new in zip(st["params"], res.params):
-                old.copy_(new)
-            for old, new in zip(st["aux"], res.aux):
-                if new is not old:
+            with trace.region("densify_step", st["aux"].alive.device):
+                res = densify(st["params"], st["aux"],
+                              grad_threshold=st["threshold"].values[0],
+                              percent_dense=self.percent_dense,
+                              scene_extent=self.scene_extent,
+                              max_gaussians=self.max_gaussians, noise=st["flat"]["noise"])
+                reset = reset_moments_at({g: AdamState(0, st["mu"][g], st["nu"][g])
+                                          for g in st["mu"]}, res.reset_mask)
+                for old, new in zip(st["params"], res.params):
                     old.copy_(new)
-            for g, moments in reset.items():
-                for p, t in moments.mu.items():
-                    st["mu"][g][p].copy_(t)
-                for p, t in moments.nu.items():
-                    st["nu"][g][p].copy_(t)
+                for old, new in zip(st["aux"], res.aux):
+                    if new is not old:
+                        old.copy_(new)
+                for g, moments in reset.items():
+                    for p, t in moments.mu.items():
+                        st["mu"][g][p].copy_(t)
+                    for p, t in moments.nu.items():
+                        st["nu"][g][p].copy_(t)
             return {"n_cloned": res.n_cloned, "n_split": res.n_split}
 
         return body

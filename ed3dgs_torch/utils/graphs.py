@@ -59,6 +59,9 @@ kernels a replay runs count themselves on the card
 an iteration) through pinned host memory, so that writing them before a
 replay makes the host wait for nothing.
 
+The tracer (utils/trace.py) counts each cache's replays and captures, the
+bytes copied in a call and the pinned scalars' waits.
+
 This module imports only torch and the standard library.
 """
 
@@ -69,6 +72,8 @@ import time
 import warnings
 
 import torch
+
+from . import trace
 
 
 class GraphCaptureError(RuntimeError):
@@ -151,9 +156,11 @@ class GraphCache:
     def run(self, key, body) -> dict:
         entry = self.graphs.get(key)
         if entry is None:
+            trace.count("captures", self.name)
             return self._first_run(key, body)
         graph, outputs = entry
         graph.replay()
+        trace.count("replays", self.name)
         return outputs
 
     def _first_run(self, key, body) -> dict:
@@ -213,7 +220,10 @@ class PinnedScalars:
             return
         i, self._turn = self._turn, self._turn ^ 1
         if not self._copied[i].query():
+            t0 = time.perf_counter()
             self._copied[i].synchronize()
+            trace.count("pinned_waits", "n")
+            trace.count("pinned_waits", "ms", (time.perf_counter() - t0) * 1e3)
         self._host[i].copy_(values)
         self.values.copy_(self._host[i], non_blocking=True)
         self._copied[i].record()
@@ -240,8 +250,9 @@ class GraphedFunction:
             self.signature = signature
             if self.graphs is not None:
                 self.graphs.clear()
-        for name, t in named.items():
-            copy_in(self.static["flat"][name], t)
+        nbytes = sum(copy_in(self.static["flat"][name], t) for name, t in named.items())
+        trace.count("copy_in_bytes", self.name, nbytes)
+        trace.count("copy_in_calls", self.name)
         return self.static
 
     def run(self, key, body, device) -> dict:
@@ -260,13 +271,14 @@ def same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
                       and a.stride() == b.stride() and a.dtype == b.dtype)
 
 
-def copy_in(static: torch.Tensor, given: torch.Tensor):
-    """Copy `given` into its static buffer unless it is that buffer. A
-    shorter 1-D `given` fills the buffer's front (a list padded to a fixed
-    capacity)."""
+def copy_in(static: torch.Tensor, given: torch.Tensor) -> int:
+    """Copy `given` into its static buffer unless it is that buffer; returns
+    the bytes copied. A shorter 1-D `given` fills the buffer's front (a list
+    padded to a fixed capacity)."""
     if same_storage(given, static):
-        return
+        return 0
     if given.shape == static.shape:
         static.copy_(given)
     else:
         static[:given.shape[0]].copy_(given)
+    return given.numel() * given.element_size()

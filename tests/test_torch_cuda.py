@@ -1099,12 +1099,7 @@ def step_tensors(state, aux, metrics) -> dict:
 
 def wrapper_counts() -> dict:
     """{"module.wrapper": launches counted by the wrapper}."""
-    import importlib
-    out = {}
-    for w in cuda_lib.LAUNCH_SLOTS:
-        mod, fn = w.split(".")
-        out[w] = getattr(importlib.import_module(f"ed3dgs_torch.ops.{mod}"), fn).launches
-    return out
+    return {w: cuda_lib.slot_wrapper(w).launches for w in cuda_lib.LAUNCH_SLOTS}
 
 
 def test_graphed_step_equals_the_eager_step(dev):
@@ -1113,8 +1108,10 @@ def test_graphed_step_equals_the_eager_step(dev):
     (from iteration 11), a densify step's state and a new KNN cache copied
     in, and a pair-capacity change (a new step, captured anew). Replays run
     under sync debug mode "error" and launch K1-K7 on the card (counted
-    by the device counters) as an eager step does; the wrappers count only the
-    first, eager run of a key (a capture launches nothing)."""
+    by the device counters) as an eager step does, and the tracer's 13 stage
+    stamps (utils/trace.py: 4 stages a camera, 4 after, the end); the
+    wrappers count only the first, eager run of a key (a capture launches
+    nothing)."""
     from ed3dgs_torch.config.params import OptimizationConfig
     from ed3dgs_torch.train import trainer
 
@@ -1129,7 +1126,7 @@ def test_graphed_step_equals_the_eager_step(dev):
               "segment_sum.segment_sum_rows": 2, "binning_scan.fused_bin_scans": 2,
               "relayout.unpack_image": 2, "relayout.pack_image": 2, "knn_loss.knn_rows": 1,
               "knn_loss.knn_reverse": 1, "segment_sum.segment_sum_rows_packed": 0,
-              "knn.knn": 0}
+              "knn.knn": 0, "trace.stamp": 13}
     replayed = []
     for i, ssim in enumerate((True, False, True, True, True, False, False, False)):
         if i == 4:        # densify, then the filter and KNN refreshes

@@ -3,10 +3,11 @@ ops/cuda_lib.py `DeviceLaunches`), checked where the CPU can check them: the
 header's slots in the order of `cuda_lib.LAUNCH_SLOTS`, each naming the
 wrapper it counts for; every kernel of every CUDA source counting into its
 wrapper's slot (X1's Morton-code and staging kernels, which every X1 call
-also launches, count nothing); every CUDA library exporting the setter; and
-`DeviceLaunches` with no counters on any device measuring nothing. What the
-counters count on the card is held in tests/test_torch_cuda.py and
-chip_smoke.py.
+also launches, and the tracer's clock read count nothing); the tracer's
+stage stamp (utils/trace.py) on a slot of its own, "trace.stamp"; every
+CUDA library exporting the setter; and `DeviceLaunches` with no counters on
+any device measuring nothing. What the counters count on the card is held
+in tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import importlib
@@ -26,7 +27,7 @@ KERNEL_SLOT = {
     "scan_decode": "SLOT_BIN_SCANS", "unpack": "SLOT_UNPACK", "pack": "SLOT_PACK",
     "knn_rows": "SLOT_KNN_ROWS", "knn_rows_wide": "SLOT_KNN_ROWS",
     "knn_reverse": "SLOT_KNN_REVERSE", "knn_select": "SLOT_KNN", "knn_codes": None,
-    "knn_stage": None,
+    "knn_stage": None, "trace_stamp": "SLOT_TRACE_STAMP", "trace_clock": None,
 }
 
 
@@ -42,9 +43,21 @@ def test_header_slots_are_the_launch_slots_in_order():
     assert [v for _, v, _ in slots] == list(range(len(cuda_lib.LAUNCH_SLOTS)))
     assert [w for _, _, w in slots] == list(cuda_lib.LAUNCH_SLOTS)
     for wrapper in cuda_lib.LAUNCH_SLOTS:      # each names a wrapper that counts
-        mod, fn = wrapper.split(".")
-        assert isinstance(getattr(importlib.import_module(f"ed3dgs_torch.ops.{mod}"), fn)
-                          .launches, int)
+        assert isinstance(cuda_lib.slot_wrapper(wrapper).launches, int)
+
+
+def test_the_stage_stamp_counts_on_a_slot_of_its_own():
+    """The tracer's stamp kernel is counted apart from the kernels it
+    times, under the tracer's own wrapper; its library exports the stamp
+    and the clock read."""
+    from ed3dgs_torch.utils import trace
+
+    slots = {name: (value, w) for name, value, w in header_slots()}
+    assert slots["SLOT_TRACE_STAMP"] == (cuda_lib.LAUNCH_SLOTS.index("trace.stamp"),
+                                         "trace.stamp")
+    assert cuda_lib.slot_wrapper("trace.stamp") is trace.stamp
+    assert {"ed3dgs_trace_stamp", "ed3dgs_trace_clock"} <= set(cuda_lib.SIGNATURES["trace_stamp"])
+    assert cuda_lib.slot_wrapper("knn.knn") is importlib.import_module("ed3dgs_torch.ops.knn").knn
 
 
 @pytest.mark.parametrize("source", sorted(p.name for p in cuda_lib.CSRC.glob("*.cu")))

@@ -49,7 +49,7 @@ for name in ("ed3dgs_torch.train.trainer", "ed3dgs_torch.train.optim",
              "ed3dgs_torch.parallel", "ed3dgs_torch.parallel.mesh",
              "ed3dgs_torch.parallel.comm", "ed3dgs_torch.parallel.multihost",
              "ed3dgs_torch.parallel.tile_sharded", "ed3dgs_torch.parallel.sharded",
-             "ed3dgs_torch.utils.graphs"):
+             "ed3dgs_torch.utils.graphs", "ed3dgs_torch.utils.trace"):
     assert name in names, name
 print(len(names))
 """
