@@ -10,16 +10,18 @@ max_embeddings 150, SH degree 3, 3D filter on, bf16 activations) on the
 bench scene (100k Gaussians, capacity 100,352, 802x550, pair capacity 2^20,
 chunk 128):
 
-1. renders one warm-up frame and records the inputs the render hands K1, K4
-   and K5a; holds each of them against its plain PyTorch version on those
-   inputs (K4 and K5a bit-exact; K1 within the tolerances below) and times
-   kernel, plain version and library yardstick with CUDA events, L2 flushed
-   before every launch (K1 and K2 also report their registers, shared
+1. renders one warm-up frame and records the inputs the render hands K1, X2,
+   K4 and K5a; holds each of them against its plain PyTorch version on those
+   inputs (X2, K4 and K5a bit-exact; K1 within the tolerances below) and
+   times kernel, plain version and library yardstick with CUDA events, L2
+   flushed before every launch (K1 and K2 also report their registers, shared
    memory and resident CTAs per SM);
 2. drives the forward main path: `ed3dgs_torch.render.render` on three
    frames. Every launch count is set to 0 just before and read just after;
-   K1, K4 and K5a must each have risen by one per frame. Profiles one frame
-   and counts K4's kernels in it (one: its single pass);
+   K1, X2, K4 and K5a must each have risen by one per frame. Profiles one
+   frame and counts K4's kernels in it (one: its single pass). X2 writes the
+   delta streams K4 scans: in every window of this run where K4 is counted,
+   X2 must have launched as often;
 3. drives the training loop of the JAX package's tools/train.py at the
    config's reg_coef (1.0) and knn_coverage_target (0.95): the 3D filter
    from `compute_3d_filter` over the bench camera and four around it;
@@ -134,8 +136,8 @@ chunk 128):
    the 3D filter and the KNN refresh (X1 once), one eager step at the
    config's pair capacity whose demand CapacityPolicy turns into the
    capacity the rest runs at, which binning path that capacity and grid
-   take (K4's packed key: 18 + 13 = 31 bits at 1600x1200), K4, K1, K5a, K2,
-   K3 and K5b held to their plain versions on one step's inputs at the
+   take (K4's packed key: 18 + 13 = 31 bits at 1600x1200), X2, K4, K1, K5a,
+   K2, K3 and K5b held to their plain versions on one step's inputs at the
    bounds of 1 and 4 and timed, then the eager and graphed steps over every
    key the config's schedule meets (each key at the first iteration that
    meets it, then again: captures, then replays), bit for bit, launching
@@ -149,8 +151,8 @@ chunk 128):
    iteration against (a)'s graphed step, the PNG decode and resize ms a
    frame, the capacity log and each graph's captures and pool bytes; (c)
    `tools.render.main` of the saved model (FAM_SERVE_FRAMES a split,
-   DyNeRF's spiral video cameras too): a PNG a frame, K1, K4 and K5a once a
-   frame, render and PNG ms a frame;
+   DyNeRF's spiral video cameras too): a PNG a frame, K1, X2, K4 and K5a
+   once a frame, render and PNG ms a frame;
 6. the `cli` phase: `ed3dgs_torch.data.synthetic.generate_scene` on the card
    (802x550, 4 cameras with cam00 held out, 8 frames, 20,000 points; K1
    renders the frames) into a temporary directory, then
@@ -211,8 +213,8 @@ chunk 128):
    the tongue count at the start the red seeds and above 0 at the end, the
    train PSNR rising; then `tools.render --tongue_renders` on its model
    (TONGUE_SERVE_FRAMES a split, no video): the tongue, tongue_render and
-   wo_tongue_render PNGs of every view, K1, K4 and K5a three times a frame,
-   the render ms a frame of each filter;
+   wo_tongue_render PNGs of every view, K1, X2, K4 and K5a three times a
+   frame, the render ms a frame of each filter;
 8. the `offline` phase, on the same scene and model:
    `tools.mesh_extract_tsdf.main` at timestep 0 (the three train views),
    sparse at the default voxel of 0.002 with its views rendered through
@@ -234,7 +236,7 @@ chunk 128):
    `prepare_colmap.convert_poses_to_colmap_db`, `nersemble_utils
    pose-bounds`, `seg-color`, `render-mesh`) on a 2-camera, 2-timestep
    raw capture of PNG frames it writes. Every count is set to 0 before
-   each TSDF run and again before the viewer's requests: K1, K4 and K5a
+   each TSDF run and again before the viewer's requests: K1, X2, K4 and K5a
    must each have launched once in the graphed TSDF run (its capture's
    eager run; a replay calls no wrapper), once per view in the eager one
    and (on the card, device counters) once per request rendered. It
@@ -269,7 +271,8 @@ to DIR/chip_smoke.json (default smoke_out/ in the checkout), with the
 profiles and nvcc's register report beside it. The last nine lines of
 standard output are the `families`, `tongue`, `cli`, `serve`, `offline` and
 `multi` JSON lines, the card as nvidia-smi names it, the kernels' JSON line
-and the result line. The kernels line lists K1-K8 and X1; X1's launches are
+and the result line. The kernels line lists K1-K8, X1 and X2 (X2's launches
+counted as K4's); X1's launches are
 those of the densify step and refreshes in 3, of 5b's two tongue refreshes
 and of 5c's refreshes (its own path: the search runs at a refresh, not in a
 step), and it also carries its `cli` and `serve` counts; each row carries
@@ -555,6 +558,10 @@ KERNELS = {
     # no pallas_call: the counterpart of the jitted XLA function knn
     "X1": dict(name="knn", route="cuda", source="ed3dgs_torch/csrc/knn.cu",
                replaces="ed3dgs_tpu/ops/knn.py:39"),
+    # no pallas_call: the counterpart of bin_rows' three jax.lax.cummax
+    "X2": dict(name="boundary_deltas", route="cuda",
+               source="ed3dgs_torch/csrc/binning_scan.cu",
+               replaces="ed3dgs_tpu/ops/binning.py:153"),
 }
 
 
@@ -761,16 +768,28 @@ WRAPPER_OF = {"K1": "rasterize_cuda.rasterize_forward", "K2": "rasterize_cuda.ra
               "K3": "segment_sum.segment_sum_rows", "K4": "binning_scan.fused_bin_scans",
               "K5a": "relayout.unpack_image", "K5b": "relayout.pack_image",
               "K6": "knn_loss.knn_rows", "K7": "knn_loss.knn_reverse",
-              "K8": "segment_sum.segment_sum_rows_packed", "X1": "knn.knn"}
+              "K8": "segment_sum.segment_sum_rows_packed", "X1": "knn.knn",
+              "X2": "binning_scan.boundary_deltas"}
+
+
+def x2_as_k4(launches: dict, what: str):
+    """X2 writes the delta streams K4 scans, once before each of K4's
+    launches: fails unless `launches` counts them alike."""
+    if launches["X2"] != launches["K4"]:
+        fail(f"{what}: X2 launched {launches['X2']} times and K4 {launches['K4']}")
 
 
 def card_launches(trace, keys) -> dict:
     """{K: launches that ran on the card} from a closed
     cuda_lib.DeviceLaunches window (a replayed graph calls no wrapper, so
     only the kernels' own counters see its launches); fails where no device
-    had counters, since then nothing was measured."""
+    had counters, since then nothing was measured, and, where K4 is among
+    `keys`, unless X2 launched as often."""
     if not trace.armed:
         fail("no launch counters on the card: launches were not measured")
+    if "K4" in keys:
+        x2_as_k4({k: trace.counts[WRAPPER_OF[k]] for k in ("K4", "X2")},
+                 f"the card's counters over {sorted(keys)}")
     return {k: trace.counts[WRAPPER_OF[k]] for k in keys}
 
 
@@ -840,12 +859,12 @@ def train_setup(cfg, rcfg):
 def per_step_launches(setup, keys) -> dict:
     """{K: launches one train step of `setup` makes}: one per camera of the
     blend path (K1-K5b) and with the tongue terms two more on the last
-    camera (its tongue-only and tongue-free renders); one KNN loss (K6,
+    camera (its tongue-only and tongue-free renders), X2 with K4; one KNN loss (K6,
     K7), two with the tongue graph; none of K8 (no production caller) and
     none of X1 (the search runs at a refresh, between steps)."""
     blend = setup.batch_size + (2 if setup.tongue_enabled else 0)
     knn = 2 if setup.tongue_enabled else 1
-    return {k: (blend if k in ("K1", "K2", "K3", "K4", "K5a", "K5b") else
+    return {k: (blend if k in ("K1", "K2", "K3", "K4", "K5a", "K5b", "X2") else
                 knn if k in ("K6", "K7") else 0) for k in keys}
 
 
@@ -896,7 +915,7 @@ def cli_phase(torch, counters, bare_step_ms, tmp):
             "--quiet", "--seed", "0", "--device", DEVICE]
     # the run's launches on the card from the device counters (the tool
     # replays graphs, which call no wrapper)
-    keys = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "X1")
+    keys = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "X1", "X2")
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1084,13 +1103,14 @@ def serve_phase(torch, counters, cli):
                extract_s=mstats["total_s"], vertices=n_verts, faces=n_faces,
                sdf_evaluations=mstats["sdf_evaluations"], masks=masks)
     trace.__exit__(None, None, None)
-    launches = card_launches(trace, ("K1", "K4", "K5a", "X1"))
+    launches = card_launches(trace, ("K1", "K4", "K5a", "X1", "X2"))
     n_frames = sum(frames.values())
     # X1 once: the tetra points' outlier filter at the one timestep
     expected = {"K1": n_frames + masks, "K4": n_frames + 2 * masks, "K5a": n_frames + masks,
-                "X1": 1}
+                "X1": 1, "X2": n_frames + 2 * masks}
     out.update(launches=launches, expected_launches=expected,
-               wrapper_counts={k: counters[k].launches for k in ("K1", "K4", "K5a", "X1")})
+               wrapper_counts={k: counters[k].launches
+                               for k in ("K1", "K4", "K5a", "X1", "X2")})
 
     verts, faces = read_mesh_ply(os.path.join(model_dir, "meshes", "00000", "recon.ply"))
     gt_dir = os.path.join(os.path.dirname(model_dir), "gt")
@@ -1298,7 +1318,7 @@ def offline_phase(torch, counters, cli):
     sp = mesh_extract_tsdf.main(argv(DEVICE, "--engine", "sparse"))
     out["tsdf_s"] = time.perf_counter() - t0
     sync()
-    graphed_counts = {k: counters[k].launches for k in ("K1", "K4", "K5a")}
+    graphed_counts = {k: counters[k].launches for k in ("K1", "K4", "K5a", "X2")}
     for fn in counters.values():
         fn.launches = 0
     mesh_extract_tsdf.FrameRenderer = functools.partial(FrameRenderer, graph=False)
@@ -1308,7 +1328,7 @@ def offline_phase(torch, counters, cli):
     finally:
         mesh_extract_tsdf.FrameRenderer = FrameRenderer
     sync()
-    eager_counts = {k: counters[k].launches for k in ("K1", "K4", "K5a")}
+    eager_counts = {k: counters[k].launches for k in ("K1", "K4", "K5a", "X2")}
     # the graphed run's wrappers count its key's first, eager run (a replay
     # calls none): the replays' own work shows in the views it returns
     views_equal = (sp["views"] == dn["views"] and all(
@@ -1483,7 +1503,7 @@ def offline_phase(torch, counters, cli):
         thread.join(timeout=120)
         server.close()
         trace.__exit__(None, None, None)
-    viewer_launches = card_launches(trace, ("K1", "K4", "K5a"))
+    viewer_launches = card_launches(trace, ("K1", "K4", "K5a", "X2"))
     rendered = len(VIEWER_SIZES)
     if viewer_launches != {k: rendered for k in viewer_launches}:
         bad.append(f"viewer launches {viewer_launches}, {rendered} requests rendered")
@@ -1613,7 +1633,7 @@ def multi_rank(rank, world, path):
                 "K3": segment_sum.segment_sum_rows, "K4": binning_scan.fused_bin_scans,
                 "K5a": relayout.unpack_image, "K5b": relayout.pack_image,
                 "K6": knn_loss.knn_rows, "K7": knn_loss.knn_reverse,
-                "K8": segment_sum.segment_sum_rows_packed}
+                "K8": segment_sum.segment_sum_rows_packed, "X2": binning_scan.boundary_deltas}
 
     def reset():
         for fn in counters.values():
@@ -1744,12 +1764,12 @@ def multi_phase(torch, snap, cli, tmp):
     out["world_s"] = time.perf_counter() - t0
     os.remove(path)
 
-    core = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7")
-    # launches a step: (b) one camera a rank, K4 twice (the strip bin and
-    # the pack's bin) and K3 twice (the blend's and the pack's backward),
+    core = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "X2")
+    # launches a step: (b) one camera a rank, K4 and X2 twice (the strip bin
+    # and the pack's bin) and K3 twice (the blend's and the pack's backward),
     # K6/K7 on both ranks (data rank 0); (c) one camera a rank, K6/K7 on
     # data rank 0 only
-    want_b = {k: MULTI_STEPS * (2 if k in ("K3", "K4") else 1) for k in core}
+    want_b = {k: MULTI_STEPS * (2 if k in ("K3", "K4", "X2") else 1) for k in core}
     totals = {k: 0 for k in KERNELS}
     for r, res in enumerate(ranks):
         for sub in ("a", "b", "c"):
@@ -1759,14 +1779,14 @@ def multi_phase(torch, snap, cli, tmp):
               f"{res['b']['launches']} (c) {res['c']['launches']}", flush=True)
         want_c = {k: MULTI_STEPS * (1 if k not in ("K6", "K7") or r == 0 else 0) for k in core}
         if any(res["a"]["launches"][k] != 1 for k in ("K1", "K5a")) or \
-                res["a"]["launches"]["K4"] != 2:
+                any(res["a"]["launches"][k] != 2 for k in ("K4", "X2")):
             fail(f"multi (a): rank {r} launches {res['a']['launches']}")
         if {k: res["b"]["launches"][k] for k in core} != want_b:
             fail(f"multi (b): rank {r} launches {res['b']['launches']}, want {want_b}")
         if {k: res["c"]["launches"][k] for k in core} != want_c:
             fail(f"multi (c): rank {r} launches {res['c']['launches']}, want {want_c}")
         if any(sum(res[s]["launches"][k] for s in "abc") == 0 for k in core):
-            fail(f"multi: rank {r} launched none of some kernel of K1-K7")
+            fail(f"multi: rank {r} launched none of some kernel of K1-K7 and X2")
     out["launches"] = totals
 
     # (a) the strip render against one process
@@ -1869,7 +1889,7 @@ def multi_phase(torch, snap, cli, tmp):
                       rows=rows)
     out["e"] = {"default": mesh_graph_check(torch, snap, one)}
     # the tongue and COLMAP steps of 5b, from its states
-    core = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7")
+    core = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "X2")
     for name, what in (("tongue", "tongue step"), ("colmap", "COLMAP step")):
         if name in snap:
             e = mesh_graph_check(torch, snap[name], snap[name]["batches"], what, core)
@@ -1893,7 +1913,7 @@ def mesh_graph_check(torch, snap, batches, what="sharded step", keys=()) -> dict
     `batches` (two keys or more: a later step replays), every state tensor
     and metric bit for bit, each step timed by CUDA events, and the graphed
     run's launches of `keys` on the card (the kernels' counters), which
-    must be `per_step_launches` a step (K3 and K4 twice as many under
+    must be `per_step_launches` a step (K3, K4 and X2 twice as many under
     strip: the pack's bin and its backward). Fails on a capture that fails,
     a tensor that differs or launches off that count."""
     from dataclasses import replace
@@ -1931,7 +1951,8 @@ def mesh_graph_check(torch, snap, batches, what="sharded step", keys=()) -> dict
         differ = [sorted(k for k in e if not torch.equal(e[k], g[k]))
                   for e, g in zip(runs[False]["tensors"], runs[True]["tensors"])]
         g = runs[True]
-        want = {k: n * len(batches) * (2 if comms == "strip" and k in ("K3", "K4") else 1)
+        want = {k: n * len(batches) * (2 if comms == "strip" and k in ("K3", "K4", "X2")
+                                       else 1)
                 for k, n in per_step_launches(snap["setup"], keys).items()}
         out[comms] = dict(bit_for_bit=[not d for d in differ], graphed_ms=g["ms"],
                           eager_ms=runs[False]["ms"], captures=g["captures"],
@@ -2028,7 +2049,7 @@ def frame_against_eager(torch, params, aux, dparams, hidden, model, rcfg, bg, ca
     """tools.FrameRenderer's graph against render() op by op on the bench
     frame at FRAME_TIMES: every output bit-identical; both timed by CUDA
     events (FRAME_REPS frames each, after one of each). Each graphed frame
-    of the comparison must launch K1, K4 and K5a once on the card (the
+    of the comparison must launch K1, X2, K4 and K5a once on the card (the
     device counters)."""
     from ed3dgs_torch.ops import cuda_lib
     from ed3dgs_torch.tools import FRAME_OUTPUTS, FrameRenderer
@@ -2045,7 +2066,7 @@ def frame_against_eager(torch, params, aux, dparams, hidden, model, rcfg, bg, ca
         want = frame(eager, t)
         with cuda_lib.DeviceLaunches() as trace:
             got = frame(graphed, t)
-        launches.append(card_launches(trace, ("K1", "K4", "K5a")))
+        launches.append(card_launches(trace, ("K1", "K4", "K5a", "X2")))
         differ += [(t, k) for k in FRAME_OUTPUTS if not torch.equal(want[k], got[k])]
     times = {}
     for name, fr in (("eager", eager), ("graphed", graphed)):
@@ -2076,7 +2097,7 @@ def frame_against_eager(torch, params, aux, dparams, hidden, model, rcfg, bg, ca
     if differ:
         fail(f"the graphed frame differs from render(): {differ[:8]}")
     if any(n != 1 for per in launches for n in per.values()):
-        fail(f"a graphed frame did not launch K1, K4 and K5a once each: {launches}")
+        fail(f"a graphed frame did not launch K1, X2, K4 and K5a once each: {launches}")
     return out
 
 
@@ -2588,7 +2609,7 @@ def tongue_cli_phase(torch, counters, tmp) -> dict:
             "--duration", str(CLI_FRAMES), "--test_every", str(CLI_TEST_EVERY), "--quiet",
             "--seed", "0", "--device", DEVICE, "--iterations", str(TONGUE_CLI_ITERS),
             "--set", *TONGUE_CLI_SET]
-    keys = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "X1")
+    keys = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "X1", "X2")
     t0 = time.perf_counter()
     with cuda_lib.DeviceLaunches() as trace:
         _, _, _, log = train_tool.main(argv)
@@ -2641,7 +2662,7 @@ def tongue_serve_phase(torch, counters, tcli) -> dict:
     """tools.render --tongue_renders on the tongue cli run's model (each
     split cut to TONGUE_SERVE_FRAMES, no video): each split's tongue,
     tongue_render and wo_tongue_render directories must hold one PNG a
-    view, and each frame must launch K1, K4 and K5a three times on the card
+    view, and each frame must launch K1, X2, K4 and K5a three times on the card
     (the full render and the two filters). Returns the render ms a frame
     for each filter."""
     from ed3dgs_torch.models.gaussians import load_ply
@@ -2660,7 +2681,7 @@ def tongue_serve_phase(torch, counters, tcli) -> dict:
     with cuda_lib.DeviceLaunches() as trace:
         stats = render_tool.main(argv)
     render_s = time.perf_counter() - t0
-    launches = card_launches(trace, ("K1", "K4", "K5a"))
+    launches = card_launches(trace, ("K1", "K4", "K5a", "X2"))
     frames = sum(v["frames"] for v in stats.values())
     missing = []
     for split, v in stats.items():
@@ -2709,6 +2730,40 @@ def hold_k4(torch, args, kw, flush, reps: int = 50) -> dict:
     b, by = bound(4 * (3 * K + 1), 25 * K)
     return dict(KERNELS["K4"], max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                 library_ms=None, key_bits=kw["rank_bits"] + kw["b"])
+
+
+def hold_x2(torch, args, kw, flush, reps: int = 50) -> dict:
+    """X2 on the recorded binning inputs (the depth-ranked rows and their
+    offsets) against its plain version, bit for bit (both delta streams),
+    and timed as in 1, beside the library yardstick: torch.cummax three
+    times over the rows' words, as the plain version scans them. Returns its
+    kernels-line row."""
+    from ed3dgs_torch.ops import binning_scan
+    rows, offsets = args
+    got = binning_scan.boundary_deltas(rows, offsets, **kw)
+    want = binning_scan.boundary_deltas_plain(rows, offsets, **kw)
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got, want))
+    N, K = rows.shape[0], kw["pair_capacity"]
+    first = offsets - rows[:, 0]
+    kept = int(((rows[:, 0] > 0) & (first < K)).sum())
+    print(f"X2 boundary_deltas: N={N} K={K} rows with a slot {kept}, offset bits {kw['b']} "
+          f"max_abs_err={err} (must be 0)", flush=True)
+    if err != 0:
+        fail("X2 disagrees with its plain version")
+    ms = time_ms(torch, lambda: binning_scan.boundary_deltas(rows, offsets, **kw), reps, flush)
+    slow = max(1, reps * 2 // 5)
+    plain = time_ms(torch, lambda: binning_scan.boundary_deltas_plain(rows, offsets, **kw),
+                    slow, flush)
+    word = torch.where(rows[:, 0] > 0, torch.arange(N, dtype=torch.int32, device=rows.device),
+                       torch.full_like(rows[:, 0], -1))
+    library = time_ms(torch, lambda: [torch.cummax(word, 0) for _ in range(3)], slow, flush)
+    # each row's five int32 and its offset read, every slot of both [K]
+    # streams written; its integer work, a few operations a row, is far
+    # below the bytes' time
+    b, by = bound(24 * N + 8 * K, 0)
+    return dict(KERNELS["X2"], max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=library, n=N, rows_with_slot=kept)
 
 
 def hold_k1(torch, args, kw, flush, reps: int = 30) -> tuple:
@@ -3125,9 +3180,10 @@ def family_step_phase(torch, fam, counters) -> dict:
     print(f"  pairs a step {demand} at the config's capacity {out['pairs']['config']}: "
           f"CapacityPolicy moves {moves} -> {policy.capacity}", flush=True)
 
-    # K1-K5b on the inputs of one eager step at the settled capacity
+    # K1-K5b and X2 on the inputs of one eager step at the settled capacity
     seen = {}
-    restore = [recorder(seen, binning, "fused_bin_scans", "K4"),
+    restore = [recorder(seen, binning, "boundary_deltas", "X2"),
+               recorder(seen, binning, "fused_bin_scans", "K4"),
                recorder(seen, rasterize, "rasterize_forward", "K1"),
                recorder(seen, relayout, "unpack_image", "K5a"),
                recorder(seen, rasterize, "rasterize_backward", "K2"),
@@ -3140,9 +3196,9 @@ def family_step_phase(torch, fam, counters) -> dict:
     finally:
         for r in restore:
             r()
-    # bin_rows launches K4 only on its packed-key path; the cummax fill
-    # takes the shapes whose (tile, rank) key would pass 31 bits
-    if set(seen) != {"K1", "K2", "K3", "K4", "K5a", "K5b"}:
+    # bin_rows launches X2 and K4 only on its packed-key path; the cummax
+    # fill takes the shapes whose (tile, rank) key would pass 31 bits
+    if set(seen) != {"K1", "K2", "K3", "K4", "K5a", "K5b", "X2"}:
         fail(f"{name}: the step did not reach every blend kernel (no K4: the cummax-fill "
              f"binning): {sorted(seen)}")
     kw4 = seen["K4"][1]
@@ -3150,7 +3206,8 @@ def family_step_phase(torch, fam, counters) -> dict:
                           tiles=kw4["num_tiles"])
     print(f"  binning: {out['binning']}", flush=True)
     torch.set_grad_enabled(False)
-    kernels = {"K4": hold_k4(torch, *seen["K4"], flush, FAM_REPS)}
+    kernels = {"X2": hold_x2(torch, *seen["X2"], flush, FAM_REPS),
+               "K4": hold_k4(torch, *seen["K4"], flush, FAM_REPS)}
     kernels["K1"], _, _ = hold_k1(torch, *seen["K1"], flush, FAM_REPS)
     kernels["K5a"] = hold_k5a(torch, seen["K5a"][0][0], flush, FAM_REPS)
     kernels["K5b"] = hold_k5b(torch, seen["K5b"][0][0], flush, FAM_REPS)
@@ -3308,7 +3365,7 @@ def family_cli_phase(torch, fam, B, bare_step_ms, tmp) -> dict:
     argv = ["-s", scene_dir, "-m", model_dir, "--configs", os.path.join(REPO, fam["cfg"]),
             *flags, "--test_every", str(FAM_CLI_ITERS // 2), "--quiet", "--seed", "0",
             "--device", DEVICE, "--iterations", str(FAM_CLI_ITERS), "--set", *FAM_CLI_SET]
-    keys = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "X1")
+    keys = ("K1", "K2", "K3", "K4", "K5a", "K5b", "K6", "K7", "X1", "X2")
     t0 = time.perf_counter()
     with cuda_lib.DeviceLaunches() as trace:
         _, state, aux, log = train_tool.main(argv)
@@ -3351,7 +3408,7 @@ def family_cli_phase(torch, fam, B, bare_step_ms, tmp) -> dict:
     with cuda_lib.DeviceLaunches() as trace:
         stats = render_tool.main(rargv)
     render_s = time.perf_counter() - t0
-    rl = card_launches(trace, ("K1", "K4", "K5a"))
+    rl = card_launches(trace, ("K1", "K4", "K5a", "X2"))
     frames = sum(v["frames"] for v in stats.values())
     missing = []
     for split, v in stats.items():
@@ -3477,7 +3534,8 @@ def main():
 
     # ---- 1. warm-up frame, recording each kernel's inputs ----------------
     seen = {}
-    restore = [recorder(seen, binning, "fused_bin_scans", "K4"),
+    restore = [recorder(seen, binning, "boundary_deltas", "X2"),
+               recorder(seen, binning, "fused_bin_scans", "K4"),
                recorder(seen, rasterize, "rasterize_forward", "K1"),
                recorder(seen, relayout, "unpack_image", "K5a")]
     try:
@@ -3486,13 +3544,14 @@ def main():
     finally:
         for r in restore:
             r()
-    if set(seen) != {"K1", "K4", "K5a"}:
+    if set(seen) != {"K1", "K4", "K5a", "X2"}:
         fail(f"the warm-up frame did not reach every forward kernel: {sorted(seen)}")
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
     flush = flush_buf.zero_
     rows = {}
 
+    rows["X2"] = hold_x2(torch, *seen["X2"], flush)
     (dv, dpk, total), kw4 = seen["K4"]
     rows["K4"] = hold_k4(torch, (dv, dpk, total), kw4, flush)
     rows["K1"], result["K1_flipped_fraction"], result["K1_work"] = hold_k1(
@@ -3505,7 +3564,7 @@ def main():
         frame(t)
     torch.cuda.synchronize()
     counters = {"K1": rasterize_cuda.rasterize_forward, "K4": binning_scan.fused_bin_scans,
-                "K5a": relayout.unpack_image}
+                "K5a": relayout.unpack_image, "X2": binning_scan.boundary_deltas}
     for fn in counters.values():
         fn.launches = 0
     outs, events = [], []
@@ -3727,7 +3786,8 @@ def main():
                 "K3": segment_sum.segment_sum_rows, "K4": binning_scan.fused_bin_scans,
                 "K5a": relayout.unpack_image, "K5b": relayout.pack_image,
                 "K6": knn_loss.knn_rows, "K7": knn_loss.knn_reverse,
-                "K8": segment_sum.segment_sum_rows_packed, "X1": knn.knn}
+                "K8": segment_sum.segment_sum_rows_packed, "X1": knn.knn,
+                "X2": binning_scan.boundary_deltas}
     # launches per step (the nersemble default: no tongue graph, so one
     # KNN loss; 5b counts the tongue step's)
     per_step = per_step_launches(setup, counters)
@@ -4220,14 +4280,16 @@ def main():
     # counts
     tongue = result["tongue"]
     fams = [v for k, v in result["families"].items() if k != "wall_s"]
-    fam_launches = {k: sum(f["launches"][k] for f in fams) for k in order}
-    kernel_rows = [dict(rows[k], launches=train_launches[k] + tongue["launches"][k]
-                        + fam_launches[k] + result["multi"]["launches"][k],
-                        tongue_launches=tongue["launches"][k], families_launches=fam_launches[k],
-                        families_ms={n: f["kernels"][k]["ms"] for n, f in
-                                     result["families"].items()
-                                     if n != "wall_s" and k in f["kernels"]})
-                   for k in order]
+    fam_launches = {k: sum(f["launches"][k] for f in fams) for k in order + ("X2",)}
+
+    def kernel_row(k):
+        return dict(rows[k], launches=train_launches[k] + tongue["launches"][k]
+                    + fam_launches[k] + result["multi"]["launches"][k],
+                    tongue_launches=tongue["launches"][k], families_launches=fam_launches[k],
+                    families_ms={n: f["kernels"][k]["ms"] for n, f in
+                                 result["families"].items()
+                                 if n != "wall_s" and k in f["kernels"]})
+    kernel_rows = [kernel_row(k) for k in order]
     for k, key in (("K6", "k6_ms"), ("K7", "k7_ms")):
         kernel_rows[order.index(k)].update(tongue_graph_ms=tongue["knn_kernels"][key],
                                            tongue_graph_in_edges=tongue["knn_kernels"]["in_edges"])
@@ -4239,6 +4301,8 @@ def main():
                             tongue_input_ms=x1_tongue["ms"], tongue_input_equal=x1_tongue["equal"],
                             cli_launches=result["cli"]["launches"]["X1"],
                             serve_launches=result["serve"]["launches"]["X1"]))
+    # X2 launches with K4, in the same windows
+    kernel_rows.append(kernel_row("X2"))
     result["kernels"] = kernel_rows
     result["total_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -25,6 +25,7 @@ enum LaunchSlot {
   SLOT_KNN_REVERSE = 8,       // K7  knn_loss.knn_reverse
   SLOT_KNN = 9,               // X1  knn.knn
   SLOT_TRACE_STAMP = 10,      // T1  trace.stamp
+  SLOT_BOUNDARY_DELTAS = 11,  // X2  binning_scan.boundary_deltas
 };
 
 static __device__ unsigned long long* g_launch_counters = nullptr;

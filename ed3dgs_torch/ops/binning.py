@@ -11,7 +11,7 @@ Capacity overflow (more real pairs than `pair_capacity`) drops the deepest
 pairs and reports the true count in `num_pairs`.
 
 The sorts and searchsorted are library calls standing in for XLA's sort and
-search, not for Pallas kernels; the scans run in kernel K4
+search, not for Pallas kernels; the scans run in kernels X2 and K4
 (ops/binning_scan.py).
 """
 
@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.projection import ProjectedGaussians
-from .binning_scan import fused_bin_scans
+from .binning_scan import _scatter_add, boundary_deltas, fused_bin_scans
 from .common import TILE
 
 
@@ -49,14 +49,6 @@ def bin_gaussians(proj: ProjectedGaussians, *, width: int, height: int,
     return bin_rows(proj.depth, proj.valid, proj.tiles_touched,
                     proj.rect_min, proj.rect_max,
                     grid_x=grid_x, grid_y=grid_y, pair_capacity=pair_capacity)
-
-
-def _scatter_add(K: int, pos: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """zeros([K]).at[pos].add(vals, mode="drop"): positions >= K land in one
-    extra slot that is cut off."""
-    buf = torch.zeros(K + 1, dtype=torch.int32, device=vals.device)
-    buf.index_add_(0, torch.clamp_max(pos, K).to(torch.int64), vals.to(torch.int32))
-    return buf[:K]
 
 
 def _scatter_max(K: int, fill: int, pos: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -98,42 +90,16 @@ def bin_rows(depth, valid, tiles_touched, rect_min, rect_max, *,
     total = offsets[-1]
     excl = offsets - tiles_sorted
 
-    gidx = torch.arange(N, dtype=i32, device=dev)
-    kfill = torch.full_like(excl, K)
-    pos = torch.where(tiles_sorted > 0, excl, kfill)   # zero-tile rows dropped
-    pos_end = torch.where(tiles_sorted > 0, offsets, kfill)
-    p = torch.arange(K, dtype=i32, device=dev)
-
-    rmin = stacked[:, 1:3]
-    rmax = stacked[:, 3:5]
-    rw_g = torch.clamp_min(rmax[:, 0] - rmin[:, 0], 1)
-
     rank_bits = max(17, (N - 1).bit_length())
     single_key = num_tiles + 1 <= (1 << (31 - rank_bits))
     seg_bits = num_tiles.bit_length()   # tiles/gaussian <= num_tiles < 2^b
     if single_key and K % 128 == 0 and rank_bits + max(seg_bits, 9) <= 31:
         # delta-encoded path: segments are contiguous over [0, total), so
-        # each per-slot word is the cumsum of per-boundary deltas (the
-        # previous boundary's word comes from a cummax over the monotone
-        # high bits); kernel K4 runs both cumsums + decode + key pack
-        valid_t = tiles_sorted > 0
-        mask_b = (1 << seg_bits) - 1
-        minus1 = torch.full((1,), -1, dtype=i32, device=dev)
-
-        def prev_of(packed):
-            pv = _cummax32(torch.where(valid_t, packed, torch.full_like(packed, -1)))
-            return torch.cat([minus1, pv[:-1]])
-
-        v = (gidx << seg_bits) | (pos & mask_b)
-        dv = _scatter_add(K, pos, v - torch.clamp_min(prev_of(v), 0))
-        base_g = rmin[:, 1] * grid_x + rmin[:, 0]
-        pk20 = (base_g << 9) | rw_g
-        pb = prev_of((gidx << seg_bits) | base_g)
-        pw = prev_of((gidx << 9) | rw_g)
-        zero = torch.zeros_like(pb)
-        prev_pk = (torch.where(pb >= 0, (pb & mask_b) << 9, zero)
-                   | torch.where(pw >= 0, pw & 0x1FF, zero))
-        dpk = _scatter_add(K, pos, pk20 - prev_pk)
+        # each per-slot word is the cumsum of per-boundary deltas; kernel X2
+        # writes the deltas from each row's previous boundary, kernel K4
+        # runs both cumsums + decode + key pack
+        dv, dpk = boundary_deltas(stacked, offsets, pair_capacity=K, grid_x=grid_x,
+                                  b=seg_bits)
         packed_key = fused_bin_scans(dv, dpk, total, grid_x=grid_x,
                                      num_tiles=num_tiles, rank_bits=rank_bits,
                                      b=seg_bits)
@@ -142,6 +108,13 @@ def bin_rows(depth, valid, tiles_touched, rect_min, rect_max, *,
         rank_sorted = key_sorted & ((1 << rank_bits) - 1)
     else:
         # cummax-fill path, for shapes the delta-encoded path refuses
+        gidx = torch.arange(N, dtype=i32, device=dev)
+        kfill = torch.full_like(excl, K)
+        pos = torch.where(tiles_sorted > 0, excl, kfill)   # zero-tile rows dropped
+        pos_end = torch.where(tiles_sorted > 0, offsets, kfill)
+        p = torch.arange(K, dtype=i32, device=dev)
+        rmin = stacked[:, 1:3]
+        rw_g = torch.clamp_min(stacked[:, 3] - rmin[:, 0], 1)
         starts = _scatter_max(K, -1, pos, gidx)
         sstart = _scatter_max(K, 0, pos, pos)
         rank_c = torch.clamp_min(_cummax32(starts), 0)

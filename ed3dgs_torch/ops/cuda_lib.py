@@ -49,6 +49,8 @@ SIGNATURES = {
         "ed3dgs_set_launch_counters": [_P],     # int64 [len(LAUNCH_SLOTS)]
         # dv, dpk, total, key, state, K, grid_x, num_tiles, rank_bits, b, stream
         "ed3dgs_fused_bin_scans": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # rows, offsets, dv, dpk, state, N, K, grid_x, b, stream
+        "ed3dgs_boundary_deltas": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "rasterize_forward": {
         "ed3dgs_set_launch_counters": [_P],     # int64 [len(LAUNCH_SLOTS)]
@@ -281,7 +283,8 @@ def count_launch(wrapper):
 LAUNCH_SLOTS = ("rasterize_cuda.rasterize_forward", "rasterize_cuda.rasterize_backward",
                 "segment_sum.segment_sum_rows", "segment_sum.segment_sum_rows_packed",
                 "binning_scan.fused_bin_scans", "relayout.unpack_image", "relayout.pack_image",
-                "knn_loss.knn_rows", "knn_loss.knn_reverse", "knn.knn", "trace.stamp")
+                "knn_loss.knn_rows", "knn_loss.knn_reverse", "knn.knn", "trace.stamp",
+                "binning_scan.boundary_deltas")
 
 
 def slot_wrapper(slot: str):

@@ -32,7 +32,8 @@ SYMBOLS = {
     "backward_blend": "rasterize_cuda.rasterize_backward",
     "segment_sum<true>": "segment_sum.segment_sum_rows",
     "segment_sum<false>": "segment_sum.segment_sum_rows_packed",
-    "scan_decode": "binning_scan.fused_bin_scans", "unpack": "relayout.unpack_image",
+    "scan_decode": "binning_scan.fused_bin_scans",
+    "boundary_deltas": "binning_scan.boundary_deltas", "unpack": "relayout.unpack_image",
     "pack": "relayout.pack_image", "knn_rows": "knn_loss.knn_rows",
     "knn_rows_wide": "knn_loss.knn_rows", "knn_reverse<false>": "knn_loss.knn_reverse",
     "knn_reverse<true>": "knn_loss.knn_reverse",

@@ -6,9 +6,13 @@ repo's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: K4, K5a and K5b bit-exact (integer scans; permutations); K4 in
-one launch, leaving its zeroed state zeroed, also at K = 2^20 + 128 and 128
-and on signed bin_rows-like deltas. K1 at
+Tolerances: K4, X2, K5a and K5b bit-exact (integer scans; permutations); K4
+in one launch, leaving its zeroed state zeroed, also at K = 2^20 + 128 and
+128 and on signed bin_rows-like deltas; X2 likewise, at N from 1 to
+1,000,003 rows across its 1024-row tiles, with no row holding tiles and with
+rows past the capacity; `bin_rows` (X2 then K4) against the CPU's at the
+benchmark cells' frame sizes and 200,000 rows, and replayed from a CUDA
+graph against eager. K1 at
 atol 1e-4 plus rtol 1e-4 on every pixel: the kernel sums and multiplies in
 sequence where the plain version uses torch.cumprod and einsum, and the
 expected-coordinate channels divide by the blend weight. Only the median
@@ -192,6 +196,126 @@ def test_binning_scan_single_pass_is_bit_exact(dev, K, where):
     assert torch.equal(got, want) and torch.equal(again, want)
     # the kernel leaves its tile counter and published words zeroed
     assert not bool(cuda_lib.zeroed("binning_scan", 0, dv).any())
+
+
+def boundary_rows(n, seed, mask="random", grid_x=51, grid_y=35):
+    """X2's inputs as bin_rows hands them over: [n, 5] rows (tile count,
+    rect_min, rect_max) and the tile counts' inclusive scan. `mask`
+    "random" gives ~60% of the rows tiles, "none" none. Returns rows,
+    offsets and a capacity, a multiple of 128, that the pairs overflow once
+    they pass 146."""
+    rng = np.random.default_rng(seed)
+    x0, y0 = rng.integers(0, grid_x, n), rng.integers(0, grid_y, n)
+    x1 = np.minimum(x0 + rng.integers(1, 4, n), grid_x)
+    y1 = np.minimum(y0 + rng.integers(1, 4, n), grid_y)
+    keep = rng.uniform(size=n) < 0.6 if mask == "random" else np.zeros(n, bool)
+    tiles = np.where(keep, (x1 - x0) * (y1 - y0), 0)
+    offsets = np.cumsum(tiles).astype(np.int32)
+    cap = max(128, int(offsets[-1]) * 7 // 8 // 128 * 128)
+    return np.stack([tiles, x0, y0, x1, y1], 1).astype(np.int32), offsets, cap
+
+
+@pytest.mark.parametrize("mask", ["random", "none"])
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 200_000, 1_000_003])
+def test_boundary_deltas_kernel_matches_plain(dev, n, mask):
+    """X2's single pass with its max look-back: both delta streams bit for
+    bit against the plain version (three torch.cummax), within one 1024-row
+    tile, at whole and ragged tile counts, at the main path's 200,000 rows
+    and at 1,000,003 (a 20-bit rank beside 11 offset bits), with no row
+    holding tiles and with rows past the capacity; one launch a call, by
+    its wrapper and on the card, and its state left zeroed after two. The
+    first call's outputs land in memory that held other values: X2 writes
+    every slot, the wrapper zeroes none."""
+    rows, offsets, cap = boundary_rows(n, seed=n, mask=mask)
+    rows, offsets = torch.as_tensor(rows, device=dev), torch.as_tensor(offsets, device=dev)
+    kw = dict(pair_capacity=cap, grid_x=51, b=11)
+    # the caching allocator hands this block to the wrapper's outputs
+    torch.full((2, cap), -7, dtype=torch.int32, device=dev)
+    before = binning_scan.boundary_deltas.launches
+    with cuda_lib.DeviceLaunches() as traced:
+        got = binning_scan.boundary_deltas(rows, offsets, **kw)
+        again = binning_scan.boundary_deltas(rows, offsets, **kw)
+    assert binning_scan.boundary_deltas.launches == before + 2
+    assert traced.counts["binning_scan.boundary_deltas"] == 2
+    want = binning_scan.boundary_deltas_plain(rows, offsets, **kw)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, w)
+    if mask == "none":
+        assert not bool(want[0].any() or want[1].any())
+    elif n > 4096:
+        first = (offsets - rows[:, 0])[rows[:, 0] > 0]
+        assert bool((first >= cap).any()) and bool((want[1] < 0).any())
+    # the kernel leaves its tile counter and published words zeroed
+    assert not bool(cuda_lib.zeroed("boundary_deltas", 0, rows).any())
+
+
+def cell_rows(n, gx, gy, seed):
+    """bin_rows' inputs on a grid: depths with ties, ~70% of the rows
+    valid, rects of 1-5 tiles a side clamped to the grid."""
+    rng = np.random.default_rng(seed)
+    depth = rng.uniform(0.5, 5.0, n).astype(np.float32)
+    depth[: n // 10] = depth[n // 10: 2 * (n // 10)]
+    valid = rng.uniform(size=n) < 0.7
+    rmin = np.stack([rng.integers(0, gx, n), rng.integers(0, gy, n)], 1)
+    rmax = np.minimum(rmin + rng.integers(1, 6, (n, 2)), (gx, gy))
+    tiles = np.where(valid, (rmax - rmin).prod(1), 0)
+    return [depth, valid, tiles.astype(np.int32), rmin.astype(np.int32),
+            rmax.astype(np.int32)]
+
+
+BIN_FIELDS = ("order", "pair_gauss", "pair_tile", "pair_perm", "seg_starts", "seg_ends",
+              "tile_start", "tile_count", "num_pairs")
+
+
+@pytest.mark.parametrize("room", [True, False])
+@pytest.mark.parametrize("w,h", [(802, 550), (1600, 1200)])
+def test_bin_rows_on_card_matches_cpu_at_the_cells_sizes(dev, w, h, room):
+    """bin_rows on the card (X2, then K4) against bin_rows on the CPU
+    (their plain versions), every output bit for bit, at the benchmark
+    cells' frame sizes (a 51x35 and a 100x75 tile grid: 18 + 11 and 18 +
+    13 key bits) and 200,000 rows, with room for every pair and with the
+    deepest pairs past the capacity; X2 and K4 launch once each."""
+    gx, gy = binning.tile_grid(w, h)
+    host = cell_rows(200_000, gx, gy, seed=w + room)
+    total = int(host[2].sum())
+    cap = (total // 128 + 1) * 128 if room else total * 3 // 4 // 128 * 128
+    kw = dict(grid_x=gx, grid_y=gy, pair_capacity=cap)
+    before = (binning_scan.boundary_deltas.launches, binning_scan.fused_bin_scans.launches)
+    got = binning.bin_rows(*(torch.as_tensor(x, device=dev) for x in host), **kw)
+    after = (binning_scan.boundary_deltas.launches, binning_scan.fused_bin_scans.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1]
+    want = binning.bin_rows(*(torch.as_tensor(x) for x in host), **kw)
+    for name in BIN_FIELDS:
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    assert (int(want.num_pairs) > cap) != room
+
+
+def test_bin_rows_graph_replay_equals_eager(dev):
+    """bin_rows captured in a CUDA graph, replayed on new rows copied into
+    the captured inputs, against eager bin_rows on those rows, bit for bit;
+    each replay launches X2 and K4 once on the card (their counters)."""
+    gx, gy, n = 51, 35, 50_000
+    kw = dict(grid_x=gx, grid_y=gy, pair_capacity=1 << 18)
+    static = [torch.as_tensor(x, device=dev) for x in cell_rows(n, gx, gy, seed=0)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):       # the capture stream's scratch and counters
+        binning.bin_rows(*static, **kw)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = binning.bin_rows(*static, **kw)
+    for seed in (1, 2):
+        new = [torch.as_tensor(x, device=dev) for x in cell_rows(n, gx, gy, seed=seed)]
+        for s, x in zip(static, new):
+            s.copy_(x)
+        with cuda_lib.DeviceLaunches() as traced:
+            graph.replay()
+        want = binning.bin_rows(*new, **kw)
+        for name in BIN_FIELDS:
+            assert torch.equal(getattr(out, name), getattr(want, name)), (seed, name)
+        assert traced.counts["binning_scan.boundary_deltas"] == 1
+        assert traced.counts["binning_scan.fused_bin_scans"] == 1
 
 
 @pytest.mark.parametrize("gy,gx,C", [(35, 51, 24), (3, 11, 5)])
@@ -1008,8 +1132,8 @@ def test_blend_kernels_at_a_strip_origin(dev, half):
 @pytest.mark.parametrize("g", [2, 4, 8])
 @pytest.mark.parametrize("n", [100, 50_176])
 def test_strip_pack_on_card_matches_cpu(dev, g, n):
-    """The strip exchange's pack: bin_rows over g strips (grid_x = 1, K4's
-    look-back over few tiles), its buffers and demand, and its K3 backward,
+    """The strip exchange's pack: bin_rows over g strips (grid_x = 1, X2's
+    and K4's look-backs over few tiles), its buffers and demand, and its K3 backward,
     card against CPU."""
     from ed3dgs_torch.parallel import tile_sharded
 
@@ -1028,14 +1152,15 @@ def test_strip_pack_on_card_matches_cpu(dev, g, n):
     for d in (dev, torch.device("cpu")):
         t = {k: torch.as_tensor(v, device=d) for k, v in host.items()}
         payload = t["payload"].requires_grad_(True)
-        before = binning_scan.fused_bin_scans.launches
+        before = (binning_scan.fused_bin_scans.launches, binning_scan.boundary_deltas.launches)
         bufs, demand = tile_sharded._pack_for_strips(payload, t["extra"], t["depth"], t["valid"],
                                                      t["y0"], t["y1"], g, strip_rows, cap)
         (grad,) = torch.autograd.grad((bufs * torch.as_tensor(ct, device=d)).sum(), payload)
         out[d.type] = (bufs.detach().cpu(), int(demand), grad.cpu(),
-                       binning_scan.fused_bin_scans.launches - before)
+                       (binning_scan.fused_bin_scans.launches - before[0],
+                        binning_scan.boundary_deltas.launches - before[1]))
     (bc, dc, gc, launched), (bh, dh, gh, _) = out["cuda"], out["cpu"]
-    assert launched == 1
+    assert launched == (1, 1)
     assert torch.equal(bc, bh) and dc == dh
     assert float((gc - gh).abs().max()) <= 1e-6 * float(gh.abs().max())
 
@@ -1107,8 +1232,9 @@ def test_graphed_step_equals_the_eager_step(dev):
     after every step: across SSIM on and off and the depth-normal term
     (from iteration 11), a densify step's state and a new KNN cache copied
     in, and a pair-capacity change (a new step, captured anew). Replays run
-    under sync debug mode "error" and launch K1-K7 on the card (counted
-    by the device counters) as an eager step does, and the tracer's 13 stage
+    under sync debug mode "error" and launch K1-K7 and X2 on the card
+    (counted by the device counters; X2 as often as K4) as an eager step
+    does, and the tracer's 13 stage
     stamps (utils/trace.py: 4 stages a camera, 4 after, the end); the
     wrappers count only the first, eager run of a key (a capture launches
     nothing)."""
@@ -1126,7 +1252,7 @@ def test_graphed_step_equals_the_eager_step(dev):
               "segment_sum.segment_sum_rows": 2, "binning_scan.fused_bin_scans": 2,
               "relayout.unpack_image": 2, "relayout.pack_image": 2, "knn_loss.knn_rows": 1,
               "knn_loss.knn_reverse": 1, "segment_sum.segment_sum_rows_packed": 0,
-              "knn.knn": 0, "trace.stamp": 13}
+              "knn.knn": 0, "trace.stamp": 13, "binning_scan.boundary_deltas": 2}
     replayed = []
     for i, ssim in enumerate((True, False, True, True, True, False, False, False)):
         if i == 4:        # densify, then the filter and KNN refreshes

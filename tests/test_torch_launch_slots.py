@@ -24,7 +24,8 @@ HEADER = cuda_lib.CSRC / "launch_count.cuh"
 KERNEL_SLOT = {
     "forward_blend": "SLOT_FORWARD_BLEND", "backward_blend": "SLOT_BACKWARD_BLEND",
     "segment_sum": "GATHER ? SLOT_SEGMENT_SUM : SLOT_SEGMENT_SUM_ROWS",
-    "scan_decode": "SLOT_BIN_SCANS", "unpack": "SLOT_UNPACK", "pack": "SLOT_PACK",
+    "scan_decode": "SLOT_BIN_SCANS", "boundary_deltas": "SLOT_BOUNDARY_DELTAS",
+    "unpack": "SLOT_UNPACK", "pack": "SLOT_PACK",
     "knn_rows": "SLOT_KNN_ROWS", "knn_rows_wide": "SLOT_KNN_ROWS",
     "knn_reverse": "SLOT_KNN_REVERSE", "knn_select": "SLOT_KNN", "knn_codes": None,
     "knn_stage": None, "trace_stamp": "SLOT_TRACE_STAMP", "trace_clock": None,

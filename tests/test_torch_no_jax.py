@@ -90,7 +90,8 @@ def test_cpu_tensors_launch_no_kernel():
     from ed3dgs_torch.core.projection import project_gaussians
     from ed3dgs_torch.data.cameras import look_at_camera
 
-    counters = (binning_scan.fused_bin_scans, rasterize_cuda.rasterize_forward,
+    counters = (binning_scan.fused_bin_scans, binning_scan.boundary_deltas,
+                rasterize_cuda.rasterize_forward,
                 relayout.unpack_image, rasterize_cuda.rasterize_backward,
                 segment_sum.segment_sum_rows, relayout.pack_image, knn_loss.knn_rows,
                 knn_loss.knn_reverse, segment_sum.segment_sum_rows_packed)
