@@ -139,13 +139,17 @@ def _graph_inputs(xyz, mask, shell, k):
     return idx, w, _masked_coef(mask, k), pts, mask
 
 
+def _tongue_rows(aux):
+    return torch.round(aux.tongue_class[:, 0]) > 0.5
+
+
 def _cache_inputs(params, aux, tongue_enabled, k):
     """The graph inputs of the cache: the main graph's, and the tongue
     graph's or None. Dead slots (and, for the main graph, tongue Gaussians)
     are parked on a far shell at ~1e3, which keeps them out of the live
     points' neighbourhoods and clusters them into their own Morton blocks;
     the tongue graph parks the rest on the mirrored shell."""
-    tongue = torch.round(aux.tongue_class[:, 0]) > 0.5
+    tongue = _tongue_rows(aux)
     shell = far_shell(aux.alive.shape[0], aux.alive.device)
     main = _graph_inputs(params.xyz, aux.alive & ~tongue, shell, k)
     return main, (_graph_inputs(params.xyz, aux.alive & tongue, -shell, k)
@@ -195,7 +199,10 @@ def refresh_knn_cache(params: gm.GaussianParams, aux: gm.GaussianAux,
     bucket after three refreshes in a row that did not need it.
     coverage_target=1.0 demands the exact graph. `caps` is MUTATED, so a
     caller keeps the bucket state across refreshes. Traced as the region
-    and host span "knn_refresh" (utils/trace.py)."""
+    and host span "knn_refresh" (utils/trace.py); with the tongue graph it
+    counts ("tongue", "alive") and ("tongue", "graph_edges"), the alive
+    tongue Gaussians and the tongue graph's weighted edges, summed over
+    refreshes."""
     with trace.span("knn_refresh"), trace.region("knn_refresh", aux.alive.device):
         return _refresh_knn_cache(params, aux, caps, tongue_enabled, coverage_target, k, quiet)
 
@@ -203,7 +210,13 @@ def refresh_knn_cache(params: gm.GaussianParams, aux: gm.GaussianAux,
 def _refresh_knn_cache(params, aux, caps, tongue_enabled, coverage_target, k, quiet):
     caps = caps if caps is not None else dict(KNN_CAPS_DEFAULT)
     caps.setdefault("_far_quiet", 0)
-    edges = int(aux.alive.sum()) * k
+    if tongue_enabled:
+        counts = torch.stack([aux.alive.sum(), (aux.alive & _tongue_rows(aux)).sum()])
+        alive, tongue = counts.tolist()
+        trace.count("tongue", "alive", tongue)
+    else:
+        alive = int(aux.alive.sum())
+    edges = alive * k
     budget = (1.0 - coverage_target) * max(edges, 1)
     # the neighbours do not depend on the buckets: search once, prepare per bucket
     inputs = _cache_inputs(params, aux, tongue_enabled, k)
@@ -242,9 +255,11 @@ def _refresh_knn_cache(params, aux, caps, tongue_enabled, coverage_target, k, qu
             if not quiet:
                 print(f"[knn] far bucket -> {want} (demand {demand})", flush=True)
             # the shrunk bucket holds the demand: it drops no more than before
-            return _prepare_cache(inputs, caps["spill_a"], caps["spill_b"], caps["far"])
+            cache = _prepare_cache(inputs, caps["spill_a"], caps["spill_b"], caps["far"])
     else:
         caps["_far_quiet"] = 0
+    if tongue_enabled:
+        trace.count("tongue", "graph_edges", cache.t_graph.rev_pair.shape[0])
     return cache
 
 
@@ -346,24 +361,28 @@ def _tongue_terms(setup: TrainSetup, gparams, aux, dparams, batch, knn_cache, r_
     the blended tongue channel against the tongue mask, the KNN term on the
     tongue graph, and the colour of the tongue-only and tongue-free renders
     inside and outside the mask: {name: term}, added to the loss in order
-    with weights 5, reg_coef, 1 and 0.5."""
-    gt = batch["gt_image"]
-    gt_tongue = batch["tongue_gt"][-1]                                   # [1, H, W]
-    t_l1 = L.l1_loss(gt_tongue[None], r_last["tongue_mask"][None], keepdim=True).mean()
-    t_emb = knn_loss.knn_loss_fused(rows(gparams.embedding), knn_cache.t_graph, KNN_K)
-    settings = _settings(batch, gt.shape[0] - 1)
-    gt_mean = torch.mean(gt_tongue)
-    r_tongue = _render_one(gparams, aux, dparams, setup, settings, it, active_sh, None, "only")
-    t_rgb = torch.mean(torch.abs(gt[-1] * gt_tongue - r_tongue["render"] * gt_tongue))
-    t_rgb = torch.where(gt_mean > 0.005, t_rgb / torch.clamp_min(gt_mean, 1e-8),
-                        torch.zeros_like(t_rgb))
-    r_wo = _render_one(gparams, aux, dparams, setup, settings, it, active_sh, None,
-                       "without")
-    inv = 1.0 - gt_tongue
-    wo_rgb = torch.mean(torch.abs(gt[-1] * inv - r_wo["render"] * inv))
-    wo_rgb = wo_rgb / torch.clamp_min(torch.mean(inv), 1e-8)
-    return {"tongue_l1": t_l1, "tongue_emb": t_emb, "tongue_rgb": t_rgb,
-            "wo_tongue_rgb": wo_rgb}
+    with weights 5, reg_coef, 1 and 0.5, and `tongue_pairs` (int32 [2]: the
+    two renders' pairs). Traced as the step's opaque stage "tongue": the
+    sub-renders' deform, project, bin and blend count there."""
+    with trace.stage("tongue"):
+        gt = batch["gt_image"]
+        gt_tongue = batch["tongue_gt"][-1]                                   # [1, H, W]
+        t_l1 = L.l1_loss(gt_tongue[None], r_last["tongue_mask"][None], keepdim=True).mean()
+        t_emb = knn_loss.knn_loss_fused(rows(gparams.embedding), knn_cache.t_graph, KNN_K)
+        settings = _settings(batch, gt.shape[0] - 1)
+        gt_mean = torch.mean(gt_tongue)
+        r_tongue = _render_one(gparams, aux, dparams, setup, settings, it, active_sh, None, "only")
+        t_rgb = torch.mean(torch.abs(gt[-1] * gt_tongue - r_tongue["render"] * gt_tongue))
+        t_rgb = torch.where(gt_mean > 0.005, t_rgb / torch.clamp_min(gt_mean, 1e-8),
+                            torch.zeros_like(t_rgb))
+        r_wo = _render_one(gparams, aux, dparams, setup, settings, it, active_sh, None,
+                           "without")
+        inv = 1.0 - gt_tongue
+        wo_rgb = torch.mean(torch.abs(gt[-1] * inv - r_wo["render"] * inv))
+        wo_rgb = wo_rgb / torch.clamp_min(torch.mean(inv), 1e-8)
+        return {"tongue_l1": t_l1, "tongue_emb": t_emb, "tongue_rgb": t_rgb,
+                "wo_tongue_rgb": wo_rgb, "tongue_pairs": torch.stack(
+                    [r_tongue["num_pairs"], r_wo["num_pairs"]]).to(torch.int32)}
 
 
 def make_loss_and_grads(setup: TrainSetup):
@@ -465,6 +484,8 @@ def make_loss_and_grads(setup: TrainSetup):
             else:
                 tongue_metrics = {k: zero for k in ("tongue_l1", "tongue_emb", "tongue_rgb",
                                                     "wo_tongue_rgb")}
+                tongue_metrics["tongue_pairs"] = torch.zeros(2, dtype=torch.int32,
+                                                             device=image.device)
             for name, weight in (("tongue_l1", 5.0), ("tongue_emb", setup.reg_coef),
                                  ("tongue_rgb", 1.0), ("wo_tongue_rgb", 0.5)):
                 loss = loss + weight * tongue_metrics[name]

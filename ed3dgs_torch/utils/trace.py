@@ -15,7 +15,10 @@ captured graph's stamps fill the next row at every replay with no host work
 and no host read. The stages partition a call: they run in order on one
 stream, and their sum is the call's first-to-last stamp span (a stage
 entered twice, as a batch's cameras enter "deform", is summed; a stage
-entered inside another returns to it on exit). Each row records whether its
+entered inside another returns to it on exit). An opaque stage (OPAQUE:
+the step's "tongue", whose sub-renders would otherwise stamp the camera's
+own deform, project, bin and blend) keeps the card in it until it exits:
+the stages entered inside it do not stamp. Each row records whether its
 stamps were captured (a replay) or ran eagerly (a key's first run), and
 readers of graphed regions average replays only. The rings and counters are
 made at a region's first eager call on a device, outside any graph pool,
@@ -78,13 +81,15 @@ ENV = "ED3DGS_TRACE_STAMPS"
 
 # a region's stages, in the order a call enters them
 REGIONS = {
-    "step": ("deform", "project", "bin", "blend", "loss", "backward", "adam", "writeback"),
+    "step": ("deform", "project", "bin", "blend", "loss", "tongue", "backward", "adam",
+             "writeback"),
     "frame": ("deform", "project", "bin", "blend"),
     "densify_step": ("densify_step",),
     "filter3d": ("filter3d",),
     "knn_refresh": ("knn_refresh",),
 }
 GRAPHED = frozenset(("step", "frame", "densify_step"))   # readers average their replays
+OPAQUE = frozenset(("tongue",))     # stages whose inner stages do not stamp
 # a ring row: one accumulator a stage, then these columns (csrc/trace_stamp.cu)
 BEGIN, LAST, CUR, REPLAYED, CALL, DONE, STAMPS = range(7)
 META = 7
@@ -205,12 +210,13 @@ def rows(name: str, device=None) -> list:
 # --- regions and stages ------------------------------------------------------------
 
 class _Open:
-    __slots__ = ("name", "ring", "index", "replayed", "begun", "current", "stack")
+    __slots__ = ("name", "ring", "index", "replayed", "begun", "current", "stack", "sealed")
 
     def __init__(self, name, ring, replayed):
         self.name, self.ring, self.replayed = name, ring, replayed
         self.index = {s: i for i, s in enumerate(REGIONS[name])}
         self.begun, self.current, self.stack = False, None, []
+        self.sealed = False         # inside an opaque stage
 
     def switch(self, stage: str):
         if stage == self.current or self.ring is None:
@@ -256,8 +262,8 @@ class stage:
     """`with stage(name):` the innermost open region's stage `name` starts
     here (a stamp where the region has that stage and the card is not in it
     already); on exit inside an enclosing stage, the card returns to that
-    one. Outside a region, or for a stage the region lacks, only the
-    profiler's scope."""
+    one. Outside a region, for a stage the region lacks, or inside an
+    opaque stage, only the profiler's scope."""
 
     __slots__ = ("name", "open", "rf")
 
@@ -270,15 +276,17 @@ class stage:
             self.rf = torch.profiler.record_function("ed3dgs." + self.name)
             self.rf.__enter__()
         o = _OPEN[-1] if _OPEN else None
-        self.open = o if o is not None and self.name in o.index else None
+        self.open = o if o is not None and self.name in o.index and not o.sealed else None
         if self.open is not None:
             o.stack.append(self.name)
             o.switch(self.name)
+            o.sealed = self.name in OPAQUE
         return self
 
     def __exit__(self, exc_type, exc, tb):
         o = self.open
         if o is not None:
+            o.sealed = False
             o.stack.pop()
             if o.stack and exc_type is None:
                 o.switch(o.stack[-1])

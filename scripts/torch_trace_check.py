@@ -97,7 +97,7 @@ def run_seed(bench: dict, workload: str, seed: int, seconds: float) -> dict:
     s = trace.summary()
     spec = cell.cell_spec(bench, workload)
     traced = spec["traffic"]["traced"]
-    main = "step" if spec["traffic"]["loop"] == "train" else "frame"
+    main = "frame" if spec["traffic"]["loop"] == "render" else "step"
     r = s["regions"][main]
     checks = {}
     for name, reg in s["regions"].items():

@@ -1,6 +1,8 @@
 """The port's tracer (ed3dgs_torch/utils/trace.py) on the CPU, where the
 "device" clock is the host's: a region's stages partition each call's span
-(the train step at batch 2 and 1, a frame, a stage entered inside another);
+(the train step at batch 2 and 1 and with the tongue terms, a frame, a stage
+entered inside another, the opaque tongue stage whose inner stages do not
+stamp);
 the ring keeps the last R calls and readers skip eager rows; host spans
 carry their path, parent's call id and self time; the card's stamps convert
 to the host clock by the calibrated offset, against which each gap between
@@ -64,7 +66,10 @@ def test_the_steps_stages_partition_each_call():
     assert [r.call for r in rows] == [0, 1]
     check_partition(rows[:1], 13)
     check_partition(rows[1:], 9)
-    assert all(r.stages[i] > 0 for r in rows for i in range(len(trace.REGIONS["step"])))
+    tongue = trace.REGIONS["step"].index("tongue")
+    assert all(r.stages[i] > 0 for r in rows for i in range(len(trace.REGIONS["step"]))
+               if i != tongue)
+    assert all(r.stages[tongue] == 0 for r in rows)       # a step without the tongue
     s = trace.summary()
     assert s["regions"]["step"]["rows"] == 0          # no replay on the CPU
     assert s["regions"]["step"]["eager_rows"] == 2
@@ -118,6 +123,67 @@ def test_a_stage_inside_another_returns_to_it():
     assert r.stamps == 8    # deform, loss, deform, loss, project, loss, backward, the end
     assert ms["loss"] >= 6 and ms["deform"] >= 4 and ms["project"] >= 2
     assert ms["backward"] >= 2 and ms["bin"] == ms["adam"] == 0
+
+
+def test_stages_inside_the_tongue_stage_do_not_stamp():
+    """The tongue stage is opaque: its sub-renders' deform, project, bin and
+    blend count as tongue; on its exit the card is back in the loss, and the
+    stages still partition the call."""
+    with trace.region("step", CPU):
+        with trace.stage("deform"):
+            time.sleep(0.002)
+        with trace.stage("loss"):
+            time.sleep(0.002)
+            with trace.stage("tongue"):
+                time.sleep(0.002)
+                for sub in ("deform", "project", "bin", "blend"):
+                    with trace.stage(sub):
+                        time.sleep(0.002)
+            time.sleep(0.002)
+        with trace.stage("backward"):
+            time.sleep(0.002)
+        with trace.stage("deform"):          # outside the tongue: stamps again
+            time.sleep(0.002)
+    (r,) = trace.rows("step")
+    names = trace.REGIONS["step"]
+    ms = {s: r.stages[i] / 1e6 for i, s in enumerate(names)}
+    assert sum(r.stages) == r.end - r.begin
+    assert r.stamps == 7    # deform, loss, tongue, loss, backward, deform, the end
+    assert ms["tongue"] >= 10 and ms["loss"] >= 4 and 4 <= ms["deform"] < 10
+    assert ms["project"] == ms["bin"] == ms["blend"] == 0
+
+
+def test_a_tongue_steps_stages_partition_it_and_refreshes_count_the_tongue():
+    """The graphed step with the tongue terms (eager on the CPU), one
+    camera: 4 stamps for the camera, the loss, the tongue stage (its two
+    sub-renders stamp nothing), the loss again, backward, adam, writeback
+    and the end. A refresh with the tongue graph counts its alive tongue
+    rows and the tongue graph's weighted edges."""
+    from dataclasses import replace
+
+    from test_torch_cuda import graph_batch, graph_problem
+
+    from ed3dgs_torch.train import trainer
+
+    cam, setup, state, aux, optimizer, _ = graph_problem("cpu")
+    C = aux.alive.shape[0]
+    aux = aux._replace(tongue_class=(torch.arange(C) % 3 == 0).to(torch.float32)[:, None])
+    setup = replace(setup, batch_size=1, tongue_enabled=True)
+    cache = trainer.refresh_knn_cache(state.params["gaussians"], aux, tongue_enabled=True)
+    cache = trainer.refresh_knn_cache(state.params["gaussians"], aux, tongue_enabled=True)
+    counts = trace.summary()["counters"]["tongue"]
+    tongue_alive = int((aux.alive & (aux.tongue_class[:, 0] > 0.5)).sum())
+    assert counts["alive"] == 2 * tongue_alive > 0
+    assert counts["graph_edges"] == 2 * cache.t_graph.rev_pair.shape[0] > 0
+    b = {k: v[:1] if isinstance(v, torch.Tensor) else v
+         for k, v in graph_batch(cam, "cpu", 0, False).items()}
+    b["tongue_gt"] = (b["gt_image"][:, :1] > 0.7).to(torch.float32)
+    _, _, metrics = trainer.make_train_step(setup, optimizer)(state, aux, b, cache)
+    (r,) = trace.rows("step")
+    check_partition([r], 11)
+    names = trace.REGIONS["step"]
+    assert all(r.stages[i] > 0 for i in range(len(names)))
+    assert int(metrics["tongue_pairs"].sum()) == int(metrics["num_pairs"])
 
 
 def fill(region, n, replayed, stage_ns, gap_ns=1000, start=10 ** 9):
@@ -244,7 +310,7 @@ def test_dump_writes_a_chrome_trace(tmp_path):
 
 READERS = {   # reader -> (region or span, what it reads)
     **{f"{s}_ms.train": ("step", s) for s in
-       ("deform", "project", "bin", "blend", "loss", "backward", "adam")},
+       ("deform", "project", "bin", "blend", "loss", "tongue", "backward", "adam")},
     **{f"{s}_ms.render": ("frame", s) for s in ("deform", "project", "bin", "blend")},
     "densify_step_ms.train": ("densify_step", "densify_step"),
     "filter3d_ms.train": ("filter3d", "filter3d"),

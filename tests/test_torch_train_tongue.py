@@ -11,6 +11,7 @@ interpret-mode renders the eager step takes ~150 s on a CPU, the jitted one
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_train import ITERATION, REL, assert_grads_match
 from test_torch_train_knn import check_aux, check_metrics, run_steps
@@ -28,10 +29,17 @@ def tongue_steps():
 
 
 def test_tongue_step_loss_and_metrics_match_jax(tongue_steps):
+    """Every metric the JAX step reports; `tongue_pairs`, the port's own
+    count of the two sub-renders' pairs, against the step's pair demand."""
     (_, _, jmetrics, _, _), (loss, metrics, *_), (_, _, step_metrics) = tongue_steps
-    check_metrics(jmetrics, metrics, step_metrics, loss)
+    pairs = metrics["tongue_pairs"]
+    check_metrics(jmetrics, {k: v for k, v in metrics.items() if k != "tongue_pairs"},
+                  step_metrics, loss)
     for k in TONGUE_METRICS:
         assert float(metrics[k]) > 0, k
+    assert pairs.dtype == torch.int32 and pairs.shape == (2,) and int(pairs.min()) > 0
+    assert torch.equal(step_metrics["tongue_pairs"], pairs)
+    assert int(pairs.sum()) <= int(metrics["num_pairs"])
 
 
 def test_tongue_step_gradients_match_jax(tongue_steps):
